@@ -1,0 +1,40 @@
+"""DynaFlow core on PyTorch — transparent & flexible intra-device
+parallelism via programmable operator scheduling.
+
+Public API:
+  Module / Op / Param / FnOp / trace / mark       — frontend capture
+  SplitModule / SplitFunc / Mark / partition      — graph partition (Fig. 5)
+  OpSchedulerBase / SchedCtx / record_plan        — programmable scheduling (Fig. 6)
+  StrategyPolicy / by_phase / by_token_threshold
+  / first_viable / when                           — per-context strategy policies
+  static_analysis / Realizer / realize            — backend (Alg. 1)
+  sequential_plan                                 — reference fallback
+"""
+from .analysis import AnalysisResult, static_analysis
+from .backend import FusedCallInfo, Realizer, realize, sequential_plan
+from .graph import FULL, OpGraph, OpNode, TensorRef
+from .module import FnOp, Module, Op, Param, TensorSpec, mark, trace
+from .partition import Mark, SplitEveryOp, SplitFunc, SplitModule, partition
+from .plan import (ExecutionPlan, OpHandle, PlanStep, graph_fingerprint,
+                   scheduler_identity)
+from .policy import (StrategyPolicy, as_policy, by_phase,
+                     by_token_threshold, first_viable, has_ops,
+                     local_batch_below, phase_is, resolve_strategy,
+                     tokens_of, when)
+from .scheduler import (OpSchedulerBase, SchedCtx, ScheduleContext,
+                        ScheduleError, record_plan)
+
+__all__ = [
+    "FULL", "OpGraph", "OpNode", "TensorRef",
+    "FnOp", "Module", "Op", "Param", "TensorSpec", "mark", "trace",
+    "Mark", "SplitEveryOp", "SplitFunc", "SplitModule", "partition",
+    "ExecutionPlan", "OpHandle", "PlanStep", "graph_fingerprint",
+    "OpSchedulerBase", "SchedCtx", "ScheduleContext", "ScheduleError",
+    "record_plan",
+    "StrategyPolicy", "as_policy", "by_phase", "by_token_threshold",
+    "first_viable", "when", "has_ops", "local_batch_below", "phase_is",
+    "resolve_strategy", "tokens_of",
+    "scheduler_identity",
+    "AnalysisResult", "static_analysis",
+    "FusedCallInfo", "Realizer", "realize", "sequential_plan",
+]
