@@ -1,39 +1,57 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Runs chatglm3-6b at its full published width and depth (28 layers,
-d_model 4096, 32 q / 2 kv heads, d_ff 13696, vocab 65024; ~6.2 B random
-bf16 parameters drawn from a seeded ``torch.Generator`` on the card) in
-four phases, each printing one JSON line:
+Runs two models the repository supports at their full published width,
+with random weights drawn from a seeded ``torch.Generator`` on the card:
+chatglm3-6b (28 layers, d_model 4096, 32 q / 2 kv heads, d_ff 13696,
+vocab 65024; ~6.2 B bf16 parameters, 12.5 GB) and deepseek-moe-16b (28
+layers, the first dense, d_model 2048, 16 heads, 64 routed experts of
+width 1408 top-6 plus 2 shared, vocab 102400; 16.4 B parameters, ~33
+GB).  Phases, each printing one JSON line:
 
   kernels   build the CUDA kernels from ``src/repro_torch/kernels/csrc``
             and hold each Hopper kernel against its plain PyTorch version
             at the main path's shapes; time kernel, plain version and the
             one-call PyTorch yardstick where there is one
-  reference a 2-layer cut of the model at full width on the GPU (kernels)
-            against the same program on the CPU (plain versions)
+  reference a 2-layer cut of chatglm3-6b at full width on the GPU
+            (kernels) against the same program on the CPU (plain versions)
   transparency
-            ``Program.prefill(2, 2048)`` under ``dynamic`` against
-            ``sequential`` on the same params and inputs: dynamic
-            resolves to TokenWeave, whose fused add+RMSNorm replaces each
-            layer's [reduce-scatter -> add -> RMSNorm] chain
+            chatglm3-6b ``Program.prefill(2, 2048)`` under ``dynamic``
+            against ``sequential`` on the same params and inputs: as
+            published (sequence parallel) dynamic resolves to NanoFlow;
+            with ``seq_parallel=False`` to TokenWeave, whose fused
+            add+RMSNorm replaces each layer's [all-reduce -> add ->
+            RMSNorm] chain
   serve     ``compile("chatglm3-6b").serve`` answers 4 requests (prompts
-            of ~17, 300, 1000 and 2000 tokens, 16 greedy tokens each):
-            the main path
+            of 17, 300, 1000 and 2000 tokens, 16 greedy tokens each)
+  moe_reference
+            deepseek-moe-16b cut to 2 layers (the dense first layer and
+            one MoE layer) at full width, B=2 S=128, GPU against CPU
+  moe_transparency
+            deepseek-moe-16b at full depth, B=2 S=2048: ``dynamic``
+            resolves the MoE layers to DBO, held against two sequential
+            B=1 runs; ``comet`` against sequential on the same batch
+  moe_serve ``compile("deepseek-moe-16b").serve`` answers the same 4
+            requests: DBO prefill, grouped-FFN decode
 
-Launch counts are zeroed just before the serve run and read just after;
-the ``kernels`` line reports them (null when the serve phase did not run).
+Each model phase zeroes the launch counts just before the run it checks
+and reads them just after; the ``kernels`` line reports their sum over
+the phases that ran (null when none did), and every kernel must have
+launched on some path.
 
-Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,serve]
-        (add ``profile`` for a torch.profiler breakdown of a warm prefill
-        and a window of decode steps)
+Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,
+            serve,moe_reference,moe_transparency,moe_serve]
+        (add ``profile`` / ``moe_profile`` for a torch.profiler breakdown
+        of a warm prefill and a window of decode steps of either model)
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside this file.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -60,6 +78,12 @@ TOL = {
     # f32 sums; x*rsqrt rounded to bf16, then *g rounded: 2 ulps
     "rmsnorm": dict(atol=1e-3, rtol=1.6e-2, l2=4e-3),
     "fused_add_rmsnorm": dict(atol=1e-3, rtol=1.6e-2, l2=4e-3),
+    # the kernel keeps h = silu(x W1) * (x W3) in bf16 between its two
+    # launches (2^-9 relative per element), which moves an output by at
+    # most 2^-9 * sum_f |h||W2| = 2^-9 * (|h| @ |W2|): pv is that with a
+    # factor 2 (P|V| of flash's rule is |h| @ |W2| here), rtol one output
+    # ulp; all of F is summed in f32 and rounded once
+    "grouped_ffn": dict(atol=0.0, pv=2 ** -8, rtol=2 ** -7, l2=1e-2),
 }
 SEED = 0
 
@@ -122,6 +146,7 @@ def phase_kernels(dev, build_log=None):
     from repro_torch.kernels import _build, reset_launch_counts
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import rmsnorm as rn
 
     t0 = time.perf_counter()
@@ -227,6 +252,54 @@ def phase_kernels(dev, build_log=None):
                          iters=20),
         bound_ms=bms, bound_by=by, library_ms=None))
     del x, y, gw, out, ref, s1, s2, h1, h2
+
+    # grouped expert FFN: deepseek-moe-16b's 64 experts at D=2048,
+    # F=1408; the DBO prefill micro-batch (capacity 480 of 4096 tokens)
+    # for the timings, and the decode tier (capacity 4) checked too
+    E, D, Fd = 64, 2048, 1408
+    pairs, hws, timing = [], [], {}
+    for N in (480, 4):
+        x = randn(E, N, D)
+        w1 = (randn(E, D, Fd).float() * D ** -0.5).to(torch.bfloat16)
+        w3 = (randn(E, D, Fd).float() * D ** -0.5).to(torch.bfloat16)
+        w2 = (randn(E, Fd, D).float() * Fd ** -0.5).to(torch.bfloat16)
+        out = gm.grouped_ffn(x, w1, w3, w2)
+        ref = gm.grouped_ffn_plain(x, w1, w3, w2)
+        xf = x.float()
+        h = F.silu(torch.bmm(xf, w1.float())) * torch.bmm(xf, w3.float())
+        hws.append(torch.bmm(h.abs(), w2.float().abs()))
+        pairs.append((out, ref))
+        torch.cuda.synchronize()
+        flops = 6.0 * E * N * D * Fd
+        nbytes = 2 * (2 * E * N * D + 3 * E * D * Fd)
+        bms, by = bound(flops, nbytes)
+        timing[N] = dict(
+            shape=f"E={E} N={N} D={D} F={Fd} bf16",
+            ms=cuda_ms(lambda: gm.grouped_ffn(x, w1, w3, w2)),
+            plain_ms=cuda_ms(lambda: gm.grouped_ffn_plain(x, w1, w3, w2),
+                             iters=5),
+            bound_ms=bms, bound_by=by,
+            composition_ms=cuda_ms(lambda: torch.bmm(
+                F.silu(torch.bmm(x, w1)) * torch.bmm(x, w3), w2)))
+        del x, w1, w3, w2, h, xf
+    checks = [compare("grouped_ffn", [p], pv=hw)
+              for p, hw in zip(pairs, hws)]
+    main = timing[480]
+    rows.append(dict(
+        name="grouped_ffn", route="cuda",
+        source="src/repro_torch/kernels/csrc/grouped_ffn.cu",
+        replaces="src/repro/kernels/grouped_matmul.py:40",
+        shape=main["shape"] + "; decode E=64 N=4 checked too",
+        max_abs_err=max(c["max_abs_err"] for c in checks),
+        rel_l2=max(c["rel_l2"] for c in checks),
+        tolerance=checks[0]["tolerance"], ok=all(c["ok"] for c in checks),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"],
+        # no single PyTorch call computes the gated FFN: the cuBLAS
+        # composition bmm x3 + silu*mul is timed beside it as a yardstick
+        library_ms=None, composition_ms=main["composition_ms"],
+        decode_tier=timing[4]))
+    del pairs, hws, out, ref
     reset_launch_counts()
     log({"phase": "kernels", "build_s": build_s,
          "tolerance": "per kernel: |kernel - plain| <= atol + rtol*|plain| "
@@ -255,28 +328,97 @@ def rel_err(a, b):
 
 
 # ---------------------------------------------------------------------------
+# launch counts and routes
+# ---------------------------------------------------------------------------
+
+
+def counted(totals, fn):
+    """Run ``fn`` with the launch counts zeroed just before and read just
+    after; add them to ``totals`` and return (result, counts)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return out, counts
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """(input, expert ids) of every MoE router call while the block runs."""
+    from repro_torch.models import moe
+    calls = []
+    orig = moe.RouterOp.kernel
+
+    def kernel(op, p, x):
+        w, ve = orig(op, p, x)
+        if x.device.type != "meta":      # not a trace's shape inference
+            calls.append((x, ve))
+        return w, ve
+
+    moe.RouterOp.kernel = kernel
+    try:
+        yield calls
+    finally:
+        moe.RouterOp.kernel = orig
+
+
+def route_check(a, b, wrs, k):
+    """Routes of two runs (``recorded_routes`` lists, one entry per MoE
+    layer; ``wrs`` the layers' router weights): the share of tokens whose
+    set of chosen experts is the same, and the number of differing routes
+    that no near tie explains.  The router ranks the logits x @ wr; run
+    a's input differs from b's by dx, which moves expert e's logit by
+    (dx @ wr)_e, so a's top-k set can differ from b's only where b's
+    k-th and (k+1)-th logits lie within 2 max_e |(dx @ wr)_e| (+1e-4 for
+    the f32 products): a differing route off such a near tie is a
+    routing fault, and the size of dx is held by the callers' checks of
+    the layers' outputs."""
+    import torch
+    assert len(a) == len(b) == len(wrs) > 0, (len(a), len(b), len(wrs))
+    same_all, unexplained = [], 0
+    for (xa, va), (xb, vb), wr in zip(a, b, wrs):
+        xa, xb, wr = xa.float().cpu(), xb.float().cpu(), wr.float().cpu()
+        same = (va.cpu().sort(-1).values == vb.cpu().sort(-1).values).all(-1)
+        top = (xb @ wr).topk(k + 1, dim=-1).values
+        margin = top[..., k - 1] - top[..., k]
+        bound = 2 * ((xa - xb) @ wr).abs().amax(-1) + 1e-4
+        unexplained += int((~same & (margin > bound)).sum())
+        same_all.append(same.flatten())
+    return float(torch.cat(same_all).float().mean()), unexplained
+
+
+# ---------------------------------------------------------------------------
 # phase 2: reference on a small input
 # ---------------------------------------------------------------------------
 
 
-def phase_reference(dev):
-    """Two layers at full width: GPU (kernels) against CPU (plain)."""
+def phase_reference(dev, totals, arch="chatglm3-6b"):
+    """Two layers at full width: GPU (kernels) against CPU (plain).  For
+    the MoE model also the share of tokens routed alike."""
     import torch
 
     from repro_torch.api import compile
     from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES
-    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     prog = compile(cfg, policy="sequential")
     params = prog.init_params(SEED, device="cpu")
     step = prog.prefill(2, 128)
     batch = prefill_batch(2, 128, cfg.vocab, "cpu", SEED)
-    want = step(params, batch)
+    with recorded_routes() as cpu_routes:
+        want = step(params, batch)
     gpu_params = {k: _to(v, dev) for k, v in params.items()}
-    got = step(gpu_params, {k: v.to(dev) for k, v in batch.items()})
-    torch.cuda.synchronize()
+    gpu_batch = {k: v.to(dev) for k, v in batch.items()}
+    with recorded_routes() as gpu_routes:
+        got, counts = counted(totals, lambda: step(gpu_params, gpu_batch))
     checks = {}
-    for key in ("logits", "layers.k", "layers.v"):
+    for key in [k for k in want if k == "logits" or k.split(".")[-1]
+                in ("k", "v")]:
         a, b = got[key].cpu(), want[key]
         checks[key] = {"rel_err": rel_err(a, b),
                        "max_abs_err": max_err(a, b),
@@ -284,11 +426,26 @@ def phase_reference(dev):
     ok = all(c["finite"] and c["rel_err"] < 2e-2 for c in checks.values())
     ok = ok and bool((got["logits"].argmax(-1).cpu()
                       == want["logits"].argmax(-1)).float().mean() >= 0.5)
-    log({"phase": "reference", "config": "chatglm3-6b at full width, 2 "
-         "layers, B=2 S=128", "checks": checks,
-         "tolerance": "relative L2 error < 2e-2: bf16 round-off of the "
-                      "kernels against the plain versions on the CPU",
-         "kernel_launches": dict(LAUNCHES), "ok": ok})
+    out = {"phase": "reference" if cfg.moe is None else "moe_reference",
+           "config": f"{arch} at full width, 2 layers, B=2 S=128",
+           "checks": checks,
+           "tolerance": "relative L2 error < 2e-2: bf16 round-off of the "
+                        "kernels against the plain versions on the CPU",
+           "kernel_launches": counts}
+    if cfg.moe is not None:
+        share, unexplained = route_check(
+            gpu_routes, cpu_routes, [params["layers"]["moe"]["router"]["wr"]],
+            cfg.moe.top_k)
+        out["routes_agree_share"] = share
+        out["routes_differing_off_a_near_tie"] = unexplained
+        out["tolerance"] += ("; every route that differs sits on a near "
+                             "tie of the CPU run's router logits (k-th and "
+                             "(k+1)-th within twice the largest logit "
+                             "change dx @ wr): with random weights the 64 "
+                             "experts' logits are ~N(0, 1), ~0.1 apart at "
+                             "the top-6 boundary")
+        ok = ok and unexplained == 0
+    log(dict(out, ok=ok))
     return ok
 
 
@@ -303,34 +460,37 @@ def _to(tree, dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_transparency(dev, params):
+def phase_transparency(dev, params, totals):
+    """chatglm3-6b at full depth, B=2 S=2048: ``dynamic`` against
+    ``sequential``, as published and with ``seq_parallel=False``."""
     import torch
 
     from repro_torch.api import compile
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    prog = compile("chatglm3-6b", policy="sequential")
-    seq = prog.prefill(2, 2048)
-    dyn = compile("chatglm3-6b", policy="dynamic").prefill(2, 2048)
-    batch = prefill_batch(2, 2048, prog.model.cfg.vocab, dev, SEED + 1)
-    want = seq(params, batch)["logits"]
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = dyn(params, batch)["logits"]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = launch_counts()
-    err = rel_err(got, want)
-    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    finite = bool(torch.isfinite(got.float()).all())
-    ok = (finite and err < 5e-2 and agree >= 0.5
-          and dyn.strategies.get("layers") == "tokenweave"
-          and counts.get("fused_add_rmsnorm", 0) > 0)
-    log({"phase": "transparency", "shape": "B=2 S=2048",
-         "strategies": dyn.strategies, "rel_err_vs_sequential": err,
-         "max_abs_err_vs_sequential": max_err(got, want),
-         "argmax_agree": agree, "finite": finite, "launches": counts,
-         "dynamic_prefill_s": dt,
+    from repro_torch.configs import get_config
+    ok, runs = True, {}
+    for sp, want_strategy, fused in ((True, "nanoflow", False),
+                                     (False, "tokenweave", True)):
+        cfg = dataclasses.replace(get_config("chatglm3-6b"), seq_parallel=sp)
+        seq = compile(cfg, policy="sequential").prefill(2, 2048)
+        dyn = compile(cfg, policy="dynamic").prefill(2, 2048)
+        batch = prefill_batch(2, 2048, cfg.vocab, dev, SEED + 1)
+        want = seq(params, batch)["logits"]
+        t0 = time.perf_counter()
+        got, counts = counted(totals, lambda: dyn(params, batch)["logits"])
+        dt = time.perf_counter() - t0
+        err = rel_err(got, want)
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        finite = bool(torch.isfinite(got.float()).all())
+        this_ok = (finite and err < 5e-2 and agree >= 0.5
+                   and dyn.strategies.get("layers") == want_strategy
+                   and (counts.get("fused_add_rmsnorm", 0) > 0) == fused)
+        ok = ok and this_ok
+        runs["published" if sp else "seq_parallel_off"] = {
+            "strategies": dyn.strategies, "rel_err_vs_sequential": err,
+            "max_abs_err_vs_sequential": max_err(got, want),
+            "argmax_agree": agree, "finite": finite, "launches": counts,
+            "dynamic_prefill_s": dt, "ok": this_ok}
+    log({"phase": "transparency", "shape": "B=2 S=2048", "runs": runs,
          "tolerance": "relative L2 error of the logits < 5e-2 and the "
                       "same argmax: TokenWeave normalizes the unrounded f32 "
                       "sum, sequential its bf16 rounding, and the 1-ulp "
@@ -339,19 +499,169 @@ def phase_transparency(dev, params):
     return ok
 
 
+class _Recorder:
+    """Wraps a layer stack's Realizer: keeps each layer call's inputs and
+    outputs (the Forward calls its realizer once per layer)."""
+
+    def __init__(self, rz):
+        self.rz, self.calls = rz, []
+
+    def __call__(self, params, inputs):
+        out = self.rz(params, inputs)
+        self.calls.append((inputs, out))
+        return out
+
+
+def _layer(tree, i):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def phase_moe_transparency(dev, params, totals):
+    """deepseek-moe-16b at full depth, B=2 S=2048: ``dynamic`` (DBO)
+    against two sequential B=1 runs, and ``comet`` against sequential.
+
+    Routes are discrete and random weights put the 64 experts' logits
+    ~0.1 apart at the top-6 boundary, so one ulp of difference anywhere
+    (cuBLAS may round a row differently at another batch size) flips a
+    few near-tie routes, and a flipped token reaches every later token
+    through attention: end to end, two such runs drift apart over 27
+    layers.  DBO is therefore held layer by layer: each MoE layer of the
+    DBO plan runs on the sequential runs' input to that layer (teacher
+    forcing), and its outputs must match theirs on every token whose
+    route agrees, with every differing route on a near tie.  The end to
+    end numbers are reported beside it."""
+    import torch
+
+    from repro_torch.api import compile
+    seq_prog = compile("deepseek-moe-16b", policy="sequential")
+    cfg = seq_prog.model.cfg
+    k = cfg.moe.top_k
+    wrs = params["layers"]["moe"]["router"]["wr"]
+    batch = prefill_batch(2, 2048, cfg.vocab, dev, SEED + 1)
+    rows = [{key: v[b:b + 1] for key, v in batch.items()} for b in range(2)]
+    seq1 = seq_prog.prefill(1, 2048)
+    recs, want_rows, routes_rows = [], [], []
+    for row in rows:
+        rec = seq1.fn.realizers["layers"] = _Recorder(
+            seq1.fn.realizers["layers"])
+        with recorded_routes() as r:
+            want_rows.append(seq1(params, row)["logits"])
+        recs.append(rec)
+        routes_rows.append(r)
+        seq1.fn.realizers["layers"] = rec.rz
+    want_split = torch.cat(want_rows)
+    split_routes = [(torch.cat([xa, xb]), torch.cat([va, vb]))
+                    for (xa, va), (xb, vb) in zip(*routes_rows)]
+    seq2 = seq_prog.prefill(2, 2048)
+    with recorded_routes() as seq_routes:
+        want_full = seq2(params, batch)["logits"]
+    ok, runs = True, {}
+    for policy, strategy, want, want_routes in (
+            ("dynamic", "dbo", want_split, split_routes),
+            ("comet", "comet", want_full, seq_routes)):
+        step = compile("deepseek-moe-16b", policy=policy).prefill(2, 2048)
+        t0 = time.perf_counter()
+        with recorded_routes() as routes:
+            got, counts = counted(totals,
+                                  lambda: step(params, batch)["logits"])
+        dt = time.perf_counter() - t0
+        err = rel_err(got, want)
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        share, unexplained = route_check(routes, want_routes,
+                                         list(wrs), k)
+        finite = bool(torch.isfinite(got.float()).all())
+        this_ok = (finite and unexplained == 0
+                   and step.strategies.get("layers") == strategy
+                   and counts.get("grouped_ffn", 0) > 0)
+        run = {"strategies": step.strategies,
+               "against": ("two sequential B=1 runs" if policy == "dynamic"
+                           else "sequential B=2"),
+               "rel_err": err, "max_abs_err": max_err(got, want),
+               "argmax_agree": agree, "routes_agree_share": share,
+               "routes_differing_off_a_near_tie": unexplained,
+               "finite": finite, "launches": counts, "prefill_s": dt}
+        if policy == "comet":
+            this_ok = this_ok and err < 5e-2 and agree >= 0.5
+        else:
+            per_layer = _dbo_layer_by_layer(step, recs, split_routes, params,
+                                            wrs, k)
+            run["layer_by_layer"] = per_layer
+            this_ok = this_ok and per_layer["ok"]
+        runs[policy] = dict(run, ok=this_ok)
+        ok = ok and this_ok
+    log({"phase": "moe_transparency", "shape": "B=2 S=2048", "runs": runs,
+         "gemm_rows_bitwise_at_4096_and_2048_rows":
+             _gemm_rows_batch_invariant(dev),
+         "tolerance": "comet: relative L2 error of the logits < 5e-2 and "
+                      "the same argmax (it re-chunks the same dispatch "
+                      "buffer); dbo, layer by layer on the sequential "
+                      "runs' inputs: relative L2 error < 1e-2 of x on the "
+                      "tokens routed alike and of k, v (GEMM round-off at "
+                      "another batch size); both: every differing route "
+                      "on a near tie of the reference's router logits",
+         "ok": ok})
+    return ok
+
+
+def _gemm_rows_batch_invariant(dev):
+    """Whether a row of x @ w comes out bitwise the same in a product of
+    4096 rows as in one of 2048 (DBO's merged attention against a B=1
+    run), for the merged products of a MoE layer."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, K, N, dt in (("qkv_proj", 2048, 6144, torch.bfloat16),
+                           ("o_proj", 2048, 2048, torch.bfloat16),
+                           ("router", 2048, 64, torch.float32)):
+        x = torch.randn((4096, K), generator=g, device=dev).to(dt)
+        w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(dt)
+        out[name] = bool(torch.equal(
+            x @ w, torch.cat([x[:2048] @ w, x[2048:] @ w])))
+    return out
+
+
+def _dbo_layer_by_layer(step, recs, seq_routes, params, wrs, k):
+    """Each MoE layer of the DBO plan on the sequential B=1 runs' input to
+    that layer, against their outputs."""
+    import torch
+    rz = step.fn.realizers["layers"]
+    worst = {"x": 0.0, "k": 0.0, "v": 0.0}
+    shares, unexplained = [], 0
+    for i, ((in0, out0), (in1, out1)) in enumerate(zip(*[r.calls
+                                                         for r in recs])):
+        inputs = {key: torch.cat([in0[key], in1[key]]) for key in in0}
+        with recorded_routes() as routes:
+            got = rz(_layer(params["layers"], i), inputs)
+        share, bad = route_check(routes, [seq_routes[i]], [wrs[i]], k)
+        shares.append(share)
+        unexplained += bad
+        same = (routes[0][1].sort(-1).values
+                == seq_routes[i][1].sort(-1).values).all(-1)
+        for key in worst:
+            want = torch.cat([out0[key], out1[key]])
+            a, b = (got[key][same], want[same]) if key == "x" else \
+                (got[key], want)
+            worst[key] = max(worst[key], rel_err(a, b))
+    return {"layers": len(shares), "max_rel_err": worst,
+            "min_routes_agree_share": min(shares),
+            "routes_differing_off_a_near_tie": unexplained,
+            "ok": unexplained == 0 and max(worst.values()) < 1e-2}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve (the main path)
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(dev, params, gpu):
+def phase_serve(dev, params, gpu, totals, arch="chatglm3-6b"):
     import numpy as np
     import torch
 
     from repro_torch.api import compile
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import Request, ServeConfig
-    prog = compile("chatglm3-6b")          # policy: dynamic
+    prog = compile(arch)          # policy: dynamic
     cfg = prog.model.cfg
     scfg = ServeConfig(max_batch=4, s_max=4096, prefill_batch=4,
                        prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048))
@@ -370,23 +680,26 @@ def phase_serve(dev, params, gpu):
         return engine, done, time.perf_counter() - t0
 
     run(2)                        # warm-up: trace, schedule, JIT
-    reset_launch_counts()
-    engine, done, wall = run(16)
-    counts = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (engine, done, wall), counts = counted(totals, lambda: run(16))
     reqs = sorted(done, key=lambda r: r.rid)
     tokens = sum(len(r.output) for r in reqs)
     ok = (len(reqs) == 4 and all(r.ok and len(r.output) == 16 for r in reqs)
           and all(0 <= t < cfg.vocab for r in reqs for t in r.output))
-    for name in ("flash_attention", "decode_attention", "rmsnorm",
-                 "fused_add_rmsnorm"):
+    need = ("flash_attention", "decode_attention", "rmsnorm") + (
+        ("grouped_ffn",) if cfg.moe else ())
+    for name in need:
         ok = ok and counts.get(name, 0) > 0
-    log({"phase": "serve", "gpu": gpu, "prompt_lens": list(lens),
+    log({"phase": "serve" if cfg.moe is None else "moe_serve",
+         "arch": arch, "gpu": gpu, "prompt_lens": list(lens),
          "new_tokens": 16, "wall_s": wall, "tokens_per_s": tokens / wall,
          "ttft_s": [r.first_token_s - r.submitted_s for r in reqs],
          "outputs_head": [r.output[:4] for r in reqs],
+         "strategies": {f"{ph}:{b}x{s}": fwd.strategies
+                        for (ph, b, s), fwd in prog._serve_steps.items()},
          "stats": engine.stats, "launches": counts,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": ok})
-    return ok, counts
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -435,15 +748,14 @@ def _profile(fn, steps):
                 for e in by_cpu}}
 
 
-def phase_profile(dev, params):
-    """One warm prefill (B=4, bucket 2048, TokenWeave) and a window of
-    tier-4 decode steps of the serve path, under the profiler."""
+def phase_profile(dev, params, arch="chatglm3-6b"):
+    """One warm prefill (B=4, bucket 2048) and a window of tier-4 decode
+    steps of the serve path, under the profiler."""
     import numpy as np
-    import torch
 
     from repro_torch.api import compile
     from repro_torch.serve import Request, ServeConfig
-    prog = compile("chatglm3-6b")
+    prog = compile(arch)
     cfg = prog.model.cfg
     step = prog.prefill(4, 2048)
     batch = prefill_batch(4, 2048, cfg.vocab, dev, SEED + 2)
@@ -460,16 +772,65 @@ def phase_profile(dev, params):
         engine.step()
     decode = _profile(engine.step, 16)
     engine.run()
-    log({"phase": "profile", "prefill_B4_S2048": prefill,
-         "decode_tier4": decode})
+    log({"phase": "profile" if cfg.moe is None else "moe_profile",
+         "arch": arch, "prefill_strategies": step.strategies,
+         "prefill_B4_S2048": prefill, "decode_tier4": decode})
 
 
 # ---------------------------------------------------------------------------
 
 
+def init_params(arch):
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    params = compile(get_config(arch)).init_params(SEED)
+    torch.cuda.synchronize()
+    log({"phase": "init", "arch": arch,
+         "params": sum(t.numel() for t in _leaves(params)),
+         "gb": sum(t.numel() * t.element_size()
+                   for t in _leaves(params)) / 1e9,
+         "init_s": time.perf_counter() - t0})
+    return params
+
+
+def run_dense(phases, dev, gpu, totals):
+    ok = True
+    if "reference" in phases:
+        ok = phase_reference(dev, totals) and ok
+    if phases & {"transparency", "serve", "profile"}:
+        params = init_params("chatglm3-6b")
+        if "transparency" in phases:
+            ok = phase_transparency(dev, params, totals) and ok
+        if "profile" in phases:
+            phase_profile(dev, params)
+        if "serve" in phases:
+            ok = phase_serve(dev, params, gpu, totals) and ok
+    return ok
+
+
+def run_moe(phases, dev, gpu, totals):
+    ok = True
+    if "moe_reference" in phases:
+        ok = phase_reference(dev, totals, "deepseek-moe-16b") and ok
+    if phases & {"moe_transparency", "moe_serve", "moe_profile"}:
+        params = init_params("deepseek-moe-16b")
+        if "moe_transparency" in phases:
+            ok = phase_moe_transparency(dev, params, totals) and ok
+        if "moe_profile" in phases:
+            phase_profile(dev, params, "deepseek-moe-16b")
+        if "moe_serve" in phases:
+            ok = phase_serve(dev, params, gpu, totals,
+                             "deepseek-moe-16b") and ok
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,reference,transparency,serve")
+    ap.add_argument("--phases", default="kernels,reference,transparency,"
+                    "serve,moe_reference,moe_transparency,moe_serve")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")
     args = ap.parse_args(argv)
@@ -495,39 +856,22 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    ok = True
     kernel_rows = (phase_kernels(dev, args.build_log) if "kernels" in phases
                    else [])
-    ok = ok and all(r["ok"] for r in kernel_rows)
-    if "reference" in phases:
-        ok = phase_reference(dev) and ok
-    counts = {}
-    if phases & {"transparency", "serve", "profile"}:
-        from repro_torch.api import compile
-        from repro_torch.configs import get_config
-        t0 = time.perf_counter()
-        params = compile(get_config("chatglm3-6b")).init_params(SEED)
-        torch.cuda.synchronize()
-        n_params = sum(t.numel() for t in _leaves(params))
-        log({"phase": "init", "params": n_params,
-             "gb": sum(t.numel() * t.element_size()
-                       for t in _leaves(params)) / 1e9,
-             "init_s": time.perf_counter() - t0})
-        if "transparency" in phases:
-            ok = phase_transparency(dev, params) and ok
-        if "profile" in phases:
-            phase_profile(dev, params)
-        if "serve" in phases:
-            serve_ok, counts = phase_serve(dev, params, gpu)
-            ok = serve_ok and ok
-            for r in kernel_rows:
-                r["launches"] = counts.get(r["name"], 0)
-                ok = ok and r["launches"] > 0
+    ok = all(r["ok"] for r in kernel_rows)
+    totals: dict = {}     # launches summed over the model phases that ran
+    ok = run_dense(phases, dev, gpu, totals) and ok
+    gc.collect()          # the chatglm3-6b params go before the MoE's
+    torch.cuda.empty_cache()
+    ok = run_moe(phases, dev, gpu, totals) and ok
+    model_phases = phases - {"kernels"}
+    for r in kernel_rows:
+        r["launches"] = totals.get(r["name"], 0) if model_phases else None
+        ok = ok and (not model_phases or r["launches"] > 0)
     if kernel_rows:
-        # launches: the serve run's count; null when it did not run
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")
+                "library_ms", "composition_ms")
         log({"kernels": [{k: r.get(k) for k in keys}
                          for r in kernel_rows]})
     print(gpu, flush=True)

@@ -1,7 +1,7 @@
 """Architecture config registry.  ``get_config(arch_id)`` returns the exact
 published config; ``get_smoke_config(arch_id)`` a reduced same-family config
-for CPU smoke tests.  The port registers the dense configs of its first
-slice; the other families arrive with their slices."""
+for CPU smoke tests.  The port registers the configs of the families it
+has ported; the other families arrive with their slices."""
 from .base import SHAPES, ArchConfig, MoEConfig, ShapeConfig, SSMConfig  # noqa: F401
 
 _REGISTRY = {}
@@ -32,4 +32,4 @@ def list_archs():
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from . import chatglm3_6b, smollm_135m  # noqa: F401
+    from . import chatglm3_6b, deepseek_moe_16b, smollm_135m  # noqa: F401

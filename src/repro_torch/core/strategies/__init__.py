@@ -7,6 +7,7 @@ as an ``OpSchedulerBase`` on the DynaFlow frontend APIs.
   sbo          single-batch overlap: reorder independent compute behind
                network ops (LongCat-style)
   tokenweave   fused AR+add+RMSNorm via replace_func        (Gond et al.)
+  comet        chunked a2a/expert-GEMM overlap via replace_func
   dynamic      context-driven selection among the above (the paper's
                headline contribution: per-bucket strategy choice)
 
@@ -14,6 +15,7 @@ The authoritative name -> strategy mapping is the **registry**
 (:mod:`.registry`).
 """
 from ..policy import tokens_of  # noqa: F401  (re-export)
+from .comet import Comet  # noqa: F401
 from .dbo import DualBatchOverlap  # noqa: F401
 from .dynamic import dynamic_policy  # noqa: F401
 from .nanoflow import NanoFlow  # noqa: F401

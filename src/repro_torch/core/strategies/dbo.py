@@ -18,9 +18,6 @@ class DualBatchOverlap(OpSchedulerBase):
         self.min_tokens = min_tokens
 
     def partition_rules(self):
-        return [Mark("moe_dispatch"), Mark("moe_combine")]
-
-    def partition_rules(self):
         from ..partition import SplitFunc
         # keep weight gathers as standalone units so the prefetch hoist
         # can issue them ahead of the whole layer (coalescing them into

@@ -2,27 +2,20 @@
 
 Each takes the ``FusedCallInfo`` the backend hands to ``replace_func``
 plus the group's external inputs, and returns the group's external
-outputs.  ``comet_fused`` and ``flux_fused`` arrive with the slices that
-port their kernels.
+outputs.  ``flux_fused`` arrives with the slice that ports it.
 """
 from __future__ import annotations
+
+import torch
 
 from ...dist import collectives as col
 
 
-def reduce_scatter_chain(node) -> bool:
-    """Whether a TokenWeave chain starts at a reduce-scatter (``rs_*``,
-    the sequence-parallel form) rather than an all-reduce (``ar_*``)."""
-    return node.name.rsplit("/", 1)[-1].startswith("rs_")
-
-
 def tokenweave_fused(info, *vals, axis: str = "model", block_rows: int = 256):
-    """Replace [psum, add, rmsnorm] with RS + fused add/norm + AG, and
-    [reduce-scatter, add, rmsnorm] with RS + fused add/norm on the shard.
+    """Replace [psum, add, rmsnorm] with RS + fused add/norm + AG.
 
-    Handles order: (collective, add, norm).  Returns (s, h) = (x + c(y),
-    rmsnorm(x + c(y)) * g) matching the group's external outputs, where
-    c is the chain's collective."""
+    Handles order: (ar, add, norm).  Returns (s, h) = (x + psum(y),
+    rmsnorm(x + psum(y)) * g) matching the group's external outputs."""
     from ...kernels import ops as kops
     g_param = info.params_of(2)["g"]
     ar_node = info.node(0)
@@ -32,15 +25,35 @@ def tokenweave_fused(info, *vals, axis: str = "model", block_rows: int = 256):
     add_node = info.node(1)
     x_tid = next(t for t in add_node.inputs if t != ar_node.outputs[0])
     x = vals[idx[x_tid]]
-    if reduce_scatter_chain(ar_node):
-        # sequence parallel: the residual x is already this rank's shard
-        # of the sequence axis, and the graph's own all-gather follows
-        return kops.fused_add_rmsnorm(
-            x, col.reduce_scatter(y_partial, axis, dim=1), g_param,
-            block_rows=block_rows)
     tp = col.axis_size(axis)
     if x.shape[1] % max(tp, 1):   # sequence not divisible: plain fused path
         return kops.fused_add_rmsnorm(x, col.psum(y_partial, axis), g_param,
                                       block_rows=block_rows)
     return kops.fused_ar_add_rmsnorm(y_partial, x, g_param, axis=axis,
                                      block_rows=block_rows)
+
+
+def comet_fused(info, *vals, axis: str = "model", n_chunks: int = 4):
+    """Replace [a2a_dispatch, expert_ffn, a2a_combine] with a chunked
+    pipeline over the capacity axis: chunk i's grouped expert FFN can
+    overlap chunk i+1's dispatch all-to-all and chunk i-1's combine
+    (one GPU: the all-to-alls are the identity and the chunks run in
+    turn).  Each chunk is a view of the dispatch buffer, which the
+    grouped-FFN kernel reads in place."""
+    from ...kernels import ops as kops
+    buf = vals[0]                       # (V, C, d) capacity-packed tokens
+    p = info.params_of(1)
+    w1, w3, w2 = p["w1"], p["w3"], p["w2"]
+    V, C, d = buf.shape
+    G = n_chunks
+    while C % G:
+        G //= 2
+    G = max(G, 1)
+    Cc = C // G
+    outs = []
+    for i in range(G):
+        x_i = buf.narrow(1, i * Cc, Cc)
+        y_i = col.all_to_all(x_i, axis, split_dim=0, concat_dim=1)
+        z_i = kops.grouped_ffn(y_i, w1, w3, w2)
+        outs.append(col.all_to_all(z_i, axis, split_dim=1, concat_dim=0))
+    return torch.cat(outs, dim=1) if G > 1 else outs[0]

@@ -10,10 +10,9 @@
   * unknown names raise :class:`UnknownStrategyError` (a ``KeyError``)
     whose message lists every registered choice.
 
-The port registers the strategies of its first slice; ``comet``,
-``flux``, ``auto`` and ``spec_decode`` — and the autotuner's
-``param_space`` — wait for the slices that port their kernels, the
-autotuner and speculative decode.
+The port registers the strategies it has ported; ``flux``, ``auto``
+and ``spec_decode`` — and the autotuner's ``param_space`` — wait for the
+slices that port them, the autotuner and speculative decode.
 """
 from __future__ import annotations
 
@@ -93,6 +92,7 @@ def _dynamic_as_policy(**kw):
 
 
 def _register_builtins():
+    from .comet import Comet
     from .dbo import DualBatchOverlap
     from .nanoflow import NanoFlow
     from .sbo import SingleBatchOverlap
@@ -103,6 +103,7 @@ def _register_builtins():
     register_strategy("dbo", DualBatchOverlap)
     register_strategy("sbo", SingleBatchOverlap)
     register_strategy("tokenweave", TokenWeave)
+    register_strategy("comet", Comet)
     register_strategy("dynamic", _dynamic_scheduler,
                       policy_factory=_dynamic_as_policy)
 

@@ -1,12 +1,7 @@
 """TokenWeave integration (paper §5.3.4, Fig. 7 bottom).
 
 Finds every [all-reduce -> residual-add -> RMSNorm] chain and replaces it
-with the fused RS + add/norm-on-shard + AG kernel.  In a sequence-parallel
-graph the layer's collectives are already split into halves, and the
-chain is [reduce-scatter -> residual-add -> RMSNorm] with the graph's own
-all-gather after the norm: it is replaced by RS + add/norm-on-shard.  (The
-JAX package matches the all-reduce form only, so its ``dynamic`` never
-fuses a sequence-parallel prefill such as chatglm3-6b's.)  The paper's runtime
+with the fused RS + add/norm-on-shard + AG kernel.  The paper's runtime
 CTA-count knob maps to the Triton kernel's rows per program
 (``block_rows``), selected here per batch bucket (the §5.3.4 'up to 12%'
 adaptive win).
@@ -14,7 +9,7 @@ adaptive win).
 import functools
 
 from ..scheduler import OpSchedulerBase
-from .fused import reduce_scatter_chain, tokenweave_fused
+from .fused import tokenweave_fused
 
 
 class TokenWeave(OpSchedulerBase):
@@ -24,13 +19,11 @@ class TokenWeave(OpSchedulerBase):
         self.axis = axis
 
     def triples(self, g):
-        """[ar|rs, add, norm] chains: the collective's out only feeds add;
-        add feeds norm."""
+        """[ar, add, norm] chains: ar out only feeds add; add feeds norm."""
         out = []
         for oid in g.topo_order():
             n = g.nodes[oid]
-            if n.resource != "network" or not (
-                    "ar_" in n.name or reduce_scatter_chain(n)):
+            if n.resource != "network" or "ar_" not in n.name:
                 continue
             cons = g.consumers.get(n.outputs[0], [])
             if len(cons) != 1:

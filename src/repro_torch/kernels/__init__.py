@@ -5,6 +5,7 @@ plain PyTorch version (the port of the JAX package's ``kernels/ref.py``):
   decode_attention.py  flash-decode against a KV cache      (CUDA C++)
   rmsnorm.py           RMSNorm and fused residual-add +
                        RMSNorm                              (Triton)
+  grouped_matmul.py    grouped SwiGLU expert FFN            (CUDA C++)
   tokenweave.py        reduce-scatter + fused add/norm + all-gather
   ops.py               the dispatch the model code calls
 

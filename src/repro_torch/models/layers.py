@@ -10,8 +10,8 @@ Layouts follow the JAX package: linear weights are (d_in, d_out) and used
 as ``x @ w``; activations are (B, S, d); attention heads (B, S, H, hd).
 Attention, decode attention and RMSNorm go through ``kernels.ops`` — the
 Hopper kernels on a CUDA tensor, their plain versions on the CPU.
-MoE, Mamba2, FSDP weight gathers and the training head arrive with later
-slices.
+The MoE ops live in ``moe.py``; Mamba2, FSDP weight gathers and the
+training head arrive with later slices.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """The port's scheduling core (src/repro_torch/core) against the JAX
 package's.
 
-For the traced smoke graphs of smollm-135m and chatglm3-6b, in the
-prefill and decode phases, under sequential / sbo / nanoflow /
-tokenweave / dynamic, the port must produce the same trace (node names,
+For the traced smoke graphs of smollm-135m, chatglm3-6b and
+deepseek-moe-16b, in the prefill and decode phases, under sequential /
+sbo / nanoflow / tokenweave / dbo / comet / dynamic, the port must
+produce the same trace (node names,
 resources, edges, shapes, dtypes, batch dims, cost estimates), the same
 partitioned graph, the same plan (step kinds, handles, micro-batches,
 split sizes, fused groups) and the same Alg. 1 analysis (prealloc,
@@ -34,8 +35,9 @@ from repro_torch.core.plan import OpHandle, dtype_name
 from repro_torch.models.layers import MeshInfo as TMeshInfo
 from repro_torch.models.registry import build_model as tbuild_model
 
-ARCHS = ["smollm-135m", "chatglm3-6b"]
-POLICIES = ["sequential", "sbo", "nanoflow", "tokenweave", "dynamic"]
+ARCHS = ["smollm-135m", "chatglm3-6b", "deepseek-moe-16b"]
+POLICIES = ["sequential", "sbo", "nanoflow", "tokenweave", "dbo", "comet",
+            "dynamic"]
 # (phase, local batch, seq) — contexts that reach every dynamic branch:
 # sequential (< 64 tokens), SBO (< 2048), and the split/fuse branch
 CONTEXTS = [("prefill", 4, 1024), ("prefill", 1, 256), ("prefill", 2, 16),
@@ -141,26 +143,10 @@ def test_trace_matches_reference(models, ctx):
         {k: (s.shape, dtype_name(s.dtype), b) for k, (s, b) in tbin.items()}
 
 
-def reference_chain_rule(monkeypatch):
-    """Restrict the port's TokenWeave to the JAX package's chain rule:
-    all-reduce chains only.  The port also fuses the reduce-scatter chains
-    of sequence-parallel graphs (``test_tokenweave_fuses_sequence_parallel
-    _chains``); everything else must match the reference as it is."""
-    from repro_torch.core.strategies.fused import reduce_scatter_chain
-    from repro_torch.core.strategies.tokenweave import TokenWeave
-    port_rule = TokenWeave.triples
-
-    def ar_only(self, g):
-        return [t for t in port_rule(self, g)
-                if not reduce_scatter_chain(g.nodes[t[0]])]
-    monkeypatch.setattr(TokenWeave, "triples", ar_only)
-
-
 @pytest.mark.parametrize("policy", POLICIES)
 @pytest.mark.parametrize("ctx", CONTEXTS, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
-def test_plan_and_analysis_match_reference(models, policy, ctx, monkeypatch):
+def test_plan_and_analysis_match_reference(models, policy, ctx):
     jm, tm = models
-    reference_chain_rule(monkeypatch)
     jout = schedule_both(jcore, jm, policy, *ctx)
     tout = schedule_both(tcore, tm, policy, *ctx)
     for (jseg, jname, jg, jplan, jana), (tseg, tname, tg, tplan, tana) in \
@@ -173,58 +159,161 @@ def test_plan_and_analysis_match_reference(models, policy, ctx, monkeypatch):
             normalized_fingerprint(jg, _jdtype)
 
 
-def test_tokenweave_fuses_sequence_parallel_chains():
-    """chatglm3-6b is sequence-parallel: its prefill layer's chain is
-    [reduce-scatter -> add -> RMSNorm].  The port fuses it where the JAX
-    package finds no chain; every other step of the plan is the
-    reference's, in the reference's order."""
-    jm = jbuild_model(jget_smoke("chatglm3-6b"), JMeshInfo())
-    tm = tbuild_model(tget_smoke("chatglm3-6b"), TMeshInfo())
+def test_published_moe_config_counts():
+    """deepseek-moe-16b as published: 16,375,726,080 parameters (32.75 GB
+    in bf16), the JAX package's count."""
+    from repro.configs import get_config as jget
+    cfg = tget_config("deepseek-moe-16b")
+    assert cfg.param_count()[0] == 16_375_726_080
+    assert cfg.param_count() == jget("deepseek-moe-16b").param_count()
+    assert cfg.smoke() == tget_smoke("deepseek-moe-16b")
+
+
+@pytest.mark.parametrize("seq_parallel", [True, False],
+                         ids=["published", "seq_parallel_off"])
+def test_tokenweave_fused_steps_match_reference(seq_parallel):
+    """TokenWeave's chain rule is the JAX package's: [all-reduce -> add ->
+    RMSNorm] only.  chatglm3-6b as published is sequence-parallel, its
+    prefill chains start at a reduce-scatter, and neither package fuses
+    them; with ``seq_parallel=False`` both fuse the same chain."""
+    import dataclasses
+    jm = jbuild_model(dataclasses.replace(jget_smoke("chatglm3-6b"),
+                                          seq_parallel=seq_parallel),
+                      JMeshInfo())
+    tm = tbuild_model(dataclasses.replace(tget_smoke("chatglm3-6b"),
+                                          seq_parallel=seq_parallel),
+                      TMeshInfo())
     for ctx in (("prefill", 2, 16), ("prefill", 4, 1024)):
-        (_, _, _, jplan, _), = [o for o in schedule_both(
+        (_, jname, _, jplan, _), = [o for o in schedule_both(
             jcore, jm, "tokenweave", *ctx) if o[0].name == "layers"]
-        (_, tname, tg, tplan, tana), = [o for o in schedule_both(
+        (_, tname, _, tplan, _), = [o for o in schedule_both(
             tcore, tm, "tokenweave", *ctx) if o[0].name == "layers"]
-        assert tname == "tokenweave"
-        fused = [s for s in tplan.steps if s.kind == "fused"]
-        assert [s.replace_name for s in fused] == ["tokenweave"]
-        chain = [h.name.split("/")[-1] for h in fused[0].handles]
-        assert chain == ["rs_attn", "add_attn", "ln_mlp"]
-        assert not [s for s in jplan.steps if s.kind == "fused"]
-        rest = plan_summary(tplan)[0]
-        rest = [st for st in rest if st[2] != "tokenweave"]
-        want = [st for st in plan_summary(jplan)[0]
-                if st[1][0][2].split("/")[-1] not in chain]
-        assert rest == want
-        assert tplan.split_sizes == jplan.split_sizes
-        assert tana.n_steps == len(tplan.steps)
+        assert jname == tname == "tokenweave"
+
+        def fused(plan):
+            return [(s.replace_name,
+                     [h.name.split("/")[-1] for h in s.handles])
+                    for s in plan.steps if s.kind == "fused"]
+        assert fused(tplan) == fused(jplan)
+        want = [] if seq_parallel else \
+            [("tokenweave", ["ar_attn", "add_attn", "ln_mlp"])]
+        assert fused(tplan) == want
+        assert plan_summary(tplan) == plan_summary(jplan)
 
 
 def test_dynamic_branches_on_the_reference_graphs():
-    """Which strategy ``dynamic`` picks for the layer stack, by context.
-    chatglm3-6b is sequence-parallel: its prefill layer's chain starts at a
-    reduce-scatter, which the port's TokenWeave fuses (the JAX package's
-    does not, and picks NanoFlow there); with ``seq_parallel=False`` the
-    chain starts at an all-reduce."""
+    """Which strategy ``dynamic`` picks for each layer stack, by context,
+    in both packages.  chatglm3-6b as published is sequence-parallel, so
+    TokenWeave finds no [all-reduce -> add -> RMSNorm] chain and a large
+    prefill splits under NanoFlow; with ``seq_parallel=False`` it fuses.
+    MoE layers take DBO once the step is large enough to split."""
     import dataclasses
 
-    def pick(cfg, phase, B, S):
-        model = tbuild_model(cfg, TMeshInfo())
+    def picks(core, build, cfg, phase, B, S):
+        model = build(cfg, JMeshInfo() if core is jcore else TMeshInfo())
         return dict((s.name, n) for s, n, *_ in
-                    schedule_both(tcore, model, "dynamic", phase, B, S))
+                    schedule_both(core, model, "dynamic", phase, B, S))
 
-    glm = tget_smoke("chatglm3-6b")
-    assert pick(glm, "prefill", 2, 2048)["layers"] == "tokenweave"
-    jglm = jbuild_model(jget_smoke("chatglm3-6b"), JMeshInfo())
-    assert dict((s.name, n) for s, n, *_ in schedule_both(
-        jcore, jglm, "dynamic", "prefill", 2, 2048))["layers"] == "nanoflow"
-    glm_tp1 = dataclasses.replace(glm, seq_parallel=False)
-    assert pick(glm_tp1, "prefill", 2, 2048)["layers"] == "tokenweave"
-    assert pick(tget_smoke("smollm-135m"), "prefill", 2, 2048)["layers"] \
-        == "tokenweave"
-    assert pick(glm, "prefill", 1, 2048)["layers"] == "sbo"
-    assert pick(glm, "prefill", 1, 32)["layers"] == "sequential"
-    assert pick(glm, "decode", 4, 64)["layers"] == "sequential"
+    cases = [
+        ("chatglm3-6b", True, "prefill", 2, 2048, {"layers": "nanoflow"}),
+        ("chatglm3-6b", True, "prefill", 4, 2048, {"layers": "nanoflow"}),
+        ("chatglm3-6b", False, "prefill", 2, 2048, {"layers": "tokenweave"}),
+        ("smollm-135m", False, "prefill", 2, 2048, {"layers": "tokenweave"}),
+        ("chatglm3-6b", True, "prefill", 1, 2048, {"layers": "sbo"}),
+        ("chatglm3-6b", True, "prefill", 1, 32, {"layers": "sequential"}),
+        ("chatglm3-6b", True, "decode", 4, 64, {"layers": "sequential"}),
+        ("deepseek-moe-16b", True, "prefill", 2, 2048,
+         {"dense0": "nanoflow", "layers": "dbo"}),
+        ("deepseek-moe-16b", True, "prefill", 4, 2048, {"layers": "dbo"}),
+        ("deepseek-moe-16b", True, "prefill", 1, 2048, {"layers": "sbo"}),
+        ("deepseek-moe-16b", True, "decode", 4, 4096,
+         {"dense0": "sequential", "layers": "sequential"}),
+    ]
+    for arch, sp, phase, B, S, want in cases:
+        jcfg = dataclasses.replace(jget_smoke(arch), seq_parallel=sp)
+        tcfg = dataclasses.replace(tget_smoke(arch), seq_parallel=sp)
+        got = picks(tcore, tbuild_model, tcfg, phase, B, S)
+        assert got == picks(jcore, jbuild_model, jcfg, phase, B, S), arch
+        assert {k: got[k] for k in want} == want, (arch, sp, phase, B, S)
+
+
+# ---------------------------------------------------------------------------
+# strategy signatures (tests/test_strategies.py) on the port's MoE graph
+# ---------------------------------------------------------------------------
+
+
+def moe_layer_plan(strat_name, B=4, S=16, **kw):
+    """The port's plan of the smoke deepseek-moe-16b MoE layer stack."""
+    from repro_torch.core.strategies import get_strategy
+    model = tbuild_model(tget_smoke("deepseek-moe-16b"), TMeshInfo())
+    segs, _ = model.build_segments("prefill", B, S, s_max=S)
+    seg = [x for x in segs if x.name == "layers"][0]
+    strat = get_strategy(strat_name, **kw)
+    g = seg.graph
+    if strat.partition_rules():
+        g = partition(g, strat.partition_rules(), default_depth=2)
+    return record_plan(g, strat, ScheduleContext(
+        local_batch=B, seq_len=S, phase="prefill",
+        arch=model.cfg.name)), g
+
+
+def test_dbo_merges_attention_splits_moe():
+    plan, g = moe_layer_plan("dbo", min_tokens=1)
+    assert plan.split_sizes == (2, 2)
+    kinds = {}
+    for st in plan.steps:
+        name = g.nodes[st.handles[0].oid].name
+        kinds.setdefault(st.kind, []).append(name)
+    assert any("attention" in n for n in kinds.get("merged", []))
+    assert any("moe" in n for n in kinds.get("exec", []))
+    # canonical interleave: a dispatch of one mb precedes the other mb's
+    # expert GEMM (the overlap window)
+    order = [(st.kind, g.nodes[st.handles[0].oid].name, st.handles[0].mb)
+             for st in plan.steps]
+    disp = [i for i, (k, n, m) in enumerate(order) if "dispatch" in n]
+    ffn = [i for i, (k, n, m) in enumerate(order) if "expert_ffn" in n]
+    assert disp and ffn and disp[1] < ffn[-1]
+
+
+def test_sbo_reorders_independent_compute_behind_network():
+    plan, g = moe_layer_plan("sbo")
+    res = [g.nodes[st.handles[0].oid].resource for st in plan.steps]
+    # at least one network op is directly followed by a non-dependent
+    # compute/memory op
+    assert any(res[i] == "network" and res[i + 1] != "network"
+               and not (set(g.nodes[plan.steps[i].handles[0].oid].outputs)
+                        & set(g.nodes[plan.steps[i + 1].handles[0].oid]
+                              .inputs))
+               for i in range(len(res) - 1))
+
+
+def test_comet_fuses_dispatch_gemm_combine():
+    plan, g = moe_layer_plan("comet")
+    fused = [st for st in plan.steps if st.kind == "fused"]
+    assert len(fused) == 1 and fused[0].replace_name == "comet"
+    assert [g.nodes[h.oid].name.split("/")[-1] for h in fused[0].handles] \
+        == ["moe_a2a_dispatch", "expert_ffn", "moe_a2a_combine"]
+
+
+def test_dynamic_picks_by_context():
+    """The MoE branch of ``dynamic``, with the thresholds of
+    tests/test_strategies.py (split at 64 tokens, sequential below 8)."""
+    from repro_torch.core.scheduler import SchedCtx
+    from repro_torch.core.strategies import get_strategy
+    dyn = get_strategy("dynamic", split_tokens=64, seq_tokens=8)
+    model = tbuild_model(tget_smoke("deepseek-moe-16b"), TMeshInfo())
+    segs, _ = model.build_segments("prefill", 4, 16, s_max=16)
+    seg = [x for x in segs if x.name == "layers"][0]
+    g = partition(seg.graph, dyn.partition_rules(), default_depth=2)
+    big = SchedCtx(g, ScheduleContext(local_batch=8, seq_len=512,
+                                      phase="prefill"))
+    assert dyn.pick(big).name == "dbo"
+    small = SchedCtx(g, ScheduleContext(local_batch=1, seq_len=16,
+                                        phase="decode"))
+    assert dyn.pick(small).name == "sequential"
+    mid = SchedCtx(g, ScheduleContext(local_batch=32, seq_len=1,
+                                      phase="decode"))
+    assert dyn.pick(mid).name == "sbo"
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """The port's kernels (src/repro_torch/kernels) against the JAX package.
 
 On the CPU every wrapper takes its plain PyTorch version; those are held
-against ``repro.kernels.ref`` and, for decode attention and the two
-norms, against the Pallas kernel run in interpret mode (the flash Pallas
-kernel calls ``pl.load``, which the installed jax no longer has).  The
-sweeps are those of tests/test_kernels.py, with its tolerances:
-f32 atol=2e-5 rtol=1e-4, bf16 atol=rtol=3e-2.  Inputs come from seeded
-numpy and reach both frameworks bit-identical.
+against ``repro.kernels.ref`` and, for decode attention, the two norms
+and the grouped expert FFN, against the Pallas kernel run in interpret
+mode (the flash Pallas kernel calls ``pl.load``, which the installed jax
+no longer has).  The sweeps are those of tests/test_kernels.py, with its
+tolerances: f32 atol=2e-5 rtol=1e-4 (grouped FFN atol=1e-4 rtol=1e-3),
+bf16 atol=rtol=3e-2.  Inputs come from seeded numpy and reach both
+frameworks bit-identical.
 
 The Hopper kernels themselves are held against these plain versions on
 the card in tests/test_torch_kernels_cuda.py.
@@ -184,3 +185,37 @@ def test_decode_plain_bf16_with_slot_map():
                                  jnp.take(vj, slot, axis=2),
                                  jnp.asarray(lens))
     close(got, want, "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# grouped expert FFN
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("E,N,D,F", [(2, 16, 24, 32), (4, 64, 48, 96),
+                                     (1, 128, 64, 256), (4, 4, 48, 96)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grouped_ffn_plain_matches_reference_and_pallas(E, N, D, F, dtype):
+    """The sweep of tests/test_kernels.py plus decode's N=4 capacity."""
+    rng = np.random.default_rng(10)
+    vals = [rng.standard_normal(s).astype(np.float32) * c for s, c in
+            (((E, N, D), 0.5), ((E, D, F), 0.1), ((E, D, F), 0.1),
+             ((E, F, D), 0.1))]
+    js = [jnp.asarray(a).astype(dtype) for a in vals]
+    ts = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in vals]
+    got = tops.grouped_ffn(*ts)
+    assert got.dtype == ts[0].dtype and got.shape == (E, N, D)
+    t = dict(atol=1e-4, rtol=1e-3) if dtype == "float32" else BF16
+    for want in (jref.grouped_ffn(*js), jops.grouped_ffn(*js)):
+        np.testing.assert_allclose(np32(got), np32(want), **t)
+
+
+def test_grouped_ffn_plain_maps_zero_rows_to_zero_and_skips_meta():
+    x = torch.zeros((3, 5, 16), dtype=torch.bfloat16)
+    w = torch.ones((3, 16, 8), dtype=torch.bfloat16)
+    assert not tops.grouped_ffn(x, w, w, w.transpose(1, 2)).any()
+    before = dict(LAUNCHES)
+    m = tops.grouped_ffn(x.to("meta"), w.to("meta"), w.to("meta"),
+                         w.transpose(1, 2).to("meta"))
+    assert m.device.type == "meta" and m.shape == x.shape
+    assert dict(LAUNCHES) == before

@@ -16,18 +16,26 @@ atol + rtol*|plain| and the relative L2 error within l2, per kernel.
           is rounded (1 ulp < 1e-2 relative)
   norms   atol 1e-3, rtol 1.6e-2, l2 4e-3: f32 sums; x*rsqrt rounded to
           bf16, then *g rounded (2 ulps)
+  grouped_ffn
+          2^-8 * |h|@|W2| + 2^-7 * |plain|, l2 1e-2: the kernel keeps
+          h = silu(x W1) * (x W3) in bf16 (2^-9 relative), which moves an
+          output by at most 2^-9 * |h|@|W2| (factor 2 margin); F is summed
+          in f32 and the output rounded once (one ulp)
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import grouped_matmul as tgm
 from repro_torch.kernels import rmsnorm as trn
 
 FLASH = dict(atol=0.0, pv=2 ** -8, rtol=2 ** -7, l2=1e-2)
 DECODE = dict(atol=1e-3, rtol=1e-2, l2=1e-2)
 NORM = dict(atol=1e-3, rtol=1.6e-2, l2=4e-3)
+GFFN = dict(atol=0.0, pv=2 ** -8, rtol=2 ** -7, l2=1e-2)
 
 
 @pytest.fixture
@@ -114,3 +122,57 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tfa.flash_attention(q, q, q)              # hd 48
     with pytest.raises(TypeError):
         tfa.flash_attention(q.float(), q.float(), q.float())
+
+
+def _ffn_weights(seed, dev, E, D, Fd):
+    w1, w3, w2 = _dev(seed, dev, (E, D, Fd), (E, D, Fd), (E, Fd, D))
+    return ((w1.float() * D ** -0.5).to(torch.bfloat16),
+            (w3.float() * D ** -0.5).to(torch.bfloat16),
+            (w2.float() * Fd ** -0.5).to(torch.bfloat16))
+
+
+def _ffn_close(got, x, w1, w3, w2):
+    xf = x.float()
+    h = F.silu(torch.bmm(xf, w1.float())) * torch.bmm(xf, w3.float())
+    _close(got, tgm.grouped_ffn_plain(x, w1, w3, w2), GFFN,
+           pv=torch.bmm(h.abs(), w2.float().abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,N,D,Fd", [
+    (64, 480, 2048, 1408), (64, 4, 2048, 1408), (3, 100, 256, 192),
+    (2, 1, 128, 64)])
+def test_grouped_ffn_kernel_matches_plain(cuda, E, N, D, Fd):
+    x = _dev(5, cuda, (E, N, D))[0]
+    w1, w3, w2 = _ffn_weights(6, cuda, E, D, Fd)
+    n = LAUNCHES["grouped_ffn"]
+    got = tgm.grouped_ffn(x, w1, w3, w2)
+    assert LAUNCHES["grouped_ffn"] == n + 1
+    _ffn_close(got, x, w1, w3, w2)
+
+
+@pytest.mark.cuda
+def test_grouped_ffn_kernel_reads_chunks_in_place_and_keeps_zero_rows(cuda):
+    """A Comet chunk is a strided view of the dispatch buffer; unfilled
+    capacity rows (zeros) come out as zeros."""
+    E, C, D, Fd = 4, 200, 256, 128
+    buf = _dev(7, cuda, (E, C, D))[0]
+    buf[:, 150:] = 0
+    w1, w3, w2 = _ffn_weights(8, cuda, E, D, Fd)
+    chunk = buf[:, 100:200]
+    got = tgm.grouped_ffn(chunk, w1, w3, w2)
+    _ffn_close(got, chunk.contiguous(), w1, w3, w2)
+    assert not got[:, 50:].any()
+    whole = tgm.grouped_ffn(buf, w1, w3, w2)
+    assert torch.equal(whole[:, 100:200], got)
+
+
+@pytest.mark.cuda
+def test_grouped_ffn_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((2, 8, 96), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((2, 96, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        tgm.grouped_ffn(x, w, w, w.transpose(1, 2))      # D 96
+    with pytest.raises(TypeError):
+        tgm.grouped_ffn(x.float(), w.float(), w.float(),
+                        w.transpose(1, 2).float())

@@ -155,16 +155,28 @@ def test_split_and_fused_plans_equal_sequential(pair, policy):
 
 
 def test_tokenweave_plan_fuses_through_the_norm_kernel_path(pair):
+    """TokenWeave fuses [all-reduce -> add -> RMSNorm] chains, as the JAX
+    package does: a sequence-parallel config (chatglm3-6b as published)
+    has none, and the same model with ``seq_parallel=False`` has one per
+    layer, whose fused step equals the sequential plan."""
+    import dataclasses
     jm, jparams, prog, tparams = pair
-    step = tcompile(jm.cfg.name.replace("-smoke", ""), policy="tokenweave",
-                    smoke=True, device="cpu").prefill(2, 16)
-    plan = step.fn.realizers["layers"].plan
-    fused = [s for s in plan.steps if s.kind == "fused"]
-    # sequence parallel: the chain starts at the reduce-scatter
-    head = "rs_attn" if jm.cfg.seq_parallel else "ar_attn"
-    assert [s.replace_name for s in fused] == ["tokenweave"]
-    assert [h.name.split("/")[-1] for h in fused[0].handles] == \
-        [head, "add_attn", "ln_mlp"]
+    for sp in (True, False):
+        cfg = dataclasses.replace(prog.model.cfg, seq_parallel=sp)
+        step = tcompile(cfg, policy="tokenweave", device="cpu").prefill(2, 16)
+        plan = step.fn.realizers["layers"].plan
+        fused = [s for s in plan.steps if s.kind == "fused"]
+        if sp:
+            assert not fused
+            continue
+        assert [s.replace_name for s in fused] == ["tokenweave"]
+        assert [h.name.split("/")[-1] for h in fused[0].handles] == \
+            ["ar_attn", "add_attn", "ln_mlp"]
+        batch = {k: torch.from_numpy(v)
+                 for k, v in prefill_inputs(2, 16, jm.cfg.vocab, 3).items()}
+        want = tcompile(cfg, policy="sequential", device="cpu").prefill(
+            2, 16)(tparams, batch)
+        close(step(tparams, batch)["logits"], want["logits"])
 
 
 def test_micro_batch_reads_are_views(pair):
