@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Runs two models the repository supports at their full published width,
+Runs four models the repository supports at their full published width,
 with random weights drawn from a seeded ``torch.Generator`` on the card:
 chatglm3-6b (28 layers, d_model 4096, 32 q / 2 kv heads, d_ff 13696,
-vocab 65024; ~6.2 B bf16 parameters, 12.5 GB) and deepseek-moe-16b (28
+vocab 65024; ~6.2 B bf16 parameters, 12.5 GB), deepseek-moe-16b (28
 layers, the first dense, d_model 2048, 16 heads, 64 routed experts of
 width 1408 top-6 plus 2 shared, vocab 102400; 16.4 B parameters, ~33
-GB).  Phases, each printing one JSON line:
+GB), mamba2-2.7b (64 Mamba2 layers, d_model 2560, 80 SSM heads of 64,
+state 128, vocab 50280; 2.7 B, ~5.4 GB) and zamba2-1.2b (38 Mamba2
+layers, d_model 2048, 64 SSM heads, state 64, and one shared attention
+block at width 4096, 32 heads, after every 6th layer; 1.2 B, ~2.4 GB).
+Phases, each printing one JSON line:
 
   kernels   build the CUDA kernels from ``src/repro_torch/kernels/csrc``
             and hold each Hopper kernel against its plain PyTorch version
-            at the main path's shapes; time kernel, plain version and the
-            one-call PyTorch yardstick where there is one
+            at each shape the main paths give it; time kernel, plain
+            version and the one-call PyTorch yardstick where there is one
   reference a 2-layer cut of chatglm3-6b at full width on the GPU
             (kernels) against the same program on the CPU (plain versions)
   transparency
@@ -33,6 +37,19 @@ GB).  Phases, each printing one JSON line:
             B=1 runs; ``comet`` against sequential on the same batch
   moe_serve ``compile("deepseek-moe-16b").serve`` answers the same 4
             requests: DBO prefill, grouped-FFN decode
+  ssm_reference
+            mamba2-2.7b cut to 2 layers (B=2 S=256) and zamba2-1.2b to
+            one group (6 Mamba2 layers and the shared block under
+            ``dynamic``, B=2 S=1024) at full width, GPU (the kernels)
+            against CPU (their plain versions)
+  ssm_transparency
+            mamba2-2.7b and zamba2-1.2b at full depth, B=4 S=2048:
+            ``dynamic`` against ``sequential``; it splits the Mamba2
+            stacks under NanoFlow and fuses zamba2's shared block under
+            TokenWeave (the fused add+RMSNorm kernel)
+  ssm_serve each SSM model answers the same 4 requests (its decode starts
+            from the cache rows as they are: neither package hands the
+            recurrent state from prefill to decode)
 
 Each model phase zeroes the launch counts just before the run it checks
 and reads them just after; the ``kernels`` line reports their sum over
@@ -40,9 +57,11 @@ the phases that ran (null when none did), and every kernel must have
 launched on some path.
 
 Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,
-            serve,moe_reference,moe_transparency,moe_serve]
-        (add ``profile`` / ``moe_profile`` for a torch.profiler breakdown
-        of a warm prefill and a window of decode steps of either model)
+            serve,moe_reference,moe_transparency,moe_serve,ssm_reference,
+            ssm_transparency,ssm_serve]
+        (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
+        torch.profiler breakdown of a warm prefill and a window of decode
+        steps)
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside this file.
 """
@@ -84,8 +103,23 @@ TOL = {
     # factor 2 (P|V| of flash's rule is |h| @ |W2| here), rtol one output
     # ulp; all of F is summed in f32 and rounded once
     "grouped_ffn": dict(atol=0.0, pv=2 ** -8, rtol=2 ** -7, l2=1e-2),
+    # f32 products and state in both, summed in other orders (f32
+    # round-off ~1e-4 of the terms' sum); only the output is rounded to
+    # bf16, and two f32 values that straddle a rounding boundary land one
+    # ulp (<= 2^-7 relative) apart
+    "ssd_scan": dict(atol=1e-3, rtol=2 ** -7, l2=1e-2),
 }
 SEED = 0
+# phase-name prefix of each model family
+PREFIX = {"dense": "", "moe": "moe_", "ssm": "ssm_", "hybrid": "ssm_"}
+# the kernels each family's serve path must launch
+SERVE_KERNELS = {
+    "dense": ("flash_attention", "decode_attention", "rmsnorm"),
+    "moe": ("flash_attention", "decode_attention", "rmsnorm", "grouped_ffn"),
+    "ssm": ("ssd_scan", "rmsnorm"),
+    "hybrid": ("ssd_scan", "rmsnorm", "flash_attention", "decode_attention",
+               "fused_add_rmsnorm"),
+}
 
 
 def log(obj):
@@ -109,9 +143,11 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 
 def bound(flops, nbytes):
+    """``bound_ms`` and ``bound_by`` of ``flops`` operations on ``nbytes``."""
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+    return (dict(bound_ms=t_ops, bound_by="operations") if t_ops >= t_mem
+            else dict(bound_ms=t_mem, bound_by="bytes"))
 
 
 def max_err(a, b):
@@ -134,6 +170,17 @@ def compare(name, pairs, pv=None):
     return dict(max_abs_err=err, rel_l2=l2, tolerance=tol, ok=ok)
 
 
+def kernel_row(name, route, source, replaces, cases):
+    """One row of the kernels line from its cases, each a shape that a main
+    path gives the kernel: every case is held to ``TOL[name]``, the first
+    case's times are the row's and the others' ride along under ``also``."""
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, **cases[0],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "rel_l2": max(c["rel_l2"] for c in cases),
+            "ok": all(c["ok"] for c in cases), "also": cases[1:]}
+
+
 # ---------------------------------------------------------------------------
 # phase 1: kernels
 # ---------------------------------------------------------------------------
@@ -148,6 +195,7 @@ def phase_kernels(dev, build_log=None):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
 
     t0 = time.perf_counter()
     _build.library()
@@ -161,104 +209,79 @@ def phase_kernels(dev, build_log=None):
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
-    rows = []
-    # flash attention: the prefill shape, GQA read in place
-    B, S, H, Hk, hd = 2, 2048, 32, 2, 128
-    q, k, v = randn(B, S, H, hd), randn(B, S, Hk, hd), randn(B, S, Hk, hd)
-    kvh = (torch.arange(H, device=dev) // (H // Hk)).to(torch.int32)
-    out = fa.flash_attention(q, k, v, causal=True, kv_head=kvh)
-    ref = fa.flash_attention_plain(q, k, v, causal=True, kv_head=kvh)
-    pv = fa.flash_attention_plain(q, k, v.abs(), causal=True, kv_head=kvh)
-    torch.cuda.synchronize()
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    flops = 4.0 * B * S * S * H * hd * 0.5        # causal: half the tiles
-    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())   # q, o, k, v once
-    bms, by = bound(flops, nbytes)
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:67",
-        shape=f"B={B} S={S} H={H} Hkv={Hk} hd={hd} causal bf16",
-        **compare("flash_attention", [(out, ref)], pv=pv),
-        ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True,
-                                              kv_head=kvh)),
-        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=True, kv_head=kvh), iters=5),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))))
-    del q, k, v, qt, kt, vt, out, ref, pv
+    def flash(what, B, S, H, Hk, hd=128):
+        q, k, v = randn(B, S, H, hd), randn(B, S, Hk, hd), randn(B, S, Hk, hd)
+        kvh = (torch.arange(H, device=dev) // (H // Hk)).to(torch.int32)
+        out = fa.flash_attention(q, k, v, causal=True, kv_head=kvh)
+        ref = fa.flash_attention_plain(q, k, v, causal=True, kv_head=kvh)
+        pv = fa.flash_attention_plain(q, k, v.abs(), causal=True, kv_head=kvh)
+        torch.cuda.synchronize()
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        return dict(
+            shape=f"{what}: B={B} S={S} H={H} Hkv={Hk} hd={hd} causal bf16",
+            **compare("flash_attention", [(out, ref)], pv=pv),
+            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                  kv_head=kvh)),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, kv_head=kvh), iters=5),
+            # causal: half the tiles; q, o, k and v once
+            **bound(4.0 * B * S * S * H * hd * 0.5,
+                    2 * (2 * q.numel() + k.numel() + v.numel())),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)))
 
-    # decode attention: 4 rows against a 4096-slot cache, ragged lengths
-    B, S = 4, 4096
-    q = randn(B, 1, H, hd)
-    kc, vc = randn(B, S, Hk, hd), randn(B, S, Hk, hd)
-    lens = [4096, 2999, 1500, 17]
-    clen = torch.tensor(lens, dtype=torch.int32, device=dev)
-    out = dec.decode_attention(q, kc, vc, clen, kv_head=kvh)
-    ref = dec.decode_attention_plain(q, kc, vc, clen, kv_head=kvh)
-    torch.cuda.synchronize()
-    mask = (torch.arange(S, device=dev)[None, :] < clen[:, None])[:, None, None, :]
-    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    flops = 4.0 * sum(lens) * H * hd
-    nbytes = 2 * sum(lens) * Hk * hd * 2 + 2 * q.numel() * 2 + 4 * B
-    bms, by = bound(flops, nbytes)
-    rows.append(dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:56",
-        shape=f"B={B} S={S} H={H} Hkv={Hk} hd={hd} cache_len={lens} bf16",
-        **compare("decode_attention", [(out, ref)]),
-        ms=cuda_ms(lambda: dec.decode_attention(q, kc, vc, clen,
-                                                kv_head=kvh), iters=50),
-        plain_ms=cuda_ms(lambda: dec.decode_attention_plain(
-            q, kc, vc, clen, kv_head=kvh), iters=10),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=50)))
-    del q, kc, vc, qt, kt, vt, out, ref, mask
+    def decode(what, H, Hk, B=4, S=4096, hd=128, lens=(4096, 2999, 1500, 17)):
+        q = randn(B, 1, H, hd)
+        kc, vc = randn(B, S, Hk, hd), randn(B, S, Hk, hd)
+        kvh = (torch.arange(H, device=dev) // (H // Hk)).to(torch.int32)
+        clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = dec.decode_attention(q, kc, vc, clen, kv_head=kvh)
+        ref = dec.decode_attention_plain(q, kc, vc, clen, kv_head=kvh)
+        torch.cuda.synchronize()
+        mask = (torch.arange(S, device=dev)[None, :]
+                < clen[:, None])[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        return dict(
+            shape=f"{what}: B={B} S={S} H={H} Hkv={Hk} hd={hd} "
+                  f"cache_len={list(lens)} bf16",
+            **compare("decode_attention", [(out, ref)]),
+            ms=cuda_ms(lambda: dec.decode_attention(q, kc, vc, clen,
+                                                    kv_head=kvh), iters=50),
+            plain_ms=cuda_ms(lambda: dec.decode_attention_plain(
+                q, kc, vc, clen, kv_head=kvh), iters=10),
+            **bound(4.0 * sum(lens) * H * hd,
+                    2 * sum(lens) * Hk * hd * 2 + 2 * q.numel() * 2 + 4 * B),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=50))
 
-    # norms: 4096 rows of d_model 4096 (the prefill of 2 x 2048 tokens);
-    # fused at block_rows=256, the TokenWeave choice for >= 4096 tokens
-    n, d = 4096, 4096
-    x, y, gw = randn(n, d), randn(n, d), randn(d)
-    out = rn.rmsnorm(x, gw)
-    ref = rn.rmsnorm_plain(x, gw)
-    torch.cuda.synchronize()
-    bms, by = bound(4.0 * n * d, (2 * n * d + d) * 2)
-    rows.append(dict(
-        name="rmsnorm", route="triton",
-        source="src/repro_torch/kernels/rmsnorm.py",
-        replaces="src/repro/kernels/rmsnorm.py:76",
-        shape=f"n={n} d={d} bf16",
-        **compare("rmsnorm", [(out, ref)]),
-        ms=cuda_ms(lambda: rn.rmsnorm(x, gw), iters=50),
-        plain_ms=cuda_ms(lambda: rn.rmsnorm_plain(x, gw), iters=20),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), gw, 1e-5), iters=50)))
-    s1, h1 = rn.fused_add_rmsnorm(x, y, gw, block_rows=256)
-    s2, h2 = rn.fused_add_rmsnorm_plain(x, y, gw)
-    torch.cuda.synchronize()
-    bms, by = bound(6.0 * n * d, (4 * n * d + d) * 2)
-    rows.append(dict(
-        name="fused_add_rmsnorm", route="triton",
-        source="src/repro_torch/kernels/rmsnorm.py",
-        replaces="src/repro/kernels/rmsnorm.py:34",
-        shape=f"n={n} d={d} block_rows=256 bf16",
-        **compare("fused_add_rmsnorm", [(s1, s2), (h1, h2)]),
-        ms=cuda_ms(lambda: rn.fused_add_rmsnorm(x, y, gw, block_rows=256),
-                   iters=50),
-        plain_ms=cuda_ms(lambda: rn.fused_add_rmsnorm_plain(x, y, gw),
-                         iters=20),
-        bound_ms=bms, bound_by=by, library_ms=None))
-    del x, y, gw, out, ref, s1, s2, h1, h2
+    def norm(what, n, d):
+        x, gw = randn(n, d), randn(d)
+        out, ref = rn.rmsnorm(x, gw), rn.rmsnorm_plain(x, gw)
+        torch.cuda.synchronize()
+        return dict(
+            shape=f"{what}: n={n} d={d} bf16",
+            **compare("rmsnorm", [(out, ref)]),
+            ms=cuda_ms(lambda: rn.rmsnorm(x, gw), iters=50),
+            plain_ms=cuda_ms(lambda: rn.rmsnorm_plain(x, gw), iters=20),
+            **bound(4.0 * n * d, (2 * n * d + d) * 2),
+            library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), gw, 1e-5),
+                               iters=50))
 
-    # grouped expert FFN: deepseek-moe-16b's 64 experts at D=2048,
-    # F=1408; the DBO prefill micro-batch (capacity 480 of 4096 tokens)
-    # for the timings, and the decode tier (capacity 4) checked too
-    E, D, Fd = 64, 2048, 1408
-    pairs, hws, timing = [], [], {}
-    for N in (480, 4):
+    def fused(what, n, d, block_rows=256):
+        x, y, gw = randn(n, d), randn(n, d), randn(d)
+        s1, h1 = rn.fused_add_rmsnorm(x, y, gw, block_rows=block_rows)
+        s2, h2 = rn.fused_add_rmsnorm_plain(x, y, gw)
+        torch.cuda.synchronize()
+        return dict(
+            shape=f"{what}: n={n} d={d} block_rows={block_rows} bf16",
+            **compare("fused_add_rmsnorm", [(s1, s2), (h1, h2)]),
+            ms=cuda_ms(lambda: rn.fused_add_rmsnorm(
+                x, y, gw, block_rows=block_rows), iters=50),
+            plain_ms=cuda_ms(lambda: rn.fused_add_rmsnorm_plain(x, y, gw),
+                             iters=20),
+            **bound(6.0 * n * d, (4 * n * d + d) * 2), library_ms=None)
+
+    def ffn(what, N, E=64, D=2048, Fd=1408):
         x = randn(E, N, D)
         w1 = (randn(E, D, Fd).float() * D ** -0.5).to(torch.bfloat16)
         w3 = (randn(E, D, Fd).float() * D ** -0.5).to(torch.bfloat16)
@@ -267,39 +290,83 @@ def phase_kernels(dev, build_log=None):
         ref = gm.grouped_ffn_plain(x, w1, w3, w2)
         xf = x.float()
         h = F.silu(torch.bmm(xf, w1.float())) * torch.bmm(xf, w3.float())
-        hws.append(torch.bmm(h.abs(), w2.float().abs()))
-        pairs.append((out, ref))
+        hw = torch.bmm(h.abs(), w2.float().abs())
         torch.cuda.synchronize()
-        flops = 6.0 * E * N * D * Fd
-        nbytes = 2 * (2 * E * N * D + 3 * E * D * Fd)
-        bms, by = bound(flops, nbytes)
-        timing[N] = dict(
-            shape=f"E={E} N={N} D={D} F={Fd} bf16",
+        return dict(
+            shape=f"{what}: E={E} N={N} D={D} F={Fd} bf16",
+            **compare("grouped_ffn", [(out, ref)], pv=hw),
             ms=cuda_ms(lambda: gm.grouped_ffn(x, w1, w3, w2)),
             plain_ms=cuda_ms(lambda: gm.grouped_ffn_plain(x, w1, w3, w2),
                              iters=5),
-            bound_ms=bms, bound_by=by,
+            **bound(6.0 * E * N * D * Fd,
+                    2 * (2 * E * N * D + 3 * E * D * Fd)),
+            # no single PyTorch call computes the gated FFN: the cuBLAS
+            # composition bmm x3 + silu*mul is timed beside it as a yardstick
+            library_ms=None,
             composition_ms=cuda_ms(lambda: torch.bmm(
                 F.silu(torch.bmm(x, w1)) * torch.bmm(x, w3), w2)))
-        del x, w1, w3, w2, h, xf
-    checks = [compare("grouped_ffn", [p], pv=hw)
-              for p, hw in zip(pairs, hws)]
-    main = timing[480]
-    rows.append(dict(
-        name="grouped_ffn", route="cuda",
-        source="src/repro_torch/kernels/csrc/grouped_ffn.cu",
-        replaces="src/repro/kernels/grouped_matmul.py:40",
-        shape=main["shape"] + "; decode E=64 N=4 checked too",
-        max_abs_err=max(c["max_abs_err"] for c in checks),
-        rel_l2=max(c["rel_l2"] for c in checks),
-        tolerance=checks[0]["tolerance"], ok=all(c["ok"] for c in checks),
-        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"],
-        # no single PyTorch call computes the gated FFN: the cuBLAS
-        # composition bmm x3 + silu*mul is timed beside it as a yardstick
-        library_ms=None, composition_ms=main["composition_ms"],
-        decode_tier=timing[4]))
-    del pairs, hws, out, ref
+
+    def scan(what, b, H, N, L=2048, P=64, G=1):
+        args = ssd_inputs(g, b, L, H, P, N)
+        out, ref = ssd.ssd_scan(*args), ssd.ssd_scan_plain(*args)
+        torch.cuda.synchronize()
+        Q = ssd.chunk_len(L, 128)
+        # what the function needs: C_i . B_j once per group and only for
+        # j <= i (Q(Q+1)/2 dot products of N per chunk), M x over the same
+        # triangle per head, and C S and the state update (N P each) per
+        # row and head; x and y, B and C, dt once
+        flops = b * L * ((G * N + H * P) * (Q + 1) + 4 * H * N * P)
+        nbytes = 2 * 2 * b * L * H * P + 2 * 2 * b * L * G * N + 4 * b * L * H
+        return dict(
+            shape=f"{what}: b={b} L={L} H={H} P={P} G={G} N={N} Q={Q} bf16",
+            **compare("ssd_scan", [(out, ref)]),
+            ms=cuda_ms(lambda: ssd.ssd_scan(*args), iters=10),
+            plain_ms=cuda_ms(lambda: ssd.ssd_scan_plain(*args), iters=3),
+            **bound(flops, nbytes),
+            # no single PyTorch call computes an SSD scan
+            library_ms=None)
+
+    glm, m2, z2 = "chatglm3-6b", "mamba2-2.7b", "zamba2-1.2b"
+    rows = [
+        kernel_row("flash_attention", "cuda",
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:67",
+                   [flash(f"{glm} prefill, GQA read in place",
+                          2, 2048, 32, 2),
+                    flash(f"{z2} shared block prefill", 4, 2048, 32, 32)]),
+        kernel_row("decode_attention", "cuda",
+                   "src/repro_torch/kernels/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:56",
+                   [decode(f"{glm} decode", 32, 2),
+                    decode(f"{z2} shared block decode", 32, 32)]),
+        # rows: the prefill of B x 2048 tokens
+        kernel_row("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
+                   "src/repro/kernels/rmsnorm.py:76",
+                   [norm(f"{glm} B=2", 4096, 4096),
+                    norm(f"{m2} B=4", 8192, 2560),
+                    norm(f"{z2} Mamba layers B=4", 8192, 2048),
+                    norm(f"{z2} shared block B=4", 8192, 4096)]),
+        # block_rows=256: the TokenWeave choice for >= 4096 tokens
+        kernel_row("fused_add_rmsnorm", "triton",
+                   "src/repro_torch/kernels/rmsnorm.py",
+                   "src/repro/kernels/rmsnorm.py:34",
+                   [fused(f"{glm} seq_parallel=False B=2", 4096, 4096),
+                    fused(f"{z2} shared block B=4, TokenWeave", 8192, 4096)]),
+        # deepseek-moe-16b's 64 experts: the DBO prefill micro-batch
+        # (capacity 480 of 4096 tokens) and the decode tier (capacity 4)
+        kernel_row("grouped_ffn", "cuda",
+                   "src/repro_torch/kernels/csrc/grouped_ffn.cu",
+                   "src/repro/kernels/grouped_matmul.py:40",
+                   [ffn("deepseek-moe-16b DBO prefill", 480),
+                    ffn("deepseek-moe-16b decode", 4)]),
+        # x, B and C are column views of one post-conv buffer, as the
+        # model hands them over
+        kernel_row("ssd_scan", "cuda",
+                   "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                   "src/repro/kernels/ssd_scan.py:63",
+                   [scan(f"{m2} prefill", 4, 80, 128),
+                    scan(f"{z2} NanoFlow half", 2, 64, 64)]),
+    ]
     reset_launch_counts()
     log({"phase": "kernels", "build_s": build_s,
          "tolerance": "per kernel: |kernel - plain| <= atol + rtol*|plain| "
@@ -320,6 +387,24 @@ def prefill_batch(B, S, vocab, dev, seed):
     ids = torch.randint(0, vocab, (B, S), generator=g, dtype=torch.int32)
     pos = torch.arange(S, dtype=torch.int32).expand(B, S)
     return {"ids": ids.to(dev), "positions": pos.contiguous().to(dev)}
+
+
+def ssd_inputs(g, b, L, H, P, N):
+    """SSD scan inputs on ``g``'s device: x, B and C as column views of
+    one post-conv buffer; dt = softplus(n - 3) and A in [-16, -0.1], so
+    the state carries across chunks; D ~ 1."""
+    import torch
+    import torch.nn.functional as F
+    dev = g.device
+    xbc = (torch.randn((b, L, H * P + 2 * N), generator=g, device=dev)
+           * 0.5).to(torch.bfloat16)
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    B = xbc[..., H * P:H * P + N].unflatten(-1, (1, N))
+    C = xbc[..., H * P + N:].unflatten(-1, (1, N))
+    dt = F.softplus(torch.randn((b, L, H), generator=g, device=dev) - 3.0)
+    A = -torch.exp(torch.rand((H,), generator=g, device=dev) * 5.1 - 2.3)
+    D = 1.0 + 0.1 * torch.randn((H,), generator=g, device=dev)
+    return x, dt, A, B, C, D
 
 
 def rel_err(a, b):
@@ -398,18 +483,21 @@ def route_check(a, b, wrs, k):
 # ---------------------------------------------------------------------------
 
 
-def phase_reference(dev, totals, arch="chatglm3-6b"):
-    """Two layers at full width: GPU (kernels) against CPU (plain).  For
-    the MoE model also the share of tokens routed alike."""
+def phase_reference(dev, totals, arch="chatglm3-6b", B=2, S=128,
+                    n_layers=2, policy="sequential"):
+    """A cut of ``n_layers`` layers at full width: GPU (kernels) against
+    CPU (plain versions), the same program on both.  Every kernel of the
+    family's prefill must have launched on the GPU.  For the MoE model
+    also the share of tokens routed alike."""
     import torch
 
     from repro_torch.api import compile
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
-    prog = compile(cfg, policy="sequential")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    prog = compile(cfg, policy=policy)
     params = prog.init_params(SEED, device="cpu")
-    step = prog.prefill(2, 128)
-    batch = prefill_batch(2, 128, cfg.vocab, "cpu", SEED)
+    step = prog.prefill(B, S)
+    batch = prefill_batch(B, S, cfg.vocab, "cpu", SEED)
     with recorded_routes() as cpu_routes:
         want = step(params, batch)
     gpu_params = {k: _to(v, dev) for k, v in params.items()}
@@ -426,9 +514,12 @@ def phase_reference(dev, totals, arch="chatglm3-6b"):
     ok = all(c["finite"] and c["rel_err"] < 2e-2 for c in checks.values())
     ok = ok and bool((got["logits"].argmax(-1).cpu()
                       == want["logits"].argmax(-1)).float().mean() >= 0.5)
-    out = {"phase": "reference" if cfg.moe is None else "moe_reference",
-           "config": f"{arch} at full width, 2 layers, B=2 S=128",
-           "checks": checks,
+    ok = ok and all(counts.get(k, 0) > 0 for k in SERVE_KERNELS[cfg.family]
+                    if k != "decode_attention")
+    out = {"phase": PREFIX[cfg.family] + "reference",
+           "config": f"{arch} at full width, {n_layers} layers, B={B} "
+                     f"S={S}, policy {policy}",
+           "strategies": step.strategies, "checks": checks,
            "tolerance": "relative L2 error < 2e-2: bf16 round-off of the "
                         "kernels against the plain versions on the CPU",
            "kernel_launches": counts}
@@ -460,36 +551,47 @@ def _to(tree, dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_transparency(dev, params, totals):
-    """chatglm3-6b at full depth, B=2 S=2048: ``dynamic`` against
-    ``sequential``, as published and with ``seq_parallel=False``."""
+def _dyn_vs_seq(cfg, params, B, dev, totals):
+    """``dynamic`` against ``sequential`` on ``Program.prefill(B, 2048)``
+    with the same params and inputs.  Returns the dynamic step, the run's
+    record (strategies, the logits' error, argmax agreement, finiteness,
+    launch counts, wall time) and whether the logits agree: relative L2
+    error < 5e-2, the same argmax on at least half the tokens, finite."""
     import torch
 
     from repro_torch.api import compile
+    seq = compile(cfg, policy="sequential").prefill(B, 2048)
+    dyn = compile(cfg, policy="dynamic").prefill(B, 2048)
+    batch = prefill_batch(B, 2048, cfg.vocab, dev, SEED + 1)
+    want = seq(params, batch)["logits"]
+    t0 = time.perf_counter()
+    got, counts = counted(totals, lambda: dyn(params, batch)["logits"])
+    dt = time.perf_counter() - t0
+    err = rel_err(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(got.float()).all())
+    run = {"strategies": dyn.strategies, "rel_err_vs_sequential": err,
+           "max_abs_err_vs_sequential": max_err(got, want),
+           "argmax_agree": agree, "finite": finite, "launches": counts,
+           "dynamic_prefill_s": dt}
+    return dyn, run, finite and err < 5e-2 and agree >= 0.5
+
+
+def phase_transparency(dev, params, totals):
+    """chatglm3-6b at full depth, B=2 S=2048: ``dynamic`` against
+    ``sequential``, as published and with ``seq_parallel=False``."""
     from repro_torch.configs import get_config
     ok, runs = True, {}
     for sp, want_strategy, fused in ((True, "nanoflow", False),
                                      (False, "tokenweave", True)):
         cfg = dataclasses.replace(get_config("chatglm3-6b"), seq_parallel=sp)
-        seq = compile(cfg, policy="sequential").prefill(2, 2048)
-        dyn = compile(cfg, policy="dynamic").prefill(2, 2048)
-        batch = prefill_batch(2, 2048, cfg.vocab, dev, SEED + 1)
-        want = seq(params, batch)["logits"]
-        t0 = time.perf_counter()
-        got, counts = counted(totals, lambda: dyn(params, batch)["logits"])
-        dt = time.perf_counter() - t0
-        err = rel_err(got, want)
-        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        finite = bool(torch.isfinite(got.float()).all())
-        this_ok = (finite and err < 5e-2 and agree >= 0.5
-                   and dyn.strategies.get("layers") == want_strategy
-                   and (counts.get("fused_add_rmsnorm", 0) > 0) == fused)
+        dyn, run, this_ok = _dyn_vs_seq(cfg, params, 2, dev, totals)
+        this_ok = (this_ok and dyn.strategies.get("layers") == want_strategy
+                   and (run["launches"].get("fused_add_rmsnorm", 0) > 0)
+                   == fused)
         ok = ok and this_ok
-        runs["published" if sp else "seq_parallel_off"] = {
-            "strategies": dyn.strategies, "rel_err_vs_sequential": err,
-            "max_abs_err_vs_sequential": max_err(got, want),
-            "argmax_agree": agree, "finite": finite, "launches": counts,
-            "dynamic_prefill_s": dt, "ok": this_ok}
+        runs["published" if sp else "seq_parallel_off"] = dict(run,
+                                                               ok=this_ok)
     log({"phase": "transparency", "shape": "B=2 S=2048", "runs": runs,
          "tolerance": "relative L2 error of the logits < 5e-2 and the "
                       "same argmax: TokenWeave normalizes the unrounded f32 "
@@ -650,6 +752,33 @@ def _dbo_layer_by_layer(step, recs, seq_routes, params, wrs, k):
             "ok": unexplained == 0 and max(worst.values()) < 1e-2}
 
 
+def phase_ssm_transparency(dev, params, totals, arch):
+    """An SSM model at full depth, B=4 S=2048: ``dynamic`` against
+    ``sequential`` on the same params and inputs.  ``dynamic`` splits the
+    Mamba2 stacks under NanoFlow ([2, 2]) and fuses each invocation of
+    zamba2's shared block under TokenWeave."""
+    from repro_torch.configs import get_config
+    dyn, run, ok = _dyn_vs_seq(get_config(arch), params, 4, dev, totals)
+    strat, counts = dyn.strategies, run["launches"]
+    mamba = [k for k in strat if k == "layers" or k.startswith("mamba")]
+    shared = [k for k in strat if k.startswith("shared_attn@")]
+    ok = (ok and bool(mamba)
+          and all(strat[k] == "nanoflow" for k in mamba)
+          and all(strat[k] == "tokenweave" for k in shared)
+          and counts.get("ssd_scan", 0) == 2 * sum(
+              s.count for s in dyn.segments if s.key in mamba)
+          and counts.get("fused_add_rmsnorm", 0) == len(shared))
+    log(dict({"phase": "ssm_transparency", "arch": arch,
+              "shape": "B=4 S=2048"}, **run,
+             tolerance="relative L2 error of the logits < 5e-2 and the same "
+                       "argmax: NanoFlow's halves are the same rows (the SSD "
+                       "kernel is batch invariant; cuBLAS may round a row "
+                       "differently at another batch size), TokenWeave "
+                       "normalizes the unrounded f32 sum",
+             ok=ok))
+    return ok
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve (the main path)
 # ---------------------------------------------------------------------------
@@ -686,11 +815,9 @@ def phase_serve(dev, params, gpu, totals, arch="chatglm3-6b"):
     tokens = sum(len(r.output) for r in reqs)
     ok = (len(reqs) == 4 and all(r.ok and len(r.output) == 16 for r in reqs)
           and all(0 <= t < cfg.vocab for r in reqs for t in r.output))
-    need = ("flash_attention", "decode_attention", "rmsnorm") + (
-        ("grouped_ffn",) if cfg.moe else ())
-    for name in need:
+    for name in SERVE_KERNELS[cfg.family]:
         ok = ok and counts.get(name, 0) > 0
-    log({"phase": "serve" if cfg.moe is None else "moe_serve",
+    log({"phase": PREFIX[cfg.family] + "serve",
          "arch": arch, "gpu": gpu, "prompt_lens": list(lens),
          "new_tokens": 16, "wall_s": wall, "tokens_per_s": tokens / wall,
          "ttft_s": [r.first_token_s - r.submitted_s for r in reqs],
@@ -772,7 +899,7 @@ def phase_profile(dev, params, arch="chatglm3-6b"):
         engine.step()
     decode = _profile(engine.step, 16)
     engine.run()
-    log({"phase": "profile" if cfg.moe is None else "moe_profile",
+    log({"phase": PREFIX[cfg.family] + "profile",
          "arch": arch, "prefill_strategies": step.strategies,
          "prefill_B4_S2048": prefill, "decode_tier4": decode})
 
@@ -827,10 +954,35 @@ def run_moe(phases, dev, gpu, totals):
     return ok
 
 
+def run_ssm(phases, dev, gpu, totals):
+    import torch
+    ok = True
+    if "ssm_reference" in phases:
+        ok = phase_reference(dev, totals, "mamba2-2.7b", S=256) and ok
+        # one group of 6 Mamba2 layers and the shared block; from 2048
+        # tokens on ``dynamic`` fuses the block's chain under TokenWeave
+        ok = phase_reference(dev, totals, "zamba2-1.2b", S=1024, n_layers=6,
+                             policy="dynamic") and ok
+    if phases & {"ssm_transparency", "ssm_serve", "ssm_profile"}:
+        for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+            params = init_params(arch)
+            if "ssm_transparency" in phases:
+                ok = phase_ssm_transparency(dev, params, totals, arch) and ok
+            if "ssm_profile" in phases:
+                phase_profile(dev, params, arch)
+            if "ssm_serve" in phases:
+                ok = phase_serve(dev, params, gpu, totals, arch) and ok
+            del params        # each model's weights go before the next's
+            gc.collect()
+            torch.cuda.empty_cache()
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,reference,transparency,"
-                    "serve,moe_reference,moe_transparency,moe_serve")
+                    "serve,moe_reference,moe_transparency,moe_serve,"
+                    "ssm_reference,ssm_transparency,ssm_serve")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")
     args = ap.parse_args(argv)
@@ -864,6 +1016,9 @@ def main(argv=None) -> int:
     gc.collect()          # the chatglm3-6b params go before the MoE's
     torch.cuda.empty_cache()
     ok = run_moe(phases, dev, gpu, totals) and ok
+    gc.collect()          # the MoE params go before the SSM models'
+    torch.cuda.empty_cache()
+    ok = run_ssm(phases, dev, gpu, totals) and ok
     model_phases = phases - {"kernels"}
     for r in kernel_rows:
         r["launches"] = totals.get(r["name"], 0) if model_phases else None

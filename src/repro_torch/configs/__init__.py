@@ -32,4 +32,5 @@ def list_archs():
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from . import chatglm3_6b, deepseek_moe_16b, smollm_135m  # noqa: F401
+    from . import (chatglm3_6b, deepseek_moe_16b, mamba2_2p7b,  # noqa: F401
+                   smollm_135m, zamba2_1p2b)

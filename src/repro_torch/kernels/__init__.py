@@ -6,6 +6,7 @@ plain PyTorch version (the port of the JAX package's ``kernels/ref.py``):
   rmsnorm.py           RMSNorm and fused residual-add +
                        RMSNorm                              (Triton)
   grouped_matmul.py    grouped SwiGLU expert FFN            (CUDA C++)
+  ssd_scan.py          Mamba2 chunked SSD scan              (CUDA C++)
   tokenweave.py        reduce-scatter + fused add/norm + all-gather
   ops.py               the dispatch the model code calls
 

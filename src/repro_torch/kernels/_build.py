@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "grouped_ffn.cu")
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "grouped_ffn.cu",
+           "ssd_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +35,9 @@ _SIGNATURES = {
     "repro_decode_split_keys": ([], _I),
     "repro_grouped_ffn_fwd": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P], _I),
+    "repro_ssd_scan_fwd": (
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+         ctypes.POINTER(_LL), _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -10,6 +10,7 @@ from . import rmsnorm as _rn
 from .decode_attention import decode_attention  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
 from .grouped_matmul import grouped_ffn  # noqa: F401
+from .ssd_scan import ssd_scan  # noqa: F401
 from .tokenweave import fused_ar_add_rmsnorm  # noqa: F401
 
 

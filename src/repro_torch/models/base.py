@@ -415,7 +415,8 @@ class LMBase:
                 out[imap.get(cn, cn)] = TensorSpec(shape, spec.dtype)
         return out
 
-    CACHE_MODEL_DIMS = {"k_cache": -2, "v_cache": -2}
+    CACHE_MODEL_DIMS = {"k_cache": -2, "v_cache": -2,
+                        "conv_state": -1, "ssm_state": -3}
 
     def decode_cache_layout(self) -> dict:
         """env-key -> (batch_dim, model_dim) for every decode cache."""

@@ -10,7 +10,8 @@ Layouts follow the JAX package: linear weights are (d_in, d_out) and used
 as ``x @ w``; activations are (B, S, d); attention heads (B, S, H, hd).
 Attention, decode attention and RMSNorm go through ``kernels.ops`` — the
 Hopper kernels on a CUDA tensor, their plain versions on the CPU.
-The MoE ops live in ``moe.py``; Mamba2, FSDP weight gathers and the
+The MoE ops live in ``moe.py``, the Mamba2 ops in ``mamba2.py`` and the
+hybrid's shared block in ``hybrid.py``; FSDP weight gathers and the
 training head arrive with later slices.
 """
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """The port's scheduling core (src/repro_torch/core) against the JAX
 package's.
 
-For the traced smoke graphs of smollm-135m, chatglm3-6b and
-deepseek-moe-16b, in the prefill and decode phases, under sequential /
+For the traced smoke graphs of smollm-135m, chatglm3-6b,
+deepseek-moe-16b, mamba2-2.7b and zamba2-1.2b, in the prefill and decode
+phases, under sequential /
 sbo / nanoflow / tokenweave / dbo / comet / dynamic, the port must
 produce the same trace (node names,
 resources, edges, shapes, dtypes, batch dims, cost estimates), the same
@@ -35,7 +36,8 @@ from repro_torch.core.plan import OpHandle, dtype_name
 from repro_torch.models.layers import MeshInfo as TMeshInfo
 from repro_torch.models.registry import build_model as tbuild_model
 
-ARCHS = ["smollm-135m", "chatglm3-6b", "deepseek-moe-16b"]
+ARCHS = ["smollm-135m", "chatglm3-6b", "deepseek-moe-16b", "mamba2-2.7b",
+         "zamba2-1.2b"]
 POLICIES = ["sequential", "sbo", "nanoflow", "tokenweave", "dbo", "comet",
             "dynamic"]
 # (phase, local batch, seq) — contexts that reach every dynamic branch:
@@ -206,14 +208,20 @@ def test_dynamic_branches_on_the_reference_graphs():
     in both packages.  chatglm3-6b as published is sequence-parallel, so
     TokenWeave finds no [all-reduce -> add -> RMSNorm] chain and a large
     prefill splits under NanoFlow; with ``seq_parallel=False`` it fuses.
-    MoE layers take DBO once the step is large enough to split."""
+    MoE layers take DBO once the step is large enough to split.  The
+    Mamba2 stacks split under NanoFlow; zamba2's shared attention block
+    fuses under TokenWeave."""
     import dataclasses
 
     def picks(core, build, cfg, phase, B, S):
         model = build(cfg, JMeshInfo() if core is jcore else TMeshInfo())
-        return dict((s.name, n) for s, n, *_ in
+        return dict((s.key, n) for s, n, *_ in
                     schedule_both(core, model, "dynamic", phase, B, S))
 
+    # zamba2's shared block is not sequence parallel: its [all-reduce ->
+    # add -> RMSNorm] chains fuse under TokenWeave; its Mamba stacks split
+    zamba_prefill = {"mamba_g0": "nanoflow", "shared_attn@0": "tokenweave",
+                     "mamba_g1": "nanoflow", "shared_attn@1": "tokenweave"}
     cases = [
         ("chatglm3-6b", True, "prefill", 2, 2048, {"layers": "nanoflow"}),
         ("chatglm3-6b", True, "prefill", 4, 2048, {"layers": "nanoflow"}),
@@ -228,6 +236,15 @@ def test_dynamic_branches_on_the_reference_graphs():
         ("deepseek-moe-16b", True, "prefill", 1, 2048, {"layers": "sbo"}),
         ("deepseek-moe-16b", True, "decode", 4, 4096,
          {"dense0": "sequential", "layers": "sequential"}),
+        ("mamba2-2.7b", False, "prefill", 4, 2048, {"layers": "nanoflow"}),
+        ("mamba2-2.7b", False, "prefill", 2, 2048, {"layers": "nanoflow"}),
+        ("mamba2-2.7b", False, "prefill", 1, 2048, {"layers": "sbo"}),
+        ("mamba2-2.7b", False, "decode", 4, 4096, {"layers": "sequential"}),
+        ("zamba2-1.2b", False, "prefill", 4, 2048, zamba_prefill),
+        ("zamba2-1.2b", False, "prefill", 2, 2048, zamba_prefill),
+        ("zamba2-1.2b", False, "decode", 4, 4096,
+         {"mamba_g0": "sequential", "shared_attn@0": "sequential",
+          "mamba_g1": "sequential", "shared_attn@1": "sequential"}),
     ]
     for arch, sp, phase, B, S, want in cases:
         jcfg = dataclasses.replace(jget_smoke(arch), seq_parallel=sp)

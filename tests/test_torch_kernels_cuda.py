@@ -21,6 +21,12 @@ atol + rtol*|plain| and the relative L2 error within l2, per kernel.
           h = silu(x W1) * (x W3) in bf16 (2^-9 relative), which moves an
           output by at most 2^-9 * |h|@|W2| (factor 2 margin); F is summed
           in f32 and the output rounded once (one ulp)
+  ssd_scan
+          atol 1e-3, rtol 2^-7, l2 1e-2: f32 products and state in both,
+          summed in other orders (f32 round-off ~1e-4 of the terms' sum);
+          only the output is rounded to bf16, and two f32 values that
+          straddle a rounding boundary land one ulp (<= 2^-7 relative)
+          apart
 """
 import pytest
 import torch
@@ -31,11 +37,13 @@ from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import grouped_matmul as tgm
 from repro_torch.kernels import rmsnorm as trn
+from repro_torch.kernels import ssd_scan as tssd
 
 FLASH = dict(atol=0.0, pv=2 ** -8, rtol=2 ** -7, l2=1e-2)
 DECODE = dict(atol=1e-3, rtol=1e-2, l2=1e-2)
 NORM = dict(atol=1e-3, rtol=1.6e-2, l2=4e-3)
 GFFN = dict(atol=0.0, pv=2 ** -8, rtol=2 ** -7, l2=1e-2)
+SSD = dict(atol=1e-3, rtol=2 ** -7, l2=1e-2)
 
 
 @pytest.fixture
@@ -176,3 +184,57 @@ def test_grouped_ffn_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         tgm.grouped_ffn(x.float(), w.float(), w.float(),
                         w.transpose(1, 2).float())
+
+
+def _ssd_inputs(seed, dev, b, L, H, P, G, N):
+    """x, B, C as column views of one post-conv buffer (the model's
+    layout); dt = softplus(n - 3) (a Mamba2-like step size), A in
+    [-16, -0.1], D ~ 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ch = H * P + 2 * G * N
+    xbc = (torch.randn((b, L, ch), generator=g, device=dev) * 0.5) \
+        .to(torch.bfloat16)
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    B = xbc[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    C = xbc[..., H * P + G * N:].unflatten(-1, (G, N))
+    dt = F.softplus(torch.randn((b, L, H), generator=g, device=dev) - 3.0)
+    A = -torch.exp(torch.rand((H,), generator=g, device=dev) * 5.1 - 2.3)
+    D = 1.0 + 0.1 * torch.randn((H,), generator=g, device=dev)
+    return x, dt, A, B, C, D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L,H,G,N,chunk", [
+    (2, 256, 8, 1, 128, 128), (1, 200, 4, 2, 64, 128), (2, 48, 4, 1, 64, 16),
+    (1, 37, 2, 1, 128, 128), (3, 128, 4, 4, 64, 64)])
+def test_ssd_scan_kernel_matches_plain(cuda, b, L, H, G, N, chunk):
+    x, dt, A, B, C, D = _ssd_inputs(9, cuda, b, L, H, 64, G, N)
+    n = LAUNCHES["ssd_scan"]
+    got = tssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    assert LAUNCHES["ssd_scan"] == n + 1
+    _close(got, tssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk), SSD)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_reads_views_and_is_batch_invariant(cuda):
+    """Strided x/B/C views, a one-row micro-batch view (NanoFlow's split)
+    and b = 1 give each row exactly what the whole batch gives it."""
+    x, dt, A, B, C, D = _ssd_inputs(10, cuda, 2, 384, 8, 64, 1, 128)
+    whole = tssd.ssd_scan(x, dt, A, B, C, D)
+    _close(whole, tssd.ssd_scan_plain(x.contiguous(), dt, A, B.contiguous(),
+                                      C.contiguous(), D), SSD)
+    for r in range(2):
+        row = tssd.ssd_scan(x[r:r + 1], dt[r:r + 1], A, B[r:r + 1],
+                            C[r:r + 1], D)
+        assert torch.equal(row[0], whole[r])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, A, B, C, D = _ssd_inputs(11, cuda, 1, 32, 4, 64, 1, 64)
+    with pytest.raises(ValueError):
+        tssd.ssd_scan(x[..., :32], dt, A, B, C, D)          # P 32
+    with pytest.raises(ValueError):
+        tssd.ssd_scan(x, dt, A, B[..., :32], C[..., :32], D)   # N 32
+    with pytest.raises(TypeError):
+        tssd.ssd_scan(x.float(), dt, A, B.float(), C.float(), D)
