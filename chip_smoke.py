@@ -281,8 +281,11 @@ def phase_kernels(dev, build_log=None):
                              iters=20),
             **bound(6.0 * n * d, (4 * n * d + d) * 2), library_ms=None)
 
-    def ffn(what, N, E=64, D=2048, Fd=1408):
-        x = randn(E, N, D)
+    def ffn(what, N, E=64, D=2048, Fd=1408, rows_of=None):
+        # rows_of: x is rows [N, 2N) of a (E, rows_of, D) buffer, read in
+        # place (a Comet chunk of the dispatch buffer)
+        x = randn(E, N, D) if rows_of is None else randn(E, rows_of, D)[
+            :, N:2 * N]
         w1 = (randn(E, D, Fd).float() * D ** -0.5).to(torch.bfloat16)
         w3 = (randn(E, D, Fd).float() * D ** -0.5).to(torch.bfloat16)
         w2 = (randn(E, Fd, D).float() * Fd ** -0.5).to(torch.bfloat16)
@@ -292,8 +295,9 @@ def phase_kernels(dev, build_log=None):
         h = F.silu(torch.bmm(xf, w1.float())) * torch.bmm(xf, w3.float())
         hw = torch.bmm(h.abs(), w2.float().abs())
         torch.cuda.synchronize()
+        view = "" if rows_of is None else f" (rows of a {rows_of}-row buffer)"
         return dict(
-            shape=f"{what}: E={E} N={N} D={D} F={Fd} bf16",
+            shape=f"{what}: E={E} N={N}{view} D={D} F={Fd} bf16",
             **compare("grouped_ffn", [(out, ref)], pv=hw),
             ms=cuda_ms(lambda: gm.grouped_ffn(x, w1, w3, w2)),
             plain_ms=cuda_ms(lambda: gm.grouped_ffn_plain(x, w1, w3, w2),
@@ -333,7 +337,9 @@ def phase_kernels(dev, build_log=None):
                    "src/repro/kernels/flash_attention.py:67",
                    [flash(f"{glm} prefill, GQA read in place",
                           2, 2048, 32, 2),
-                    flash(f"{z2} shared block prefill", 4, 2048, 32, 32)]),
+                    flash(f"{z2} shared block prefill", 4, 2048, 32, 32),
+                    # DBO runs the MoE layers' attention merged at B=4
+                    flash("deepseek-moe-16b prefill", 4, 2048, 16, 16)]),
         kernel_row("decode_attention", "cuda",
                    "src/repro_torch/kernels/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:56",
@@ -353,12 +359,14 @@ def phase_kernels(dev, build_log=None):
                    [fused(f"{glm} seq_parallel=False B=2", 4096, 4096),
                     fused(f"{z2} shared block B=4, TokenWeave", 8192, 4096)]),
         # deepseek-moe-16b's 64 experts: the DBO prefill micro-batch
-        # (capacity 480 of 4096 tokens) and the decode tier (capacity 4)
+        # (capacity 480 of 4096 tokens), the decode tier (capacity 4) and
+        # Comet's chunk (a quarter of the 480-row buffer, in place)
         kernel_row("grouped_ffn", "cuda",
                    "src/repro_torch/kernels/csrc/grouped_ffn.cu",
                    "src/repro/kernels/grouped_matmul.py:40",
                    [ffn("deepseek-moe-16b DBO prefill", 480),
-                    ffn("deepseek-moe-16b decode", 4)]),
+                    ffn("deepseek-moe-16b decode", 4),
+                    ffn("deepseek-moe-16b Comet chunk", 120, rows_of=480)]),
         # x, B and C are column views of one post-conv buffer, as the
         # model hands them over
         kernel_row("ssd_scan", "cuda",
@@ -367,13 +375,58 @@ def phase_kernels(dev, build_log=None):
                    [scan(f"{m2} prefill", 4, 80, 128),
                     scan(f"{z2} NanoFlow half", 2, 64, 64)]),
     ]
+    lib = _build.library()
+    builds = ptxas_report(_build.BUILD_LOG, ("flash_fwd_kernel",
+                                             "ffn_gemm_kernel"))
+    builds["runtime"] = {
+        "flash_attention hd=128": _build.kernel_info(
+            lib.repro_flash_attention_info, 128),
+        "flash_attention hd=64": _build.kernel_info(
+            lib.repro_flash_attention_info, 64),
+        **{f"grouped_ffn {v}": _build.kernel_info(
+            lib.repro_grouped_ffn_info, i) for i, v in enumerate(
+            ("gate-up N>64", "down N>64", "gate-up N<=64", "down N<=64"))}}
     reset_launch_counts()
-    log({"phase": "kernels", "build_s": build_s,
+    log({"phase": "kernels", "build_s": build_s, "builds": builds,
          "tolerance": "per kernel: |kernel - plain| <= atol + rtol*|plain| "
                       "(+ pv*P|V| for flash) elementwise and relative L2 "
                       "<= l2 (reasons in chip_smoke.py TOL)",
          "results": rows})
     return rows
+
+
+def ptxas_report(build_log, names):
+    """What ptxas said (``-Xptxas -v``) of each compiled entry whose
+    mangled name holds one of ``names``: registers a thread, spill stores
+    and loads in bytes, static shared memory a block (the kernels' tiles
+    are dynamic shared memory: ``runtime`` beside it has those), and any
+    "Potential Performance Loss" note (serialized wgmma)."""
+    import re
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Potential Performance Loss: (.*) in the function "
+                      r"'(\w+)'", line)
+        if m and any(n in m[2] for n in names):
+            out.setdefault(m[2], {})["ptxas_note"] = m[1]
+            continue
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            cur = m.group(1) if any(n in m.group(1) for n in names) else None
+            continue
+        if cur is None:
+            continue
+        rec = out.setdefault(cur, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rec.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            rec["static_smem_bytes"] = int(m[1]) if m else 0
+    return out
 
 
 # ---------------------------------------------------------------------------

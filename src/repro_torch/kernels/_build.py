@@ -3,9 +3,11 @@
 ``nvcc`` compiles every source for ``sm_90a`` in parallel (one process
 per file) and links them into one shared library with a plain C
 interface, which ``ctypes`` loads.  The library lives under ``build/``
-beside this file, named by a digest of the sources and flags, so a
-changed source rebuilds and an unchanged one is reused.  Nothing here
-runs at import: this module is imported on machines without ``nvcc``.
+beside this file, named by a digest of the flags and of every ``*.cu``
+and ``*.cuh`` under ``csrc/`` (the sources and the Hopper primitives of
+``hopper.cuh`` they include), so a changed file rebuilds and an
+unchanged tree is reused.  Nothing here runs at import: this module is
+imported on machines without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -27,14 +29,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "repro_flash_attention_fwd": (
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_LL), _I, _F,
-         _P], _I),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_LL),
+         _I, _F, _P], _I),
+    "repro_flash_attention_info": ([_I, _P, _P, _P], _I),
     "repro_decode_attention_fwd": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_LL),
          _F, _P], _I),
     "repro_decode_split_keys": ([], _I),
     "repro_grouped_ffn_fwd": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P], _I),
+    "repro_grouped_ffn_info": ([_I, _P, _P, _P], _I),
     "repro_ssd_scan_fwd": (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
          ctypes.POINTER(_LL), _P], _I),
@@ -53,14 +57,20 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library built from ``csrc`` lives: named by a digest of
+    the flags and of each ``*.cu`` / ``*.cuh`` file's name and bytes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return build_dir / f"librepro_kernels-{h.hexdigest()[:16]}.so"
+
+
 def build() -> Path:
     """Compile the sources (if their digest is new) and return the .so."""
     global BUILD_LOG
     srcs = [CSRC / s for s in SOURCES]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.read_bytes())
-    lib = BUILD_DIR / f"librepro_kernels-{h.hexdigest()[:16]}.so"
+    lib = library_path(CSRC, BUILD_DIR)
     if lib.exists():
         return lib
     nvcc = _nvcc()
@@ -112,3 +122,13 @@ def check(rc: int, what: str):
 
 def strides_arg(*strides) -> ctypes.Array:
     return (ctypes.c_longlong * len(strides))(*[int(s) for s in strides])
+
+
+def kernel_info(fn, variant: int) -> dict:
+    """Registers a thread, local (spill) bytes and dynamic shared memory a
+    block of one compiled kernel, from ``repro_<kernel>_info``."""
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    check(fn(variant, ctypes.byref(regs), ctypes.byref(local),
+             ctypes.byref(smem)), fn.__name__)
+    return {"registers": regs.value, "local_bytes": local.value,
+            "smem_bytes": smem.value}

@@ -8,265 +8,254 @@
 // bf16 output, rounding it after every block; here all of F is summed in
 // f32 and the output is rounded once, which is the same function, more
 // exactly.  The gated hidden activation h is kept in bf16 between the two
-// launches (one rounding of each element of h).
+// launches (one rounding of each element of h).  There is no split over
+// D or F, and each sum runs in one fixed order, so a row's result does not
+// depend on the row tile it lands in (a Comet chunk equals the same rows
+// of the whole buffer bitwise).
 //
 // What bounds it on the H100.  At the DBO prefill micro-batch of
 // deepseek-moe-16b, (E, N, D, F) = (64, 480, 2048, 1408): 532 GFLOP
 // against 1.36 GB of weights, activations and outputs, so operations
 // (0.54 ms at 989 TFLOP/s) over bytes (0.41 ms at 3.35 TB/s).  At a
 // Comet chunk (N = 120) and at decode (N = 4) the weights dominate and
-// bytes bound it: every expert's 34.6 MB of W1, W3 and W2 must stream
-// once.  The design runs every product on the tensor cores (WMMA
-// 16x16x16 bf16 -> f32, i.e. mma.sync), stages tiles through shared memory
-// with cp.async double buffering so loads overlap the products, and reads
-// each weight tile once per N tile: at N <= 64 (decode, small chunks) the
-// weights are read exactly once.
+// bytes bound it: every expert's 17.3 MB of W1, W3 and W2 must stream
+// once.
 //
 // Design.  Two launches, as the TPU kernel's sequential F axis cannot
-// carry a sum between parallel blocks:
-//   1. gate-up: one block per (F tile of 64, N tile of 64, expert) forms
-//      x W1 and x W3 for its tile in two sets of f32 accumulators, applies
-//      silu(a) * b in registers and writes h (E, N, F) in bf16;
-//   2. down: one block per (D tile of 128, N tile of 64, expert) forms
-//      h W2 over all of F in f32 and rounds once.
-// Rows past N are zero-filled on load (cp.async src-size 0) and never
-// stored, so any N >= 1 works; unfilled capacity rows (zeros) give zeros.
-// x may be a strided view (expert and row strides, unit column stride):
-// Comet's chunks of the dispatch buffer are read in place.  This is the
-// simple first version: no TMA, no wgmma, no warp specialisation.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// carry a sum between parallel blocks, each a warp-specialised wgmma GEMM:
+// a producer warpgroup whose first thread streams 64-deep tiles of the A
+// rows and of the weights into a ring of STAGES shared-memory stages by
+// TMA ("full" mbarriers count the bytes, "empty" ones one arrival per
+// consumer warp), and NC consumer warpgroups of 64 rows each that run
+// wgmma on the stages with f32 accumulators in registers, keeping one
+// group of products in flight while the next is issued.
+//   1. gate-up: one block per (row tile of 64 NC, F tile of BN, expert).
+//      The W1 tile and the matching W3 tile sit side by side as one
+//      MN-major B operand (transpose bit: W is stored [D][F]), so one
+//      m64n(2 BN)k16 wgmma fills both; column j of x W1 and column j of
+//      x W3 then sit in the same thread, 4 BN/8 registers apart, and
+//      silu(a) * b is elementwise on the registers.  h (E, N, F) bf16.
+//   2. down: one block per (row tile, D tile of BN, expert) forms h W2
+//      over all of F in f32 and rounds once.
+// N > 64 (prefill) takes two consumer warpgroups (128 rows: every weight
+// tile is read ceil(N/128) times) with 128-wide gate-up and 256-wide down
+// tiles, setmaxnreg moving the producer's registers to the consumers;
+// N <= 64 (decode) one consumer warpgroup and 64 / 128-wide tiles, two
+// blocks an SM, so the weight stream has more blocks in flight.  A block
+// is grid-ordered row tile fastest, so the row tiles of one weight tile
+// run together and share it through L2.  Rows past N and W columns past
+// F are zero-filled by TMA and never stored; x is a rank-3 map with its
+// own expert and row strides, so Comet's chunks are read in place.
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 64;          // rows of x (tokens) per block
-constexpr int BK = 32;          // depth of one staged tile
-constexpr int BN_UP = 64;       // F columns per gate-up block
-constexpr int BN_DOWN = 128;    // D columns per down block
-constexpr int NTHREADS = 128;   // 4 warps as 2 x 2
-constexpr int LDA = BK + 8;     // padded bf16 rows of the A tiles
-constexpr int LDU = BN_UP + 8;  // padded bf16 rows of the W1/W3 tiles
-constexpr int LDD = BN_DOWN + 8;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;   // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+constexpr int BK = 64;            // reduction depth of one stage
+constexpr int BOX = 64 * 128;     // bytes of a 64-row x 64-column box
 
 __device__ __forceinline__ float silu(float v) {
   return v / (1.f + expf(-v));
 }
 
-// Stage a BM x BK tile of rows [m0, m0+BM) x cols [k0, k0+BK) of a
-// row-major matrix with row stride ld; rows >= M are zero-filled.
-__device__ __forceinline__ void load_a(bf16 (*dst)[LDA], const bf16* src,
-                                       long long ld, int m0, int M, int k0,
-                                       int tid) {
-  for (int i = tid; i < BM * (BK / 8); i += NTHREADS) {
-    const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-    const bool ok = m0 + r < M;
-    cp_async16(&dst[r][c], src + (long long)(ok ? m0 + r : 0) * ld + k0 + c,
-               ok);
-  }
+// One kernel for both launches.  GATE: A = x (E, N, D), B = [W1 | W3]
+// tiles, out = h (E, N, F) = silu(x W1) * (x W3).  !GATE: A = h, B = W2,
+// out = y (E, N, D).  BN: output columns a block writes; K: D or F.
+template <bool GATE, int NC, int BN, int STAGES>
+struct GemmCfg {
+  static constexpr int WN = GATE ? 2 * BN : BN;   // wgmma width
+  static constexpr int A_BYTES = NC * 64 * 128;   // one box of NC*64 rows
+  static constexpr int B_BYTES = (WN / 64) * BOX;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr size_t SMEM =
+      1024 + STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t);
+};
+
+template <int WN>
+__device__ __forceinline__ void wgmma_tile(float (&acc)[WN / 2], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  if constexpr (WN == 256)
+    hopper::wgmma_m64n256k16_ss<1>(acc, a, b, accumulate);
+  else
+    hopper::wgmma_m64n128k16_ss<1>(acc, a, b, accumulate);
 }
 
-// Stage a BK x BN tile of rows [k0, k0+BK) x cols [n0, n0+BN) of a
-// row-major matrix with row stride ld (always in bounds).
-template <int BN, int LD>
-__device__ __forceinline__ void load_b(bf16 (*dst)[LD], const bf16* src,
-                                       long long ld, int k0, int n0,
-                                       int tid) {
-  for (int i = tid; i < BK * (BN / 8); i += NTHREADS) {
-    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-    cp_async16(&dst[r][c], src + (long long)(k0 + r) * ld + n0 + c, true);
-  }
-}
+template <bool GATE, int NC, int BN, int STAGES>
+__global__ void __launch_bounds__(128 * (NC + 1), NC == 1 ? 2 : 1)
+ffn_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                const __grid_constant__ CUtensorMap tb0,
+                const __grid_constant__ CUtensorMap tb1,
+                bf16* __restrict__ out, int N, int K, int ncols) {
+  using C = GemmCfg<GATE, NC, BN, STAGES>;
+  using namespace hopper;
+  constexpr int WN = C::WN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* stages = smem_aligned_1024(smem_raw);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(stages + STAGES * C::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
 
-// Write one 16x16 f32 accumulator tile as bf16 rows [row0, row0+16) x
-// cols [col0, col0+16) of a row-major output with row stride ld, through
-// the warp's 16x16 f32 scratch; rows >= M are skipped.
-template <typename Frag>
-__device__ __forceinline__ void store_tile(const Frag& acc, float* scratch,
-                                           bf16* out, long long ld, int row0,
-                                           int M, int col0, int lane) {
-  wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane / 2, c = (lane % 2) * 8;
-  if (row0 + r < M) {
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(scratch[r * 16 + c + e]);
-    *reinterpret_cast<uint4*>(out + (long long)(row0 + r) * ld + col0 + c) =
-        *reinterpret_cast<const uint4*>(v);
-  }
-  __syncwarp();
-}
+  const int n0 = blockIdx.x * NC * 64, c0 = blockIdx.y * BN, e = blockIdx.z;
+  const int kt_n = K / BK;
+  const int wg = threadIdx.x / 128;
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// h[e, n, f] = silu(x[e, n, :] . w1[e, :, f]) * (x[e, n, :] . w3[e, :, f])
-__global__ void __launch_bounds__(NTHREADS)
-gate_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-               const bf16* __restrict__ w3, bf16* __restrict__ h, int N,
-               int D, int F, long long sxe, long long sxn) {
-  __shared__ __align__(128) bf16 sX[2][BM][LDA];
-  __shared__ __align__(128) bf16 sW1[2][BK][LDU];
-  __shared__ __align__(128) bf16 sW3[2][BK][LDU];
-  __shared__ __align__(128) float scratch[NTHREADS / 32][16 * 16];
-
-  const int f0 = blockIdx.x * BN_UP, n0 = blockIdx.y * BM, e = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;     // 32 x 32 per warp
-  const bf16* xe = x + (long long)e * sxe;
-  const bf16* w1e = w1 + (long long)e * D * F;
-  const bf16* w3e = w3 + (long long)e * D * F;
-
-  FragC acc1[2][2], acc3[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc1[i][j], 0.f);
-      wmma::fill_fragment(acc3[i][j], 0.f);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * 4);
     }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int KT = D / BK;
-  load_a(sX[0], xe, sxn, n0, N, 0, tid);
-  load_b<BN_UP, LDU>(sW1[0], w1e, F, 0, f0, tid);
-  load_b<BN_UP, LDU>(sW3[0], w3e, F, 0, f0, tid);
-  cp_async_commit();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < KT) {
-      const int k1 = (kt + 1) * BK;
-      load_a(sX[s ^ 1], xe, sxn, n0, N, k1, tid);
-      load_b<BN_UP, LDU>(sW1[s ^ 1], w1e, F, k1, f0, tid);
-      load_b<BN_UP, LDU>(sW3[s ^ 1], w3e, F, k1, f0, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+  if (wg == 0) {
+    // ---- producer ----
+    if constexpr (NC == 2) setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < kt_n; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], C::STAGE_BYTES);
+        uint8_t* sa = stages + s * C::STAGE_BYTES;
+        uint8_t* sb = sa + C::A_BYTES;
+        tma_load_3d(sa, &ta, &full[s], kt * BK, n0, e);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &sX[s][wm * 32 + i * 16][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB b1, b3;
-        wmma::load_matrix_sync(b1, &sW1[s][kk][wn * 32 + j * 16], LDU);
-        wmma::load_matrix_sync(b3, &sW3[s][kk][wn * 32 + j * 16], LDU);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::mma_sync(acc1[i][j], a[i], b1, acc1[i][j]);
-          wmma::mma_sync(acc3[i][j], a[i], b3, acc3[i][j]);
+        for (int x = 0; x < BN / 64; ++x) {
+          tma_load_3d(sb + x * BOX, &tb0, &full[s], c0 + 64 * x, kt * BK, e);
+          if constexpr (GATE)
+            tma_load_3d(sb + (BN / 64 + x) * BOX, &tb1, &full[s],
+                        c0 + 64 * x, kt * BK, e);
         }
       }
     }
-    __syncthreads();   // every warp is done with stage s before its reload
+    return;
   }
 
-  // the two accumulator sets share one fragment layout, so the gate is
-  // elementwise on the registers
-  bf16* he = h + (long long)e * N * F;
+  // ---- consumers ----
+  if constexpr (NC == 2) setmaxnreg_inc<232>();
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128, lane = t % 32;
+
+  // (A warpgroup whose rows all lie past N multiplies zeros: skipping its
+  // products in a branch makes ptxas serialize every wgmma of the kernel.)
+  float acc[WN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int r = 0; r < WN / 2; ++r) acc[r] = 0.f;
+
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint8_t* sa = stages + s * C::STAGE_BYTES + cw * 8192;
+    const uint8_t* sb = stages + s * C::STAGE_BYTES + C::A_BYTES;
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int t = 0; t < acc1[i][j].num_elements; ++t)
-        acc1[i][j].x[t] = silu(acc1[i][j].x[t]) * acc3[i][j].x[t];
-      store_tile(acc1[i][j], scratch[warp], he, F, n0 + wm * 32 + i * 16, N,
-                 f0 + wn * 32 + j * 16, lane);
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_tile<WN>(acc, desc_k_major(sa + kk * 32),
+                     desc_mn_major(sb + kk * 2048, BOX), 1);
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous stage's products are done: release it
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
     }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[(kt_n - 1) % STAGES]);
+
+  // epilogue: column pairs straight from the registers, rows < N
+  const int row0 = n0 + cw * 64 + acc_row(t);
+  const int col = c0 + acc_col(t);
+  bf16* oe = out + (long long)e * N * ncols;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= N) continue;
+    bf16* orow = oe + (long long)row * ncols + col;
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      float v0 = acc[4 * jj + 2 * i], v1 = acc[4 * jj + 2 * i + 1];
+      if constexpr (GATE) {
+        // x W3 sits BN columns (4 BN/8 registers) to the right
+        v0 = silu(v0) * acc[4 * (jj + BN / 8) + 2 * i];
+        v1 = silu(v1) * acc[4 * (jj + BN / 8) + 2 * i + 1];
+      }
+      if (col + 8 * jj < ncols)
+        *reinterpret_cast<uint32_t*>(orow + 8 * jj) = pack_bf16x2(v0, v1);
+    }
+  }
 }
 
-// y[e, n, d] = h[e, n, :] . w2[e, :, d], all of F in f32, rounded once
-__global__ void __launch_bounds__(NTHREADS)
-down_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w2,
-            bf16* __restrict__ y, int N, int D, int F) {
-  __shared__ __align__(128) bf16 sH[2][BM][LDA];
-  __shared__ __align__(128) bf16 sW[2][BK][LDD];
-  __shared__ __align__(128) float scratch[NTHREADS / 32][16 * 16];
-
-  const int d0 = blockIdx.x * BN_DOWN, n0 = blockIdx.y * BM, e = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;     // 32 x 64 per warp
-  const bf16* he = h + (long long)e * N * F;
-  const bf16* w2e = w2 + (long long)e * F * D;
-
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int KT = F / BK;
-  load_a(sH[0], he, F, n0, N, 0, tid);
-  load_b<BN_DOWN, LDD>(sW[0], w2e, D, 0, d0, tid);
-  cp_async_commit();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < KT) {
-      const int k1 = (kt + 1) * BK;
-      load_a(sH[s ^ 1], he, F, n0, N, k1, tid);
-      load_b<BN_DOWN, LDD>(sW[s ^ 1], w2e, D, k1, d0, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+template <bool GATE, int NC, int BN, int STAGES>
+int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb0,
+                const CUtensorMap& tb1, bf16* out, int E, int N, int K,
+                int ncols, cudaStream_t stream) {
+  using C = GemmCfg<GATE, NC, BN, STAGES>;
+  auto kern = ffn_gemm_kernel<GATE, NC, BN, STAGES>;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (NC == 2) {
+      // setmaxnreg: 40 producer + 2 x 232 consumer registers per thread lane
+      const int rc = hopper::check_register_budget(
+          (const void*)kern, C::THREADS, 128 * (40 + 2 * 232));
+      if (rc) return rc;
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &sH[s][wm * 32 + i * 16][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, &sW[s][kk][wn * 64 + j * 16], LDD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-    __syncthreads();
+    ready = true;
   }
+  dim3 grid((N + NC * 64 - 1) / (NC * 64), (ncols + BN - 1) / BN, E);
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(ta, tb0, tb1, out, N, K, ncols);
+  return (int)cudaGetLastError();
+}
 
-  bf16* ye = y + (long long)e * N * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      store_tile(acc[i][j], scratch[warp], ye, D, n0 + wm * 32 + i * 16, N,
-                 d0 + wn * 64 + j * 16, lane);
+// (E, rows, cols) bf16 with element strides se (expert) and sr (row), a
+// unit column stride: a rank-3 map (cols, rows, E) and boxes of 64 columns
+// by ``box_rows`` rows
+int map3(CUtensorMap* m, const void* p, long long E, long long rows,
+         long long cols, long long se, long long sr, uint32_t box_rows) {
+  const long long dims[3] = {cols, rows, E}, strides[2] = {sr, se};
+  const uint32_t box[3] = {64, box_rows, 1};
+  return hopper::make_map_bf16(m, p, 3, dims, strides, box);
+}
+
+template <int NC, int BN_UP, int BN_DOWN, int STAGES>
+int launch_ffn(const void* x, const void* w1, const void* w3, const void* w2,
+               void* h, void* y, int E, int N, int D, int F, long long sxe,
+               long long sxn, cudaStream_t s) {
+  CUtensorMap tx, tw1, tw3, th, tw2;
+  int rc = map3(&tx, x, E, N, D, sxe, sxn, NC * 64);
+  if (!rc) rc = map3(&tw1, w1, E, D, F, (long long)D * F, F, 64);
+  if (!rc) rc = map3(&tw3, w3, E, D, F, (long long)D * F, F, 64);
+  if (!rc) rc = map3(&th, h, E, N, F, (long long)N * F, F, NC * 64);
+  if (!rc) rc = map3(&tw2, w2, E, F, D, (long long)F * D, D, 64);
+  if (!rc)
+    rc = launch_gemm<true, NC, BN_UP, STAGES>(tx, tw1, tw3,
+                                              static_cast<bf16*>(h), E, N, D,
+                                              F, s);
+  if (!rc)
+    rc = launch_gemm<false, NC, BN_DOWN, STAGES>(th, tw2, tw2,
+                                                 static_cast<bf16*>(y), E, N,
+                                                 F, D, s);
+  return rc;
+}
+
+template <bool GATE, int NC, int BN, int STAGES>
+int gemm_info(int* regs, int* local_bytes, int* smem_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t e =
+      cudaFuncGetAttributes(&a, ffn_gemm_kernel<GATE, NC, BN, STAGES>);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *smem_bytes = (int)GemmCfg<GATE, NC, BN, STAGES>::SMEM;
+  return 0;
 }
 
 }  // namespace
@@ -277,24 +266,34 @@ extern "C" {
 // column stride; w1/w3 (E, D, F), w2 (E, F, D), h (E, N, F) scratch and
 // y (E, N, D) contiguous bf16.  Needs D % 128 == 0 and F % 64 == 0, all
 // pointers 16-byte aligned and sxe, sxn multiples of 8.  Returns
-// cudaGetLastError() after the launches (0 on success).
+// cudaGetLastError() after the launches, or the error of a tensor-map
+// encoding (0 on success).
 int repro_grouped_ffn_fwd(const void* x, const void* w1, const void* w3,
                           const void* w2, void* h, void* y, int E, int N,
                           int D, int F, long long sxe, long long sxn,
                           void* stream) {
-  if (E < 1 || N < 1 || D % BN_DOWN || F % BN_UP || D % BK || F % BK)
+  if (E < 1 || N < 1 || D < 128 || F < 64 || D % 128 || F % 64 || E > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (N + BM - 1) / BM;
-  gate_up_kernel<<<dim3(F / BN_UP, n_tiles, E), NTHREADS, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(w3), static_cast<bf16*>(h), N, D, F, sxe, sxn);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  down_kernel<<<dim3(D / BN_DOWN, n_tiles, E), NTHREADS, 0, s>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w2),
-      static_cast<bf16*>(y), N, D, F);
-  return (int)cudaGetLastError();
+  if (N > 64)
+    return launch_ffn<2, 128, 256, 4>(x, w1, w3, w2, h, y, E, N, D, F, sxe,
+                                      sxn, s);
+  return launch_ffn<1, 64, 128, 4>(x, w1, w3, w2, h, y, E, N, D, F, sxe, sxn,
+                                   s);
+}
+
+// registers a thread, local (spill) bytes and dynamic shared memory a
+// block of variant ``which``: 0 gate-up and 1 down for N > 64, 2 gate-up
+// and 3 down for N <= 64
+int repro_grouped_ffn_info(int which, int* regs, int* local_bytes,
+                           int* smem_bytes) {
+  switch (which) {
+    case 0: return gemm_info<true, 2, 128, 4>(regs, local_bytes, smem_bytes);
+    case 1: return gemm_info<false, 2, 256, 4>(regs, local_bytes, smem_bytes);
+    case 2: return gemm_info<true, 1, 64, 4>(regs, local_bytes, smem_bytes);
+    case 3: return gemm_info<false, 1, 128, 4>(regs, local_bytes, smem_bytes);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -38,10 +38,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """The kernel reads 16-byte vectors along hd: last dim contiguous,
-    16-byte aligned base and strides.  Anything else is copied first."""
+    """The kernel's TMA maps need a unit hd stride, a 16-byte aligned base
+    and strides that are positive multiples of 16 bytes (a dimension of
+    extent 1 may have any stride).  Anything else is copied first."""
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s in t.stride()[:-1]))
+          and all(s % 8 == 0 and (s > 0 or n == 1)
+                  for s, n in zip(t.stride()[:-1], t.shape[:-1])))
     return t if ok else t.contiguous()
 
 
@@ -74,10 +76,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
     st = strides_arg(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                      *o.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if Sq == 0 or Sk == 0 or B == 0:     # no key: l = 0 gives zeros
+        return o.zero_()
+    # the persistent blocks take q tiles off this counter
+    counter = torch.zeros(1, dtype=torch.int32, device=q.device)
     rc = library().repro_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        kv_head.data_ptr(), B, H, Sq, Sk, hd, st, int(causal),
-        LOG2E / math.sqrt(hd), stream)
+        kv_head.data_ptr(), counter.data_ptr(), B, H, Hk, Sq, Sk, hd, st,
+        int(causal), LOG2E / math.sqrt(hd), stream)
     check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o

@@ -43,9 +43,11 @@ def grouped_ffn(x, w1, w3, w2):
             "(D must be a multiple of 128, F of 64)")
     if N == 0:
         return torch.empty_like(x)
-    # 16-byte rows: unit column stride, 8-element row/expert strides
-    if not (x.stride(2) == 1 and x.stride(0) % 8 == 0
-            and x.stride(1) % 8 == 0 and x.data_ptr() % 16 == 0):
+    # the TMA map of x: unit column stride, 16-byte aligned base, row and
+    # expert strides positive multiples of 8 elements (any, at extent 1)
+    if not (x.stride(2) == 1 and x.data_ptr() % 16 == 0
+            and all(s % 8 == 0 and (s > 0 or n == 1)
+                    for s, n in zip(x.stride()[:2], x.shape[:2]))):
         x = x.contiguous()
     w1, w3, w2 = w1.contiguous(), w3.contiguous(), w2.contiguous()
     h = torch.empty((E, N, Fd), dtype=x.dtype, device=x.device)

@@ -98,6 +98,37 @@ def test_flash_kernel_reads_strided_views(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("Hk", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sk", [127, 128, 129, 257])
+@pytest.mark.parametrize("Sq", [127, 128, 129, 257])
+def test_flash_kernel_at_tile_edges(cuda, Sq, Sk, causal, Hk, hd):
+    """One key or row either side of the kernel's 128-row q tiles and
+    128-key K/V tiles, GQA (4 q heads on 1 kv head) and not."""
+    B, H = 2, 4
+    q, k, v = _dev(12, cuda, (B, Sq, H, hd), (B, Sk, Hk, hd), (B, Sk, Hk, hd))
+    slot = (torch.arange(H, device=cuda) // (H // Hk)).int()
+    got = tfa.flash_attention(q, k, v, causal=causal, kv_head=slot)
+    _flash_close(got, q, k, v, causal=causal, kv_head=slot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_kernel_is_batch_invariant(cuda, hd):
+    """Each row of a B=1 call equals the same row of a B=2 call bitwise
+    (NanoFlow's halves against the whole batch)."""
+    B, S, H, Hk = 2, 300, 8, 2
+    q, k, v = _dev(13, cuda, (B, S, H, hd), (B, S, Hk, hd), (B, S, Hk, hd))
+    slot = (torch.arange(H, device=cuda) // (H // Hk)).int()
+    whole = tfa.flash_attention(q, k, v, kv_head=slot)
+    for r in range(B):
+        row = tfa.flash_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                  kv_head=slot)
+        assert torch.equal(row[0], whole[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
 def test_decode_kernel_matches_plain(cuda, hd):
     B, S, H, Hk = 4, 1100, 8, 2
     q, kc, vc = _dev(2, cuda, (B, 1, H, hd), (B, S, Hk, hd), (B, S, Hk, hd))
@@ -157,6 +188,34 @@ def test_grouped_ffn_kernel_matches_plain(cuda, E, N, D, Fd):
     got = tgm.grouped_ffn(x, w1, w3, w2)
     assert LAUNCHES["grouped_ffn"] == n + 1
     _ffn_close(got, x, w1, w3, w2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Fd", [192, 1408])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 127, 128, 129])
+def test_grouped_ffn_kernel_at_tile_edges(cuda, N, Fd):
+    """Rows either side of the kernel's 64-row (decode) and 128-row
+    (prefill) tiles; F = 192 ends in half a 128-wide gate-up tile."""
+    E, D = 3, 256
+    x = _dev(14, cuda, (E, N, D))[0]
+    w1, w3, w2 = _ffn_weights(15, cuda, E, D, Fd)
+    _ffn_close(tgm.grouped_ffn(x, w1, w3, w2), x, w1, w3, w2)
+
+
+@pytest.mark.cuda
+def test_grouped_ffn_kernel_reads_a_comet_chunk_bitwise(cuda):
+    """deepseek-moe-16b's Comet chunk: N=120 rows read in place from the
+    480-row dispatch buffer come out bitwise equal to the same rows of
+    the whole buffer's result."""
+    E, C, D, Fd = 8, 480, 2048, 1408
+    buf = _dev(16, cuda, (E, C, D))[0]
+    w1, w3, w2 = _ffn_weights(17, cuda, E, D, Fd)
+    whole = tgm.grouped_ffn(buf, w1, w3, w2)
+    for c0 in range(0, C, 120):
+        chunk = buf[:, c0:c0 + 120]
+        got = tgm.grouped_ffn(chunk, w1, w3, w2)
+        assert torch.equal(got, whole[:, c0:c0 + 120])
+    _ffn_close(whole, buf, w1, w3, w2)
 
 
 @pytest.mark.cuda
