@@ -17,6 +17,13 @@ Phases, each printing one JSON line:
             and hold each Hopper kernel against its plain PyTorch version
             at each shape the main paths give it; time kernel, plain
             version and the one-call PyTorch yardstick where there is one
+            over back-to-back calls (``ms``: CUDA events, which measure
+            the host where a call costs it more than the card), and
+            kernel and yardstick on the device alone (``device_ms``,
+            ``library_device_ms``: torch.profiler's kernel durations, in
+            turns; decode attention cold, rotating over caches that pass
+            the 50 MB L2) with the host's enqueue cost a call
+            (``host_us``)
   reference a 2-layer cut of chatglm3-6b at full width on the GPU
             (kernels) against the same program on the CPU (plain versions)
   transparency
@@ -90,9 +97,10 @@ TOL = {
     # factor 2, rtol one output ulp; a 64-key tile dropped from a
     # 1000-key row moves its outputs by ~25% of their RMS
     "flash_attention": dict(atol=0.0, pv=2 ** -8, rtol=2 ** -7, l2=1e-2),
-    # f32 throughout, only the output rounded: 1 ulp < 1e-2 relative;
-    # outputs have RMS 0.026 (4096 keys) to 0.24 (17 keys), and one
-    # 512-key split dropped moves them by ~1e-2
+    # f32 sums; the probabilities enter the PV product as a bf16 high and
+    # low part (~2^-16 relative); only the output rounded: 1 ulp < 1e-2
+    # relative; outputs have RMS 0.026 (4096 keys) to 0.24 (17 keys), and
+    # one 256-key chunk dropped moves them by ~1e-2
     "decode_attention": dict(atol=1e-3, rtol=1e-2, l2=1e-2),
     # f32 sums; x*rsqrt rounded to bf16, then *g rounded: 2 ulps
     "rmsnorm": dict(atol=1e-3, rtol=1.6e-2, l2=4e-3),
@@ -140,6 +148,67 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _dev_us(e):
+    """Device time of a profiler event, in microseconds."""
+    return float(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)))
+
+
+def device_ms(fns, iters=30, warmup=3):
+    """Device time per call on the card alone: the durations of the
+    kernels (and device copies) that ``iters`` calls launch, summed by
+    ``torch.profiler``, without the host's gaps between launches.  The
+    calls cycle through ``fns`` (each on its own inputs), so a caller can
+    rotate past the 50 MB L2 where the real caller finds its data cold."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    # the profiler now and then hands back a window without its device
+    # events (seen on an H100): such a window is measured again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        total = sum(_dev_us(e) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    raise RuntimeError("torch.profiler recorded no device time")
+
+
+def host_us(fn, iters=50):
+    """The host's cost of a call: enqueue time over ``iters`` calls, then
+    one synchronise (outside the clock)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def device_times(kernel, library=None, name="library"):
+    """``device_ms`` and ``host_us`` of a kernel's wrapper and
+    ``<name>_device_ms`` of its one-call yardstick, each a list of calls
+    to rotate through (see ``device_ms``), timed in turns (kernel,
+    yardstick, yardstick, kernel) and averaged over the two turns."""
+    k = [device_ms(kernel)]
+    lib = None if library is None else [device_ms(library),
+                                        device_ms(library)]
+    k.append(device_ms(kernel))
+    return {"device_ms": sum(k) / 2, "device_ms_turns": k,
+            f"{name}_device_ms": None if lib is None else sum(lib) / 2,
+            f"{name}_device_ms_turns": lib, "host_us": host_us(kernel[0])}
 
 
 def bound(flops, nbytes):
@@ -228,7 +297,12 @@ def phase_kernels(dev, build_log=None):
             **bound(4.0 * B * S * S * H * hd * 0.5,
                     2 * (2 * q.numel() + k.numel() + v.numel())),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)))
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            **device_times(
+                [lambda: fa.flash_attention(q, k, v, causal=True,
+                                            kv_head=kvh)],
+                [lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)]))
 
     def decode(what, H, Hk, B=4, S=4096, hd=128, lens=(4096, 2999, 1500, 17)):
         q = randn(B, 1, H, hd)
@@ -241,6 +315,12 @@ def phase_kernels(dev, build_log=None):
         mask = (torch.arange(S, device=dev)[None, :]
                 < clen[:, None])[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        # device times cold, as a layer loop finds each layer's cache:
+        # the calls rotate over caches that together pass the 50 MB L2
+        valid = 4 * sum(min(n, S) for n in lens) * Hk * hd   # K, V bytes
+        sets = [(q, kc, vc)] + [
+            (randn(B, 1, H, hd), randn(B, S, Hk, hd), randn(B, S, Hk, hd))
+            for _ in range(max(1, -(-100_000_000 // valid) - 1))]
         return dict(
             shape=f"{what}: B={B} S={S} H={H} Hkv={Hk} hd={hd} "
                   f"cache_len={list(lens)} bf16",
@@ -252,7 +332,14 @@ def phase_kernels(dev, build_log=None):
             **bound(4.0 * sum(lens) * H * hd,
                     2 * sum(lens) * Hk * hd * 2 + 2 * q.numel() * 2 + 4 * B),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=50))
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=50),
+            caches_rotated=len(sets),
+            **device_times(
+                [lambda a=a: dec.decode_attention(*a, clen, kv_head=kvh)
+                 for a in sets],
+                [lambda a=a: F.scaled_dot_product_attention(
+                    *(t.transpose(1, 2) for t in a), attn_mask=mask,
+                    enable_gqa=True) for a in sets]))
 
     def norm(what, n, d):
         x, gw = randn(n, d), randn(d)
@@ -265,7 +352,9 @@ def phase_kernels(dev, build_log=None):
             plain_ms=cuda_ms(lambda: rn.rmsnorm_plain(x, gw), iters=20),
             **bound(4.0 * n * d, (2 * n * d + d) * 2),
             library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), gw, 1e-5),
-                               iters=50))
+                               iters=50),
+            **device_times([lambda: rn.rmsnorm(x, gw)],
+                           [lambda: F.rms_norm(x, (d,), gw, 1e-5)]))
 
     def fused(what, n, d, block_rows=256):
         x, y, gw = randn(n, d), randn(n, d), randn(d)
@@ -279,7 +368,9 @@ def phase_kernels(dev, build_log=None):
                 x, y, gw, block_rows=block_rows), iters=50),
             plain_ms=cuda_ms(lambda: rn.fused_add_rmsnorm_plain(x, y, gw),
                              iters=20),
-            **bound(6.0 * n * d, (4 * n * d + d) * 2), library_ms=None)
+            **bound(6.0 * n * d, (4 * n * d + d) * 2), library_ms=None,
+            **device_times([lambda: rn.fused_add_rmsnorm(
+                x, y, gw, block_rows=block_rows)]))
 
     def ffn(what, N, E=64, D=2048, Fd=1408, rows_of=None):
         # rows_of: x is rows [N, 2N) of a (E, rows_of, D) buffer, read in
@@ -308,7 +399,12 @@ def phase_kernels(dev, build_log=None):
             # composition bmm x3 + silu*mul is timed beside it as a yardstick
             library_ms=None,
             composition_ms=cuda_ms(lambda: torch.bmm(
-                F.silu(torch.bmm(x, w1)) * torch.bmm(x, w3), w2)))
+                F.silu(torch.bmm(x, w1)) * torch.bmm(x, w3), w2)),
+            **device_times([lambda: gm.grouped_ffn(x, w1, w3, w2)],
+                           [lambda: torch.bmm(F.silu(torch.bmm(x, w1))
+                                              * torch.bmm(x, w3), w2)],
+                           name="composition"),
+            library_device_ms=None)
 
     def scan(what, b, H, N, L=2048, P=64, G=1):
         args = ssd_inputs(g, b, L, H, P, N)
@@ -328,7 +424,8 @@ def phase_kernels(dev, build_log=None):
             plain_ms=cuda_ms(lambda: ssd.ssd_scan_plain(*args), iters=3),
             **bound(flops, nbytes),
             # no single PyTorch call computes an SSD scan
-            library_ms=None)
+            library_ms=None,
+            **device_times([lambda: ssd.ssd_scan(*args)]))
 
     glm, m2, z2 = "chatglm3-6b", "mamba2-2.7b", "zamba2-1.2b"
     rows = [
@@ -344,14 +441,17 @@ def phase_kernels(dev, build_log=None):
                    "src/repro_torch/kernels/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:56",
                    [decode(f"{glm} decode", 32, 2),
-                    decode(f"{z2} shared block decode", 32, 32)]),
-        # rows: the prefill of B x 2048 tokens
-        kernel_row("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
+                    decode(f"{z2} shared block decode", 32, 32),
+                    decode("deepseek-moe-16b decode", 16, 16)]),
+        # rows: the prefill of B x 2048 tokens, and the tier-4 decode step
+        kernel_row("rmsnorm", "cuda",
+                   "src/repro_torch/kernels/csrc/rmsnorm.cu",
                    "src/repro/kernels/rmsnorm.py:76",
                    [norm(f"{glm} B=2", 4096, 4096),
                     norm(f"{m2} B=4", 8192, 2560),
                     norm(f"{z2} Mamba layers B=4", 8192, 2048),
-                    norm(f"{z2} shared block B=4", 8192, 4096)]),
+                    norm(f"{z2} shared block B=4", 8192, 4096),
+                    norm(f"{glm} decode tier 4", 4, 4096)]),
         # block_rows=256: the TokenWeave choice for >= 4096 tokens
         kernel_row("fused_add_rmsnorm", "triton",
                    "src/repro_torch/kernels/rmsnorm.py",
@@ -905,23 +1005,18 @@ def _profile(fn, steps):
     # device time: the kernels themselves (the CPU ops that launched them
     # report the same time again)
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
-
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    by_dev = sorted(kernels, key=dev_us, reverse=True)[:8]
+    dev_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    by_dev = sorted(kernels, key=_dev_us, reverse=True)[:8]
     cpu = [e for e in ka if e.device_type == DeviceType.CPU]
     by_cpu = sorted(cpu, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:8]
     return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
-            "device_ms_per_step": device_ms / steps,
-            "device_busy_share": device_ms / (wall * 1e3),
+            "device_ms_per_step": dev_ms / steps,
+            "device_busy_share": dev_ms / (wall * 1e3),
             "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
             "cpu_ops_per_step": sum(e.count for e in cpu
                                     if e.key.startswith("aten::")) / steps,
-            "top_device_ms_per_step": {e.key[:60]: dev_us(e) / 1e3 / steps
+            "top_device_ms_per_step": {e.key[:60]: _dev_us(e) / 1e3 / steps
                                        for e in by_dev},
             "top_cpu_self_ms_per_step": {
                 e.key[:60]: e.self_cpu_time_total / 1e3 / steps
@@ -1079,7 +1174,8 @@ def main(argv=None) -> int:
     if kernel_rows:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "composition_ms")
+                "library_ms", "composition_ms", "device_ms",
+                "library_device_ms", "composition_device_ms", "host_us")
         log({"kernels": [{k: r.get(k) for k in keys}
                          for r in kernel_rows]})
     print(gpu, flush=True)

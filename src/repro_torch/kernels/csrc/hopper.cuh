@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the kernels of this directory, as
 // small inline functions over PTX: mbarriers, TMA tile loads
-// (cp.async.bulk.tensor), wgmma products (SS: A and B from shared memory;
-// RS: A from registers) with their shared-memory descriptors for the
-// 128-byte swizzle, and setmaxnreg.  Also the host helper that encodes a
+// (cp.async.bulk.tensor) and 1D bulk copies (cp.async.bulk), wgmma
+// products (SS: A and B from shared memory; RS: A from registers) with
+// their shared-memory descriptors for the 128-byte swizzle, and
+// setmaxnreg.  Also the host helper that encodes a
 // CUtensorMap over a strided bf16 tensor; cuTensorMapEncodeTiled is taken
 // through cudaGetDriverEntryPoint, so the library needs no -lcuda.
 //
@@ -140,6 +141,18 @@ __device__ __forceinline__ void tma_store_commit() {
 // wait until the committed stores have read their shared memory
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Copy ``bytes`` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory in one bulk transfer; completion is reported to
+// ``bar`` as bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // orders this thread's shared-memory writes before later async-proxy

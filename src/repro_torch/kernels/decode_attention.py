@@ -5,8 +5,9 @@ Replaces ``src/repro/kernels/decode_attention.py:decode_attention``.
 q (B,1,H,hd) against caches (B,S,Hk,hd) masked to ``cache_len`` keys
 (a scalar or (B,) int32); ``kv_head`` (H,) int names the cache head each
 query head reads (None: Hk == H).  f32 online softmax, output in q's
-dtype.  The kernel takes bf16 and hd in {64, 128}; see the source for
-what bounds it and how.
+dtype.  The kernel takes bf16 and hd in {64, 128}; one block serves a
+whole GQA group over one chunk of keys (see the source for what bounds
+it and how).
 """
 from __future__ import annotations
 
@@ -17,6 +18,12 @@ import torch
 
 from . import LAUNCHES
 from .flash_attention import LOG2E, _kernel_ready
+
+TILE_KEYS = 256        # keys a block stages in shared memory at once
+MAX_CHUNKS = 32        # blocks a row at most
+MERGE_GROUPS = 4       # first-level merges a row at most (8 chunks each)
+_WORK: dict = {}       # per (device, stream, geometry): partials + counters
+_HEADS: dict = {}      # per (device, H): the identity kv_head map
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
@@ -39,6 +46,57 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
     return torch.einsum("bhqk,bkhd->bqhd", w, v_cache.float()).to(q.dtype)
 
 
+def decode_chunk(S: int) -> tuple:
+    """(keys a block reads, chunks a row) for a cache of S positions:
+    256-key tiles, grouped so that a row has at most ``MAX_CHUNKS``
+    chunks.  A function of S alone, never of the batch or of the rows'
+    lengths, so a row's output is bitwise the same at every decode tier
+    and whatever its neighbours hold."""
+    tiles = -(-S // TILE_KEYS)
+    chunk = TILE_KEYS * max(1, -(-tiles // MAX_CHUNKS))
+    return chunk, -(-S // chunk)
+
+
+def decode_merge_group(H: int, Hk: int) -> int:
+    """Chunks a first-level merge takes: as many as keep one merging
+    block at ~256 partial rows for the GQA group of H / Hk query heads
+    (32, one level, up to 8 heads a group; 16 for chatglm3-6b's 16, one
+    level up to S = 4096), and at least 8, so a row needs at most 4
+    first-level merges."""
+    return max(MAX_CHUNKS // MERGE_GROUPS,
+               min(MAX_CHUNKS, 256 // -(-H // Hk)))
+
+
+def decode_geometry(B: int, S: int, H: int, Hk: int, hd: int) -> dict:
+    """The launch: chunk, chunks a row, the merge group, the grid
+    (chunks, B*Hk), and the workspace in 4-byte words: B*H*(chunks +
+    4)*(hd+2) floats of chunk and group partials, then B*Hk*5 counters."""
+    chunk, n_chunks = decode_chunk(S)
+    return {"chunk": chunk, "n_chunks": n_chunks,
+            "group": decode_merge_group(H, Hk), "grid": (n_chunks, B * Hk),
+            "work_words": B * H * (n_chunks + MERGE_GROUPS) * (hd + 2)
+            + B * Hk * (MERGE_GROUPS + 1)}
+
+
+def _work(dev, stream: int, geo: tuple, words: int) -> torch.Tensor:
+    """The workspace of one geometry on one stream, zeroed once: the
+    kernel leaves its counters at zero for the next call."""
+    key = (dev, stream, geo)
+    buf = _WORK.get(key)
+    if buf is None:
+        buf = _WORK[key] = torch.zeros((words,), dtype=torch.float32,
+                                       device=dev)
+    return buf
+
+
+def _identity_heads(dev, H: int) -> torch.Tensor:
+    key = (dev, H)
+    t = _HEADS.get(key)
+    if t is None:
+        t = _HEADS[key] = torch.arange(H, device=dev, dtype=torch.int32)
+    return t
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *,
                      kv_head: Optional[torch.Tensor] = None):
     if q.device.type != "cuda":
@@ -52,41 +110,43 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     if not (q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16):
         raise TypeError("decode_attention kernel takes bf16")
     if hd not in (64, 128) or k_cache.shape != (B, S, Hk, hd) \
-            or v_cache.shape != k_cache.shape:
+            or v_cache.shape != k_cache.shape or H > 256 or S < 1:
         raise ValueError(f"decode_attention kernel: unsupported shapes "
                          f"q{tuple(q.shape)} cache{tuple(k_cache.shape)}")
-    if not (k_cache.device == v_cache.device == q.device):
+    dev = q.device
+    if not (k_cache.device == v_cache.device == dev):
         raise ValueError("decode_attention: tensors must share a device")
     if kv_head is None:
         if Hk != H:
             raise ValueError("kv_head is required when cache heads != q heads")
-        kv_head = torch.arange(H, device=q.device, dtype=torch.int32)
-    if kv_head.dtype != torch.int32 or kv_head.device != q.device \
+        kv_head = _identity_heads(dev, H)
+    if kv_head.dtype != torch.int32 or kv_head.device != dev \
             or kv_head.shape != (H,):
         raise ValueError("kv_head must be an int32 (H,) tensor on q's device")
-    clen = torch.as_tensor(cache_len, device=q.device)
+    clen = cache_len
+    if not isinstance(clen, torch.Tensor):
+        clen = torch.full((B,), int(clen), dtype=torch.int32, device=dev)
     if clen.dtype != torch.int32:
         raise TypeError("cache_len must be int32")
-    clen = clen.expand(B).contiguous() if clen.ndim == 0 else clen.contiguous()
+    if clen.device != dev:
+        clen = clen.to(dev)
+    if clen.ndim == 0:
+        clen = clen.expand(B)
     if clen.shape != (B,):
         raise ValueError(f"cache_len must be () or ({B},)")
     q = _kernel_ready(q)
     k_cache, v_cache = _kernel_ready(k_cache), _kernel_ready(v_cache)
-    lib = library()
-    n_split = -(-S // lib.repro_decode_split_keys())
-    part_o = torch.empty((B * H * n_split * hd,), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((B * H * n_split * 2,), dtype=torch.float32,
-                          device=q.device)
-    o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    geo = decode_geometry(B, S, H, Hk, hd)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    work = _work(dev, stream, (B, S, H, Hk, hd), geo["work_words"])
+    o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=dev)
     st = strides_arg(q.stride(0), q.stride(2), *k_cache.stride()[:3],
                      *v_cache.stride()[:3], o.stride(0), o.stride(2))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.repro_decode_attention_fwd(
+    rc = library().repro_decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        clen.data_ptr(), kv_head.contiguous().data_ptr(), o.data_ptr(),
-        part_o.data_ptr(), part_ml.data_ptr(), B, H, S, hd, st,
-        LOG2E / math.sqrt(hd), stream)
+        clen.contiguous().data_ptr(), kv_head.contiguous().data_ptr(),
+        o.data_ptr(), work.data_ptr(), B, H, Hk, S, hd, geo["chunk"],
+        geo["n_chunks"], geo["group"], st, LOG2E / math.sqrt(hd), stream)
     check(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return o

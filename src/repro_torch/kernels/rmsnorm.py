@@ -1,5 +1,6 @@
-"""RMSNorm and fused residual-add + RMSNorm: Triton kernels and their
-plain PyTorch versions.
+"""RMSNorm and fused residual-add + RMSNorm: a CUDA kernel
+(``csrc/rmsnorm.cu``), a Triton kernel, and their plain PyTorch
+versions.
 
 Replaces ``src/repro/kernels/rmsnorm.py:rmsnorm`` and
 ``:fused_add_rmsnorm``.  Over rows of x (n, d) with g (d,):
@@ -9,15 +10,16 @@ Replaces ``src/repro/kernels/rmsnorm.py:rmsnorm`` and
                      (s.to(x.dtype), h) in one pass
 
 What bounds them on the H100: bytes.  Each element costs a handful of
-FLOPs against 2 (rmsnorm) or 4 (fused) bf16 reads and writes, so the
-kernels must touch every byte once: one program reads a row tile once,
-keeps it in registers for the f32 sum of squares and the scaled write,
-and never re-reads it.  d need not be a power of two (576, 4096): the
-column block is the next power of two, with masked loads and stores.
-An rmsnorm program owns one tile of ``TILE`` rows.  A fused program
+FLOPs against 2 (rmsnorm) or 4 (fused) reads and writes, so the kernels
+must touch every byte once and keep the row in registers between the
+sum of squares and the scaled write.  ``rmsnorm`` is CUDA C++: one or
+four warps a row at the row's exact width (16-byte packs of 8 elements;
+see the source).  ``fused_add_rmsnorm`` is Triton: the column
+block is the next power of two, with masked loads and stores; a program
 owns ``block_rows`` rows — TokenWeave's CTA-count knob
-(``core/strategies/tokenweave.py``) — and walks them in such tiles.  ``triton`` is imported only when a kernel is
-launched: the CPU tests import this module on machines without it.
+(``core/strategies/tokenweave.py``) — and walks them in tiles.  Neither
+kernel is built when this module is imported: the CPU tests import it
+on machines without ``nvcc`` or ``triton``.
 """
 from __future__ import annotations
 
@@ -51,25 +53,6 @@ def _kernels():
     import triton.language as tl
 
     @triton.jit
-    def rmsnorm_kernel(x_ptr, g_ptr, o_ptr, n_rows, d, stride_x, stride_o,
-                       eps, ROWS_PER_PROG: tl.constexpr, TILE: tl.constexpr,
-                       BLOCK_D: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < d
-        g = tl.load(g_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        for r0 in range(0, ROWS_PER_PROG, TILE):
-            rows = pid * ROWS_PER_PROG + r0 + tl.arange(0, TILE)
-            rows64 = rows.to(tl.int64)[:, None]
-            m = (rows < n_rows)[:, None] & cmask[None, :]
-            x = tl.load(x_ptr + rows64 * stride_x + cols[None, :], mask=m,
-                        other=0.0).to(tl.float32)
-            r = tl.rsqrt(tl.sum(x * x, axis=1) / d + eps)
-            hn = (x * r[:, None]).to(x_ptr.dtype.element_ty).to(tl.float32)
-            tl.store(o_ptr + rows64 * stride_o + cols[None, :],
-                     (hn * g[None, :]).to(o_ptr.dtype.element_ty), mask=m)
-
-    @triton.jit
     def fused_add_rmsnorm_kernel(x_ptr, y_ptr, g_ptr, s_ptr, h_ptr, n_rows, d,
                                  stride_x, stride_y, stride_s, stride_h, eps,
                                  ROWS_PER_PROG: tl.constexpr,
@@ -94,11 +77,37 @@ def _kernels():
             tl.store(h_ptr + rows64 * stride_h + cols[None, :],
                      (hn * g[None, :]).to(h_ptr.dtype.element_ty), mask=m)
 
-    _KERNELS.update(rmsnorm=rmsnorm_kernel, fused=fused_add_rmsnorm_kernel)
+    _KERNELS.update(fused=fused_add_rmsnorm_kernel)
     return _KERNELS
 
 
 _FLOATS = (torch.bfloat16, torch.float16, torch.float32)
+_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+NORM_PACKS = (1, 2, 3, 4, 8)    # packs of 8 elements a lane can hold
+
+
+def norm_geometry(d: int) -> tuple:
+    """(warps a row, packs of 8 elements a lane) of the rmsnorm kernel for
+    rows of width d: 4 warps from d = 2048 on (as fast as the Triton
+    kernel it replaced at the models' widths; one warp was slower), else
+    1; then the least of ``NORM_PACKS`` that covers the row (576 takes 1
+    warp of 3 packs, 2048 4 of 2, 2560 4 of 3, 4096 4 of 4).  Raises
+    ValueError for a width the kernel cannot vectorise (d % 8) or hold
+    in registers (d > 8192); every model's width is a multiple of 8
+    within it."""
+    if d <= 0 or d % 8:
+        raise ValueError(f"rmsnorm kernel: width {d} is not a multiple of 8")
+    warps = 4 if d >= 2048 else 1
+    for p in NORM_PACKS:
+        if 256 * warps * p >= d:
+            return warps, p
+    raise ValueError(f"rmsnorm kernel: width {d} > {1024 * NORM_PACKS[-1]}")
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """Every row of t starts on a 16-byte boundary."""
+    return t.data_ptr() % 16 == 0 and (
+        t.shape[0] <= 1 or t.stride(0) * t.element_size() % 16 == 0)
 
 
 def _geometry(n: int, d: int, block_rows: int):
@@ -128,18 +137,26 @@ def _check(name, x, g, *others):
 
 
 def rmsnorm(x, g, *, eps: float = EPS):
-    """RMSNorm over the rows of ``x`` (n, d), one row tile per program."""
+    """RMSNorm over the rows of ``x`` (n, d), one or four warps a row."""
     if x.device.type != "cuda":
         return rmsnorm_plain(x, g, eps=eps)
+    from ._build import check, library
     _check("rmsnorm", x, g)
     n, d = x.shape
+    warps, packs = norm_geometry(d)
+    if not _aligned16(x):
+        x = x.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
     out = torch.empty((n, d), dtype=torch.promote_types(x.dtype, g.dtype),
                       device=x.device)
-    block_d, tile, rows, warps = _geometry(n, d, 1)
-    grid = (-(-n // rows),)
-    _kernels()["rmsnorm"][grid](x, g, out, n, d, x.stride(0), out.stride(0),
-                                eps, ROWS_PER_PROG=rows, TILE=tile,
-                                BLOCK_D=block_d, num_warps=warps)
+    if n == 0:
+        return out
+    rc = library().repro_rmsnorm_fwd(
+        x.data_ptr(), g.data_ptr(), out.data_ptr(), n, d, x.stride(0),
+        out.stride(0), _CODES[x.dtype], _CODES[g.dtype], warps, packs, eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(rc, "rmsnorm")
     LAUNCHES["rmsnorm"] += 1
     return out
 

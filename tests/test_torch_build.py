@@ -2,6 +2,7 @@
 the library's name follows every source it compiles, the Hopper header
 included, and nothing is built when the modules are imported."""
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -73,3 +74,34 @@ assert _build._LIB is None and not _build.BUILD_LOG
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
+
+
+def _extern_c_functions(csrc: Path) -> dict:
+    """{name: number of parameters} of every function defined in an
+    ``extern "C"`` block of ``csrc/*.cu``."""
+    found = {}
+    for f in sorted(csrc.glob("*.cu")):
+        text = f.read_text()
+        for block in text.split('extern "C" {')[1:]:
+            block = block.split('}  // extern "C"')[0]
+            for name, params in re.findall(
+                    r"^[A-Za-z][\w\s\*]*?\b(repro_\w+)\(([^)]*)\)", block,
+                    re.M):
+                params = params.strip()
+                assert name not in found, f"{name} defined twice"
+                found[name] = (0 if params in ("", "void")
+                               else params.count(",") + 1)
+    return found
+
+
+def test_every_extern_c_function_has_a_signature_and_back():
+    """Each entry point of the sources has a ctypes signature with as many
+    arguments as it takes, and each signature names an entry point."""
+    defined = _extern_c_functions(_build.CSRC)
+    assert set(defined) == set(_build._SIGNATURES)
+    for name, (args, _) in _build._SIGNATURES.items():
+        assert len(args) == defined[name], name
+
+
+def test_every_source_is_compiled():
+    assert set(_build.SOURCES) == {p.name for p in _build.CSRC.glob("*.cu")}

@@ -20,7 +20,9 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import tokenweave as ttw
 
 F32 = dict(atol=2e-5, rtol=1e-4)
@@ -185,6 +187,68 @@ def test_decode_plain_bf16_with_slot_map():
                                  jnp.take(vj, slot, axis=2),
                                  jnp.asarray(lens))
     close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("S", [1, 17, 127, 128, 129, 1100, 4096, 4097,
+                               4200, 32768, 100000])
+def test_decode_chunk_covers_the_cache_in_at_most_32_chunks(S):
+    chunk, n = tdec.decode_chunk(S)
+    assert chunk % tdec.TILE_KEYS == 0 and 1 <= n <= tdec.MAX_CHUNKS
+    assert (n - 1) * chunk < S <= n * chunk
+    # the least such chunk: one tile less would need more than 32
+    assert chunk == tdec.TILE_KEYS or \
+        -(-S // (chunk - tdec.TILE_KEYS)) > tdec.MAX_CHUNKS
+
+
+@pytest.mark.parametrize("S,H,Hk,hd", [(4096, 32, 2, 128), (4096, 16, 16, 128),
+                                       (1100, 9, 3, 64), (8192, 32, 32, 128)])
+def test_decode_geometry_never_changes_with_the_batch(S, H, Hk, hd):
+    """The chunk, and so each row's blocks and merge order, is the same at
+    every batch size: a row's output is bitwise the same at every tier."""
+    one = tdec.decode_geometry(1, S, H, Hk, hd)
+    for B in range(1, 9):
+        geo = tdec.decode_geometry(B, S, H, Hk, hd)
+        assert (geo["chunk"], geo["n_chunks"], geo["group"]) == (
+            one["chunk"], one["n_chunks"], one["group"])
+        assert geo["grid"] == (one["n_chunks"], B * Hk)
+        assert geo["work_words"] == (B * H * (geo["n_chunks"] + 4) * (hd + 2)
+                                     + B * Hk * 5)
+
+
+@pytest.mark.parametrize("H,Hk,group", [(32, 2, 16), (16, 16, 32), (32, 32, 32),
+                                        (9, 3, 32), (32, 4, 32), (48, 2, 10),
+                                        (64, 2, 8)])
+def test_decode_merge_group_bounds_a_merge(H, Hk, group):
+    """A merge holds ~256 partial rows of a GQA group, one level where the
+    group is small; a row of 32 chunks needs at most 4 first merges."""
+    assert tdec.decode_merge_group(H, Hk) == group
+    assert -(-tdec.MAX_CHUNKS // group) <= tdec.MERGE_GROUPS
+
+
+@pytest.mark.parametrize("d,warps,packs", [
+    (8, 1, 1), (40, 1, 1), (256, 1, 1), (264, 1, 2), (576, 1, 3),
+    (1536, 1, 8), (2048, 4, 2), (2560, 4, 3), (4096, 4, 4), (8192, 4, 8)])
+def test_norm_geometry_covers_the_row_at_least_cost(d, warps, packs):
+    assert trn.norm_geometry(d) == (warps, packs)
+    assert 256 * warps * packs >= d
+    smaller = [p for p in trn.NORM_PACKS if p < packs]
+    assert not smaller or 256 * warps * smaller[-1] < d
+
+
+@pytest.mark.parametrize("d", [0, 44, 4100, 8200, 16384])
+def test_norm_geometry_refuses_widths_the_kernel_does_not_take(d):
+    with pytest.raises(ValueError):
+        trn.norm_geometry(d)
+
+
+def test_rmsnorm_rows_alignment_check():
+    """Rows the kernel reads in place: 16-byte aligned starts; others are
+    copied first."""
+    x = torch.zeros((4, 2056), dtype=torch.bfloat16)
+    assert trn._aligned16(x) and trn._aligned16(x[:, 8:])
+    assert not trn._aligned16(x[:, 4:])
+    assert not trn._aligned16(torch.zeros((4, 2052), dtype=torch.bfloat16))
+    assert trn._aligned16(torch.zeros((1, 2052), dtype=torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------

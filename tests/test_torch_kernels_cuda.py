@@ -12,8 +12,10 @@ atol + rtol*|plain| and the relative L2 error within l2, per kernel.
           probability to bf16 for the PV product (2^-9 relative), which
           moves an output by at most 2^-9 * P|V|, P|V| being the plain
           attention of |v| (factor 2 margin), plus one output ulp
-  decode  atol 1e-3, rtol 1e-2, l2 1e-2: f32 throughout, only the output
-          is rounded (1 ulp < 1e-2 relative)
+  decode  atol 1e-3, rtol 1e-2, l2 1e-2: f32 sums; the probabilities
+          enter the PV product as a bf16 high and low part (~2^-16
+          relative), and only the output is rounded (1 ulp < 1e-2
+          relative)
   norms   atol 1e-3, rtol 1.6e-2, l2 4e-3: f32 sums; x*rsqrt rounded to
           bf16, then *g rounded (2 ulps)
   grouped_ffn
@@ -140,6 +142,127 @@ def test_decode_kernel_matches_plain(cuda, hd):
     assert LAUNCHES["decode_attention"] == n + 1
     _close(got, tdec.decode_attention_plain(q, kc, vc, clen, kv_head=slot),
            DECODE)
+
+
+def _decode_inputs(seed, dev, B, S, H, Hk, hd, lens):
+    q, kc, vc = _dev(seed, dev, (B, 1, H, hd), (B, S, Hk, hd),
+                     (B, S, Hk, hd))
+    slot = (torch.arange(H, device=dev) // (H // Hk)).int()
+    clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kc, vc, slot, clen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1100, 8500])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 8, 16, 24])
+def test_decode_kernel_groups_and_chunk_edges(cuda, G, hd, S):
+    """Every GQA group size a block serves (24: two tiles of 16 heads),
+    at lengths of 1, a chunk -1, +0 and +1, S and past S (S=8500 takes
+    512-key chunks of two tiles, 17 to a row: two merge levels at G=16
+    and 24)."""
+    chunk, _ = tdec.decode_chunk(S)
+    assert chunk == (256 if S == 1100 else 512)
+    lens = [1, chunk - 1, chunk, chunk + 1, S, S + 200]
+    q, kc, vc, slot, clen = _decode_inputs(20, cuda, len(lens), S, 2 * G, 2,
+                                           hd, lens)
+    n = LAUNCHES["decode_attention"]
+    got = tdec.decode_attention(q, kc, vc, clen, kv_head=slot)
+    assert LAUNCHES["decode_attention"] == n + 1
+    _close(got, tdec.decode_attention_plain(q, kc, vc, clen, kv_head=slot),
+           DECODE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_kernel_reads_strided_cache_views(cuda, hd):
+    """Caches as the decode layer loop hands them over: one layer of a
+    stacked (L, B, S, Hk, hd) cache, cut to a tier's first rows; and K, V
+    as interleaved views of one (B, S, 2, Hk, hd) buffer."""
+    L, Bmax, B, S, H, Hk = 3, 4, 2, 700, 8, 2
+    stack_k, stack_v, q = _dev(21, cuda, (L, Bmax, S, Hk, hd),
+                               (L, Bmax, S, Hk, hd), (B, 1, H, hd))
+    slot = (torch.arange(H, device=cuda) // (H // Hk)).int()
+    clen = torch.tensor([700, 300], dtype=torch.int32, device=cuda)
+    kc, vc = stack_k[1, :B], stack_v[1, :B]
+    want = tdec.decode_attention_plain(q, kc.contiguous(), vc.contiguous(),
+                                       clen, kv_head=slot)
+    _close(tdec.decode_attention(q, kc, vc, clen, kv_head=slot), want,
+           DECODE)
+    kv = torch.stack([kc, vc], dim=2)
+    got = tdec.decode_attention(q, kv[:, :, 0], kv[:, :, 1], clen,
+                                kv_head=slot)
+    _close(got, want, DECODE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hk", [(32, 2), (16, 16)])
+def test_decode_kernel_rows_are_batch_invariant(cuda, H, Hk):
+    """A row's output is bitwise the same in a B=1 call as in a B=4 call,
+    whatever the other rows' lengths (a request moves between decode
+    tiers 4/2/1 on compaction)."""
+    S, hd = 4096, 128
+    lens = [2999, 4096, 1500, 17]
+    q, kc, vc, slot, clen = _decode_inputs(22, cuda, 4, S, H, Hk, hd, lens)
+    whole = tdec.decode_attention(q, kc, vc, clen, kv_head=slot)
+    for r in range(4):
+        row = tdec.decode_attention(q[r:r + 1], kc[r:r + 1], vc[r:r + 1],
+                                    clen[r:r + 1], kv_head=slot)
+        assert torch.equal(row[0], whole[r])
+    other = torch.tensor([lens[0], 5, 4000, 129], dtype=torch.int32,
+                         device=cuda)
+    again = tdec.decode_attention(q, kc, vc, other, kv_head=slot)
+    assert torch.equal(again[0], whole[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 7, 4096])
+@pytest.mark.parametrize("d", [40, 576, 2048, 2560, 4096, 8192])
+def test_rmsnorm_kernel_at_model_widths(cuda, n, d):
+    x, g = _dev(23, cuda, (n, d), (d,))
+    k = LAUNCHES["rmsnorm"]
+    got = trn.rmsnorm(x, g)
+    assert LAUNCHES["rmsnorm"] == k + 1
+    _close(got, trn.rmsnorm_plain(x, g), NORM)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xt", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("gt", [torch.bfloat16, torch.float16, torch.float32])
+def test_rmsnorm_kernel_dtypes(cuda, xt, gt):
+    """Each pair of x and g types, output in their promoted type."""
+    x, g = _dev(24, cuda, (37, 2560), (2560,))
+    x, g = x.to(xt), g.to(gt)
+    got = trn.rmsnorm(x, g)
+    want = trn.rmsnorm_plain(x, g)
+    assert got.dtype == want.dtype == torch.promote_types(xt, gt)
+    _close(got, want, NORM)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_kernel_reads_strided_rows(cuda, dtype):
+    """Rows with a stride: columns of a wider buffer, every other row,
+    and a row stride that is not a multiple of 16 bytes (copied)."""
+    buf, g = _dev(25, cuda, (64, 2048 + 72), (2048,))
+    buf = buf.to(dtype)
+    for x in (buf[:, :2048], buf[::2, 8:2056], buf[:, 4:2052]):
+        _close(trn.rmsnorm(x, g), trn.rmsnorm_plain(x, g), NORM)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_refuses_what_it_does_not_take(cuda):
+    g = torch.ones((8200,), dtype=torch.bfloat16, device=cuda)
+    for d in (44, 8200):
+        with pytest.raises(ValueError):
+            trn.rmsnorm(torch.ones((4, d), dtype=torch.bfloat16,
+                                   device=cuda), g[:d])
+    with pytest.raises(TypeError):
+        trn.rmsnorm(torch.ones((4, 64), dtype=torch.float64, device=cuda),
+                    g[:64])
+    with pytest.raises(ValueError):
+        trn.rmsnorm(torch.ones((4, 64, 2), dtype=torch.bfloat16,
+                               device=cuda)[..., 0], g[:64])
 
 
 @pytest.mark.cuda
