@@ -11,7 +11,11 @@ scheduler or a strategy name.  Entry points run on ``"cuda"`` unless the
 caller asks for another device (the CPU tests pass ``device="cpu"``); on
 a machine without a GPU they raise instead of silently running on the
 CPU.  There is no PlanStore yet: every step builder records its plans
-anew, and ``verify`` is accepted and ignored.
+anew.  There is no plan verifier yet either (``core/verify.py`` is
+ROADMAP queue 1 item 8): ``verify="strict"`` raises
+``NotImplementedError`` rather than promise a check it cannot make;
+``"warn"`` and ``"off"`` build, unchecked; any other value raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -62,8 +66,19 @@ def compile(model, policy=None, smoke: bool = False, device=None,
     ``smoke``  — with an arch name: the reduced same-family config.
     ``device`` — default device of ``init_params`` and ``serve``
                  (``None``: the GPU).
+    ``verify`` — ``"warn"`` or ``"off"``: plans are not verified (no
+                 verifier is ported); ``"strict"`` raises
+                 ``NotImplementedError``.
     """
     from .models.layers import MeshInfo
+    if verify == "strict":
+        raise NotImplementedError(
+            "verify='strict' needs the plan verifier (core/verify.py), "
+            "which is not ported yet (ROADMAP queue 1 item 8); use 'warn' "
+            "or 'off'")
+    if verify not in ("warn", "off"):
+        raise ValueError(f"verify must be 'strict', 'warn' or 'off', "
+                         f"got {verify!r}")
     if policy is None:
         from .core.strategies.dynamic import dynamic_policy
         policy = dynamic_policy()

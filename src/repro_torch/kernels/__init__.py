@@ -11,13 +11,29 @@ plain PyTorch version (the port of the JAX package's ``kernels/ref.py``):
   ops.py               the dispatch the model code calls
 
 A wrapper given a CUDA tensor launches its kernel or raises; a tensor on
-the CPU or the ``meta`` device takes the plain version.  Every launch
+the CPU or the ``meta`` device takes the plain version.  Every CUDA
+wrapper passes its tensor operands through ``kernel_ready``.  Every launch
 adds one to ``LAUNCHES[name]``, so a run can show which kernels its main
 path went through.
 """
 import collections
 
+import torch
+
 LAUNCHES = collections.Counter()
+
+
+def kernel_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the CUDA kernels' 16-byte loads, bulk copies and TMA maps
+    take it: a unit last stride, a 16-byte aligned base, and every other
+    stride a positive multiple of 16 bytes (any stride at extent 1).
+    Anything else is copied into fresh storage: ``.contiguous()`` would
+    hand back a contiguous tensor at a misaligned base unchanged."""
+    esize = t.element_size()
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(n == 1 or (s > 0 and s * esize % 16 == 0)
+                  for s, n in zip(t.stride()[:-1], t.shape[:-1])))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def reset_launch_counts():

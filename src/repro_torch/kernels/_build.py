@@ -42,7 +42,8 @@ _SIGNATURES = {
     "repro_grouped_ffn_info": ([_I, _P, _P, _P], _I),
     "repro_ssd_scan_fwd": (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-         ctypes.POINTER(_LL), _P], _I),
+         ctypes.POINTER(_LL), _P, _P], _I),
+    "repro_ssd_scan_info": ([_I, _P, _P, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

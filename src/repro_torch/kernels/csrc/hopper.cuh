@@ -2,8 +2,8 @@
 // small inline functions over PTX: mbarriers, TMA tile loads
 // (cp.async.bulk.tensor) and 1D bulk copies (cp.async.bulk), wgmma
 // products (SS: A and B from shared memory; RS: A from registers) with
-// their shared-memory descriptors for the 128-byte swizzle, and
-// setmaxnreg.  Also the host helper that encodes a
+// their shared-memory descriptors for the 128-byte swizzle, setmaxnreg,
+// and the warp-level mma.sync m16n8k16 with its ldmatrix loads.  Also the host helper that encodes a
 // CUtensorMap over a strided bf16 tensor; cuTensorMapEncodeTiled is taken
 // through cudaGetDriverEntryPoint, so the library needs no -lcuda.
 //
@@ -329,6 +329,45 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) and its ldmatrix loads
+// ---------------------------------------------------------------------------
+
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8m..8m+7 giving the
+// row addresses of matrix m: thread t receives row t/4, columns 2(t%4)
+// and 2(t%4)+1 of each (``_t``: of each matrix transposed).  As an A
+// operand (16 x 16, row-major rows r): lane l addresses row l % 16,
+// column 8 (l / 16).  As two n8 B operands from rows of n (k along a
+// row): row (l % 8) + 8 (l / 16), column 8 ((l / 8) % 2); from rows of k
+// (``_t``): row (l % 8) + 8 ((l / 8) % 2), column 8 (l / 16).
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16) b (16 x 8).  Thread t holds c[0..1] at
+// row t/4, columns 2(t%4)+{0,1}, and c[2..3] eight rows below; a[0..3]
+// at (row t/4, k 2(t%4)), (row +8, same k), (row, k +8), (row +8, k +8),
+// two k a register; b0 at k 2(t%4)+{0,1}, column t/4, and b1 at k +8.
+// Registers only (not volatile), so the compiler may interleave
+// independent products to hide the tensor cores' latency.
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Where thread t of a warpgroup holds accumulator element d[4j + 2i + c]

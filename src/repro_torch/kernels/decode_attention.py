@@ -16,8 +16,8 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES
-from .flash_attention import LOG2E, _kernel_ready
+from . import LAUNCHES, kernel_ready
+from .flash_attention import LOG2E
 
 TILE_KEYS = 256        # keys a block stages in shared memory at once
 MAX_CHUNKS = 32        # blocks a row at most
@@ -134,8 +134,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
         clen = clen.expand(B)
     if clen.shape != (B,):
         raise ValueError(f"cache_len must be () or ({B},)")
-    q = _kernel_ready(q)
-    k_cache, v_cache = _kernel_ready(k_cache), _kernel_ready(v_cache)
+    q = kernel_ready(q)
+    k_cache, v_cache = kernel_ready(k_cache), kernel_ready(v_cache)
     geo = decode_geometry(B, S, H, Hk, hd)
     stream = torch.cuda.current_stream(dev).cuda_stream
     work = _work(dev, stream, (B, S, H, Hk, hd), geo["work_words"])

@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, kernel_ready
 
 LOG2E = 1.4426950408889634
 
@@ -35,16 +35,6 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         s = torch.where(ki <= qi, s, torch.full((), -1e30, device=q.device))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
-
-
-def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """The kernel's TMA maps need a unit hd stride, a 16-byte aligned base
-    and strides that are positive multiples of 16 bytes (a dimension of
-    extent 1 may have any stride).  Anything else is copied first."""
-    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 and (s > 0 or n == 1)
-                  for s, n in zip(t.stride()[:-1], t.shape[:-1])))
-    return t if ok else t.contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -70,7 +60,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if kv_head.dtype != torch.int32 or kv_head.device != q.device \
             or kv_head.shape != (H,):
         raise ValueError("kv_head must be an int32 (H,) tensor on q's device")
-    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+    q, k, v = kernel_ready(q), kernel_ready(k), kernel_ready(v)
     kv_head = kv_head.contiguous()
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     st = strides_arg(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES
+from . import LAUNCHES, kernel_ready
 
 
 def grouped_ffn_plain(x, w1, w3, w2):
@@ -43,13 +43,10 @@ def grouped_ffn(x, w1, w3, w2):
             "(D must be a multiple of 128, F of 64)")
     if N == 0:
         return torch.empty_like(x)
-    # the TMA map of x: unit column stride, 16-byte aligned base, row and
-    # expert strides positive multiples of 8 elements (any, at extent 1)
-    if not (x.stride(2) == 1 and x.data_ptr() % 16 == 0
-            and all(s % 8 == 0 and (s > 0 or n == 1)
-                    for s, n in zip(x.stride()[:2], x.shape[:2]))):
-        x = x.contiguous()
-    w1, w3, w2 = w1.contiguous(), w3.contiguous(), w2.contiguous()
+    # x is read in place where its TMA map allows (a Comet chunk); the
+    # weights' maps take them contiguous
+    x = kernel_ready(x)
+    w1, w3, w2 = (kernel_ready(w.contiguous()) for w in (w1, w3, w2))
     h = torch.empty((E, N, Fd), dtype=x.dtype, device=x.device)
     y = torch.empty((E, N, D), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, kernel_ready
 
 EPS = 1e-5
 _KERNELS: dict = {}
@@ -104,12 +104,6 @@ def norm_geometry(d: int) -> tuple:
     raise ValueError(f"rmsnorm kernel: width {d} > {1024 * NORM_PACKS[-1]}")
 
 
-def _aligned16(t: torch.Tensor) -> bool:
-    """Every row of t starts on a 16-byte boundary."""
-    return t.data_ptr() % 16 == 0 and (
-        t.shape[0] <= 1 or t.stride(0) * t.element_size() % 16 == 0)
-
-
 def _geometry(n: int, d: int, block_rows: int):
     """(BLOCK_D, TILE, rows per program, num_warps): a tile holds at most
     8192 elements per tensor so the row stays in registers."""
@@ -144,10 +138,7 @@ def rmsnorm(x, g, *, eps: float = EPS):
     _check("rmsnorm", x, g)
     n, d = x.shape
     warps, packs = norm_geometry(d)
-    if not _aligned16(x):
-        x = x.contiguous()
-    if g.data_ptr() % 16:
-        g = g.clone()
+    x, g = kernel_ready(x), kernel_ready(g)
     out = torch.empty((n, d), dtype=torch.promote_types(x.dtype, g.dtype),
                       device=x.device)
     if n == 0:

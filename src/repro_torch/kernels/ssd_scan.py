@@ -7,14 +7,18 @@ group h // (H // G).  Chunks of Q steps (``chunk_len``: the Pallas
 wrapper's rule) carry an (N, P) f32 state; all products in f32, output
 in x's dtype.  The kernel takes bf16 x/B/C, f32 dt/A/D, P = 64, N in
 {64, 128}, Q <= 128, and x/B/C as views with a unit last stride (column
-slices of the post-conv activations); see the source for what bounds it
-and how.
+slices of the post-conv activations); one launch a call, its chunk
+products on the tensor cores, persistent blocks that hand a chain's
+state on through a workspace cached per (device, stream, geometry); see
+the source for what bounds it and how.
 """
 from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, kernel_ready
+
+_WORK: dict = {}       # per (device, stream, geometry): states + flags
 
 
 def chunk_len(L: int, chunk: int) -> int:
@@ -23,6 +27,24 @@ def chunk_len(L: int, chunk: int) -> int:
     while L % Q:
         Q //= 2
     return max(Q, 1)
+
+
+def ssd_workspace_words(b: int, H: int, N: int, P: int = 64) -> int:
+    """Four-byte words of the kernel's workspace for b x H chains (a
+    chain: one (batch, head)): the f32 (N, P) state a block hands to the
+    next one, and a ready flag, per chain."""
+    return b * H * (N * P + 1)
+
+
+def _work(dev, stream: int, geo: tuple) -> torch.Tensor:
+    """The workspace of one geometry on one stream, zeroed once: the
+    kernel leaves its flags at zero for the next call."""
+    key = (dev, stream, geo)
+    buf = _WORK.get(key)
+    if buf is None:
+        buf = _WORK[key] = torch.zeros((ssd_workspace_words(*geo),),
+                                       dtype=torch.float32, device=dev)
+    return buf
 
 
 def ssd_scan_plain(x, dt, A, B, C, D, *, chunk: int = 128):
@@ -67,7 +89,6 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128):
     if x.device.type != "cuda":
         return ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
     from ._build import check, library, strides_arg
-    from .flash_attention import _kernel_ready
     b, L, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if len({t.device for t in (x, dt, A, B, C, D)}) != 1:
@@ -89,15 +110,16 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128):
     y = torch.empty((b, L, H, P), dtype=x.dtype, device=x.device)
     if b == 0 or L == 0:
         return y
-    x, B, C = _kernel_ready(x), _kernel_ready(B), _kernel_ready(C)
+    x, B, C = kernel_ready(x), kernel_ready(B), kernel_ready(C)
     A, D = A.contiguous(), D.contiguous()
     st = strides_arg(*x.stride()[:3], *dt.stride(), *B.stride()[:3],
                      *C.stride()[:3], *y.stride()[:3])
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    work = _work(x.device, stream, (b, H, N))
     rc = library().repro_ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), D.data_ptr(), y.data_ptr(), b, L, H, G, P, N, Q, st,
-        stream)
+        work.data_ptr(), stream)
     check(rc, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return y

@@ -560,6 +560,20 @@ def test_double_execution_rejected(diamond):
         record_plan(g, DoubleScheduler(), ScheduleContext(local_batch=8))
 
 
+def test_compile_verify_strict_raises_until_the_verifier_is_ported():
+    """``verify="strict"`` promises a check the port cannot make yet, so
+    it raises; a misspelt mode raises ValueError; "warn" and "off"
+    build."""
+    from repro_torch.api import compile as tcompile
+    with pytest.raises(NotImplementedError, match="verify"):
+        tcompile("smollm-135m", smoke=True, device="cpu", verify="strict")
+    with pytest.raises(ValueError, match="verify"):
+        tcompile("smollm-135m", smoke=True, device="cpu", verify="loud")
+    for mode in ("warn", "off"):
+        prog = tcompile("smollm-135m", smoke=True, device="cpu", verify=mode)
+        assert prog.prefill(1, 8).fn is not None
+
+
 def test_lowered_realizer_is_refused_until_ported(diamond):
     g = diamond[0]
     with pytest.raises(NotImplementedError):

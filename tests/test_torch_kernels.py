@@ -19,7 +19,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, kernel_ready
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rmsnorm as trn
@@ -245,10 +245,51 @@ def test_rmsnorm_rows_alignment_check():
     """Rows the kernel reads in place: 16-byte aligned starts; others are
     copied first."""
     x = torch.zeros((4, 2056), dtype=torch.bfloat16)
-    assert trn._aligned16(x) and trn._aligned16(x[:, 8:])
-    assert not trn._aligned16(x[:, 4:])
-    assert not trn._aligned16(torch.zeros((4, 2052), dtype=torch.bfloat16))
-    assert trn._aligned16(torch.zeros((1, 2052), dtype=torch.bfloat16))
+    assert kernel_ready(x) is x and kernel_ready(x[:, 8:]) is not None
+    assert kernel_ready(x[:, 8:]).data_ptr() == x[:, 8:].data_ptr()
+    assert kernel_ready(x[:, 4:]).data_ptr() % 16 == 0
+    assert kernel_ready(x[:, 4:]).data_ptr() != x[:, 4:].data_ptr()
+    y = torch.zeros((4, 2052), dtype=torch.bfloat16)
+    assert kernel_ready(y) is not y
+    z = torch.zeros((1, 2052), dtype=torch.bfloat16)
+    assert kernel_ready(z) is z
+
+
+def test_kernel_ready_realigns_a_contiguous_view_at_a_misaligned_base():
+    """A contiguous bf16 (4, 64) view 8 bytes into its storage: the
+    helper copies it to a 16-byte aligned base with the same values
+    (``.contiguous()`` hands it back unchanged); an aligned tensor
+    passes through without a copy."""
+    buf = torch.arange(4 * 64 + 8, dtype=torch.float32).to(torch.bfloat16)
+    base = kernel_ready(buf)
+    assert base is buf and buf.data_ptr() % 16 == 0
+    view = buf[4:4 + 4 * 64].view(4, 64)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    assert view.contiguous().data_ptr() == view.data_ptr()
+    got = kernel_ready(view)
+    assert got.data_ptr() % 16 == 0 and got.shape == (4, 64)
+    assert torch.equal(got, view)
+    aligned = buf[8:8 + 4 * 64].view(4, 64)
+    assert kernel_ready(aligned) is aligned
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_ready_copies_rows_whose_stride_breaks_16_bytes(dtype):
+    """Row strides are held in bytes: a 24-byte row stride is copied, a
+    48-byte one read in place; a broadcast (stride 0) dimension is
+    copied, an extent-1 dimension may have any stride."""
+    x = torch.zeros((3, 48 // torch.tensor([], dtype=dtype).element_size()),
+                    dtype=dtype)
+    step = 16 // x.element_size()
+    assert kernel_ready(x[:, :step]).data_ptr() == x.data_ptr()
+    odd = torch.zeros((3, 24 // x.element_size()), dtype=dtype)[:, :step]
+    got = kernel_ready(odd)
+    assert got.data_ptr() != odd.data_ptr() and got.is_contiguous()
+    assert torch.equal(got, odd)
+    wide = x[:1].expand(3, x.shape[1])
+    assert kernel_ready(wide).stride(0) == x.shape[1]
+    one = x[:1, :step]
+    assert kernel_ready(one).data_ptr() == one.data_ptr()
 
 
 # ---------------------------------------------------------------------------

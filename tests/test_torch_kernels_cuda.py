@@ -24,11 +24,13 @@ atol + rtol*|plain| and the relative L2 error within l2, per kernel.
           output by at most 2^-9 * |h|@|W2| (factor 2 margin); F is summed
           in f32 and the output rounded once (one ulp)
   ssd_scan
-          atol 1e-3, rtol 2^-7, l2 1e-2: f32 products and state in both,
-          summed in other orders (f32 round-off ~1e-4 of the terms' sum);
-          only the output is rounded to bf16, and two f32 values that
-          straddle a rounding boundary land one ulp (<= 2^-7 relative)
-          apart
+          atol 1e-3, rtol 2^-7, l2 1e-2: the kernel's products run on the
+          tensor cores in f32, C B^T and C exactly (bf16 products), M, the
+          state and w*x each as a bf16 high and low part (~2^-17
+          relative); sums in other orders (f32 round-off ~1e-4 of the
+          terms' sum); only the output is rounded to bf16, and two f32
+          values that straddle a rounding boundary land one ulp (<= 2^-7
+          relative) apart
 """
 import pytest
 import torch
@@ -388,7 +390,12 @@ def _ssd_inputs(seed, dev, b, L, H, P, G, N):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,L,H,G,N,chunk", [
     (2, 256, 8, 1, 128, 128), (1, 200, 4, 2, 64, 128), (2, 48, 4, 1, 64, 16),
-    (1, 37, 2, 1, 128, 128), (3, 128, 4, 4, 64, 64)])
+    (1, 37, 2, 1, 128, 128), (3, 128, 4, 4, 64, 64),
+    # mamba2-2.7b's geometry at one row; chunks that are no multiple of 16
+    (1, 2048, 80, 1, 128, 128), (2, 40, 4, 1, 64, 128),
+    (1, 120, 8, 2, 128, 40),
+    # more (batch, head) chains than SMs: blocks hand states on
+    (2, 768, 80, 1, 128, 128), (3, 256, 64, 1, 64, 128)])
 def test_ssd_scan_kernel_matches_plain(cuda, b, L, H, G, N, chunk):
     x, dt, A, B, C, D = _ssd_inputs(9, cuda, b, L, H, 64, G, N)
     n = LAUNCHES["ssd_scan"]
@@ -412,6 +419,21 @@ def test_ssd_scan_kernel_reads_views_and_is_batch_invariant(cuda):
 
 
 @pytest.mark.cuda
+def test_ssd_scan_kernel_rows_are_bitwise_the_same_at_every_batch(cuda):
+    """mamba2-2.7b's heads at b = 4 (320 (batch, head) chains, so blocks
+    hand chains' states on to each other) against b = 2 and b = 1 calls
+    on the same rows: bitwise equal, and again on a second call (the
+    workspace's flags are left at zero)."""
+    x, dt, A, B, C, D = _ssd_inputs(12, cuda, 4, 512, 80, 64, 1, 128)
+    whole = tssd.ssd_scan(x, dt, A, B, C, D)
+    _close(whole, tssd.ssd_scan_plain(x, dt, A, B, C, D), SSD)
+    assert torch.equal(tssd.ssd_scan(x, dt, A, B, C, D), whole)
+    for r0, r1 in ((0, 2), (2, 4), (3, 4)):
+        part = tssd.ssd_scan(x[r0:r1], dt[r0:r1], A, B[r0:r1], C[r0:r1], D)
+        assert torch.equal(part, whole[r0:r1])
+
+
+@pytest.mark.cuda
 def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
     x, dt, A, B, C, D = _ssd_inputs(11, cuda, 1, 32, 4, 64, 1, 64)
     with pytest.raises(ValueError):
@@ -420,3 +442,55 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
         tssd.ssd_scan(x, dt, A, B[..., :32], C[..., :32], D)   # N 32
     with pytest.raises(TypeError):
         tssd.ssd_scan(x.float(), dt, A, B.float(), C.float(), D)
+
+
+def _at_8_bytes(t):
+    """t's values in a contiguous tensor that starts 8 bytes into its
+    storage (``.contiguous()`` hands such a tensor back unchanged)."""
+    off = 8 // t.element_size()
+    flat = torch.zeros(t.numel() + off, dtype=t.dtype, device=t.device)
+    v = flat[off:].view(t.shape)
+    v.copy_(t)
+    assert v.is_contiguous() and v.data_ptr() % 16 == 8
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention",
+                                    "rmsnorm", "grouped_ffn", "ssd_scan"])
+def test_kernels_realign_an_operand_at_an_8_byte_offset(cuda, kernel):
+    """Each CUDA kernel given contiguous operands 8 bytes off a 16-byte
+    boundary: the wrapper copies them to an aligned base, the kernel
+    launches, and the result matches the plain version."""
+    n = LAUNCHES[kernel]
+    if kernel == "flash_attention":
+        q, k, v = _dev(30, cuda, (1, 130, 4, 128), (1, 130, 2, 128),
+                       (1, 130, 2, 128))
+        slot = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=cuda)
+        got = tfa.flash_attention(_at_8_bytes(q), _at_8_bytes(k),
+                                  _at_8_bytes(v), kv_head=slot)
+        _flash_close(got, q, k, v, kv_head=slot)
+    elif kernel == "decode_attention":
+        q, kc, vc, slot, clen = _decode_inputs(31, cuda, 2, 700, 4, 2, 128,
+                                               (700, 33))
+        got = tdec.decode_attention(_at_8_bytes(q), _at_8_bytes(kc),
+                                    _at_8_bytes(vc), clen, kv_head=slot)
+        _close(got, tdec.decode_attention_plain(q, kc, vc, clen,
+                                                kv_head=slot), DECODE)
+    elif kernel == "rmsnorm":
+        x, g = _dev(32, cuda, (64, 2048), (2048,))
+        got = trn.rmsnorm(_at_8_bytes(x), _at_8_bytes(g))
+        _close(got, trn.rmsnorm_plain(x, g), NORM)
+    elif kernel == "grouped_ffn":
+        x = _dev(33, cuda, (2, 40, 256))[0]
+        w1, w3, w2 = _ffn_weights(34, cuda, 2, 256, 128)
+        got = tgm.grouped_ffn(_at_8_bytes(x), _at_8_bytes(w1), w3,
+                              _at_8_bytes(w2))
+        _ffn_close(got, x, w1, w3, w2)
+    else:
+        x, dt, A, B, C, D = (t.contiguous() for t in _ssd_inputs(
+            35, cuda, 2, 256, 4, 64, 1, 128))
+        got = tssd.ssd_scan(_at_8_bytes(x), dt, A, _at_8_bytes(B),
+                            _at_8_bytes(C), D)
+        _close(got, tssd.ssd_scan_plain(x, dt, A, B, C, D), SSD)
+    assert LAUNCHES[kernel] == n + 1

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Probes of the port's decode attention and RMSNorm kernels on one GPU.
+"""Probes of the port's decode attention, RMSNorm and SSD kernels on one GPU.
 
   decode   builds a copy of ``csrc/decode_attention.cu`` whose blocks
            stamp ``%globaltimer`` at each phase (entry, cache_len read,
@@ -12,8 +12,18 @@
   rmsnorm  times the RMSNorm kernel at each number of warps a row it
            takes (1, 2, 4) at the kernels phase's cases, beside
            ``F.rms_norm`` (torch.profiler kernel durations, in turns)
+  ssd      builds ``csrc/ssd_scan.cu``, a copy of it in which each warp
+           sums its ``clock64`` cycles per phase of a task (``SSD_PHASES``:
+           tiles landed, top barrier, cumsum and C fragments, y, state
+           update, end barrier and the state's parts) and, for each ``--ssd-other NAME=DIR``, the
+           ``ssd_scan.cu`` in DIR (another tree's csrc directory, such as
+           the parent commit's); holds each against the plain
+           version at the kernels phase's SSD cases, times them in turns
+           (device time alone) and prints each warp's mean cycles a block
+           per phase, with ptxas's registers and spills of each build
 
-Usage:  python3 tools/kernel_probes.py [--probes decode,rmsnorm]
+Usage:  python3 tools/kernel_probes.py [--probes decode,rmsnorm,ssd]
+            [--ssd-other NAME=DIR ...]
 Needs a CUDA device and nvcc; prints one JSON line per case.
 """
 from __future__ import annotations
@@ -178,9 +188,176 @@ def probe_rmsnorm(out):
              "device_ms_turns": times})
 
 
+# (phase, anchor in ssd_scan.cu, where the mark goes): each warp adds the
+# clock64 cycles since its previous mark to the phase's sum ("<": before
+# the anchor, else after it)
+SSD_PHASES = [
+    ("<init", "  for (int it = 0; it < len; ++it) {\n"),
+    ("tiles landed", "    mbar_wait(&bar[st], (it >> 1) & 1);\n"),
+    ("top barrier",
+     "    __syncthreads();  // the tiles landed; the state's parts written"),
+    ("<cumsum, C fragments", "    // ---- y = exp(cum) C S + M x + D x"),
+    ("<y", "    // ---- S = exp(cum_Q) S + (w o B)^T x"),
+    ("<state update", "    // ---- the state: on to the next block"),
+    ("end barrier, state parts", "    if (goes_on) write_parts(sacc);\n"),
+]
+SSD_PRELUDE = r'''
+__device__ long long g_ph[16384][8];
+#define PH_INIT long long ph_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0}; \
+  long long ph_t = clock64();
+#define PH(k) do { const long long t_ = clock64(); ph_acc[k] += t_ - ph_t; \
+  ph_t = t_; } while (0)
+'''
+SSD_EPILOGUE = r'''
+extern "C" int probe_phases(void* host, int n) {
+  static long long zero[16384][8];
+  if (host == nullptr) return (int)cudaMemcpyToSymbol(g_ph, zero, sizeof(zero));
+  return (int)cudaMemcpyFromSymbol(host, g_ph, (size_t)n * 8 * 8 * 8);
+}
+'''
+
+
+def ssd_phase_source(csrc) -> str:
+    """``csrc``'s ssd_scan.cu with each warp's cycles summed per phase of
+    ``SSD_PHASES`` and written to ``g_ph[block * 8 + warp]`` at the end."""
+    src = open(os.path.join(csrc, "ssd_scan.cu")).read()
+    src = src.replace('#include "hopper.cuh"\n',
+                      '#include "hopper.cuh"\n' + SSD_PRELUDE, 1)
+    for k, (name, anchor) in enumerate(SSD_PHASES):
+        if anchor not in src:
+            raise RuntimeError(f"phase anchor of {name!r} not found")
+        mark = "  PH_INIT\n" if k == 0 else f"    PH({k - 1});\n"
+        if name.startswith("<"):
+            src = src.replace(anchor, mark + anchor, 1)
+        else:
+            i = src.index(anchor) + len(anchor)
+            i = src.index("\n", i - 1) + 1 if not anchor.endswith("\n") \
+                else i
+            src = src[:i] + mark + src[i:]
+    done = ("  if ((threadIdx.x & 31) == 0)\n"
+            "    for (int k_ = 0; k_ < 8; ++k_)\n"
+            "      g_ph[(blockIdx.y * gridDim.x + blockIdx.x) * 8 +\n"
+            "           (threadIdx.x >> 5)][k_] = ph_acc[k_];\n")
+    end = "  }\n}\n\ntemplate <int N>\nint launch_ssd"
+    if end not in src:
+        raise RuntimeError("kernel end not found")
+    src = src.replace(end, "  }\n" + done + "}\n\ntemplate <int N>\n"
+                      "int launch_ssd", 1)
+    return src + SSD_EPILOGUE
+
+
+class _NoWorkspace:
+    """A library whose SSD kernel predates the workspace argument (an
+    older tree's): the wrapper's call without it."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        fn = lib.repro_ssd_scan_fwd
+        fn.argtypes = fn.argtypes[:-2] + fn.argtypes[-1:]
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def repro_ssd_scan_fwd(self, *args):
+        return self._lib.repro_ssd_scan_fwd(*args[:-2], args[-1])
+
+
+def _load_lib(so, src=None):
+    from repro_torch.kernels import _build
+    lib = ctypes.CDLL(so)
+    for name, (args, res) in _build._SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
+    if src and "void* work" not in open(src).read():
+        return _NoWorkspace(lib)
+    return lib
+
+
+def probe_ssd(out, others=()):
+    """This tree's SSD kernel (and each of ``others``, NAME=DIR) held to
+    the plain version and timed in turns at the kernels phase's SSD
+    cases; then a copy that sums each warp's cycles per phase."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ssd
+    import chip_smoke as cs
+    tmp = tempfile.mkdtemp()
+    staged = os.path.join(tmp, "ssd_phases.cu")
+    with open(staged, "w") as f:
+        f.write(ssd_phase_source(str(_build.CSRC)))
+    srcs = {"this tree": os.path.join(str(_build.CSRC), "ssd_scan.cu"),
+            "phases": staged}
+    for other in others:
+        name, d = other.split("=", 1)
+        srcs[name] = os.path.join(os.path.abspath(d), "ssd_scan.cu")
+    procs = {k: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+         "-shared", src, "-o", os.path.join(tmp, f"ssd{i}.so")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i, (k, src) in enumerate(srcs.items())}
+    libs, builds = {}, {}
+    for i, (k, p) in enumerate(procs.items()):
+        log = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed on {k}:\n{log}")
+        builds[k] = cs.ptxas_report(log, ("ssd_scan_kernel",))
+        libs[k] = _load_lib(os.path.join(tmp, f"ssd{i}.so"), srcs[k])
+    libs["phases"].probe_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    out({"probe": "ssd", "builds": builds})
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    names = [n.lstrip("<") for n, _ in SSD_PHASES[1:]]
+    saved = _build._LIB
+    try:
+        for what, b, H, N in (("mamba2-2.7b prefill", 4, 80, 128),
+                              ("mamba2-2.7b NanoFlow half", 2, 80, 128),
+                              ("zamba2-1.2b NanoFlow half", 2, 64, 64)):
+            args = cs.ssd_inputs(g, b, 2048, H, 64, N)
+            ref = ssd.ssd_scan_plain(*args)
+            fns, checks, outs = {}, {}, {}
+            for k, lib in libs.items():
+                _build._LIB = lib
+                got = outs[k] = ssd.ssd_scan(*args)
+                torch.cuda.synchronize()
+                checks[k] = cs.compare("ssd_scan", [(got, ref)])
+                fns[k] = lambda lib=lib: (
+                    setattr(_build, "_LIB", lib), ssd.ssd_scan(*args))
+            times: dict = {}
+            for k in list(fns) + list(fns)[::-1]:
+                times.setdefault(k, []).append(cs.device_ms([fns[k]]))
+            # every build again after the timed calls: the same output
+            again = {}
+            for k, lib in libs.items():
+                _build._LIB = lib
+                again[k] = bool(torch.equal(ssd.ssd_scan(*args), outs[k]))
+            _build._LIB = libs["phases"]
+            libs["phases"].probe_phases(None, 0)
+            ssd.ssd_scan(*args)
+            torch.cuda.synchronize()
+            nb = torch.cuda.get_device_properties(dev).multi_processor_count
+            tasks = b * H * (2048 // ssd.chunk_len(2048, 128))
+            buf = (ctypes.c_longlong * (nb * 64))()
+            libs["phases"].probe_phases(buf, nb)
+            # mean cycles a task per phase, for each warp
+            per_warp = {w: {n: sum(buf[(blk * 8 + w) * 8 + k]
+                                   for blk in range(nb)) / tasks
+                            for k, n in enumerate(names)}
+                        for w in range(8)}
+            out({"probe": "ssd", "case": f"{what}: b={b} L=2048 H={H} "
+                 f"P=64 G=1 N={N}", "checks": checks,
+                 "device_ms_turns": times, "same_output_again": again,
+                 "cycles_per_task": per_warp})
+    finally:
+        _build._LIB = saved
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--probes", default="decode,rmsnorm")
+    ap.add_argument("--probes", default="decode,rmsnorm,ssd")
+    ap.add_argument("--ssd-other", action="append", default=[],
+                    help="NAME=DIR: the ssd_scan.cu of another tree's "
+                         "kernels/csrc directory, timed beside this one's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -195,6 +372,8 @@ def main(argv=None) -> int:
         probe_decode(out)
     if "rmsnorm" in probes:
         probe_rmsnorm(out)
+    if "ssd" in probes:
+        probe_ssd(out, args.ssd_other)
     return 0
 
 
