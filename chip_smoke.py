@@ -365,16 +365,27 @@ def phase_kernels(dev, build_log=None):
         s1, h1 = rn.fused_add_rmsnorm(x, y, gw, block_rows=block_rows)
         s2, h2 = rn.fused_add_rmsnorm_plain(x, y, gw)
         torch.cuda.synchronize()
+        geo = rn.fused_geometry(n, d, block_rows)
+
+        def composition():
+            return F.rms_norm(torch.add(x, y), (d,), gw, rn.EPS)
         return dict(
             shape=f"{what}: n={n} d={d} block_rows={block_rows} bf16",
+            geometry=geo,
             **compare("fused_add_rmsnorm", [(s1, s2), (h1, h2)]),
             ms=cuda_ms(lambda: rn.fused_add_rmsnorm(
                 x, y, gw, block_rows=block_rows), iters=50),
             plain_ms=cuda_ms(lambda: rn.fused_add_rmsnorm_plain(x, y, gw),
                              iters=20),
-            **bound(6.0 * n * d, (4 * n * d + d) * 2), library_ms=None,
+            **bound(6.0 * n * d, (4 * n * d + d) * 2),
+            # no single PyTorch call computes it: torch.add then
+            # F.rms_norm is timed beside it as a yardstick
+            library_ms=None,
+            composition_ms=cuda_ms(composition, iters=50),
             **device_times([lambda: rn.fused_add_rmsnorm(
-                x, y, gw, block_rows=block_rows)]))
+                x, y, gw, block_rows=block_rows)], [composition],
+                name="composition"),
+            library_device_ms=None)
 
     def ffn(what, N, E=64, D=2048, Fd=1408, rows_of=None):
         # rows_of: x is rows [N, 2N) of a (E, rows_of, D) buffer, read in
@@ -456,12 +467,16 @@ def phase_kernels(dev, build_log=None):
                     norm(f"{z2} Mamba layers B=4", 8192, 2048),
                     norm(f"{z2} shared block B=4", 8192, 4096),
                     norm(f"{glm} decode tier 4", 4, 4096)]),
-        # block_rows=256: the TokenWeave choice for >= 4096 tokens
-        kernel_row("fused_add_rmsnorm", "triton",
-                   "src/repro_torch/kernels/rmsnorm.py",
+        # block_rows=256: the TokenWeave choice for >= 4096 tokens (16 and
+        # 32 blocks); block_rows=32 fills the card (256 blocks): what the
+        # knob costs on one stream
+        kernel_row("fused_add_rmsnorm", "cuda",
+                   "src/repro_torch/kernels/csrc/fused_add_rmsnorm.cu",
                    "src/repro/kernels/rmsnorm.py:34",
                    [fused(f"{glm} seq_parallel=False B=2", 4096, 4096),
-                    fused(f"{z2} shared block B=4, TokenWeave", 8192, 4096)]),
+                    fused(f"{z2} shared block B=4, TokenWeave", 8192, 4096),
+                    fused(f"{z2} shared block B=4, full grid", 8192, 4096,
+                          block_rows=32)]),
         # deepseek-moe-16b's 64 experts: the DBO prefill micro-batch
         # (capacity 480 of 4096 tokens), the decode tier (capacity 4) and
         # Comet's chunk (a quarter of the 480-row buffer, in place)
@@ -483,7 +498,9 @@ def phase_kernels(dev, build_log=None):
     lib = _build.library()
     builds = ptxas_report(_build.BUILD_LOG, ("flash_fwd_kernel",
                                              "ffn_gemm_kernel",
-                                             "ssd_scan_kernel"))
+                                             "ssd_scan_kernel",
+                                             # bf16 x and g, each pack count
+                                             "fused_kernelI13__nv_bfloat16S"))
     builds["runtime"] = {
         "flash_attention hd=128": _build.kernel_info(
             lib.repro_flash_attention_info, 128),

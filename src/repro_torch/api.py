@@ -26,16 +26,7 @@ import torch
 
 from .core.policy import as_policy
 from .core.scheduler import ScheduleContext
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU; asking for it without one raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "port's plain PyTorch path on the CPU")
-    return dev
+from .device import resolve_device
 
 
 @dataclasses.dataclass

@@ -4,13 +4,15 @@
 nested dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)`` —
 onto the port's tree: the same keys, the same layouts (linear weights
 ``(d_in, d_out)``, stacked ``(n_layers, ...)`` layer leaves), as torch
-tensors on ``device``.  This module imports neither JAX nor the JAX
-package: it only reads numpy arrays.
+tensors on ``device`` (default: the GPU).  This module imports neither
+JAX nor the JAX package: it only reads numpy arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .device import resolve_device
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -23,8 +25,10 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
-    """Nested dict of numpy arrays -> nested dict of torch tensors."""
+def params_from_numpy(tree, device=None):
+    """Nested dict of numpy arrays -> nested dict of torch tensors on
+    ``device`` (default: the GPU)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return _tensor(tree, device)

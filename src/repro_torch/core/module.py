@@ -28,6 +28,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..device import resolve_device
 from .graph import OpGraph, TensorRef
 
 
@@ -168,13 +169,15 @@ class Module:
         object.__setattr__(self, k, v)
 
     # -- params -----------------------------------------------------------
-    def init(self, seed: int, device="cpu") -> dict:
-        """Build the nested param dict mirroring the module tree.
+    def init(self, seed: int, device=None) -> dict:
+        """Build the nested param dict mirroring the module tree, on
+        ``device`` (default: the GPU).
 
         Seeds are folded in from the child *name* (stable across phases:
         prefill/decode variants of a layer that share param names get
         identical weights).
         """
+        device = resolve_device(device)
         out = {}
         items = list(self._params.items()) + list(self._children.items())
         for name, item in items:

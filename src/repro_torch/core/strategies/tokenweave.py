@@ -2,9 +2,9 @@
 
 Finds every [all-reduce -> residual-add -> RMSNorm] chain and replaces it
 with the fused RS + add/norm-on-shard + AG kernel.  The paper's runtime
-CTA-count knob maps to the Triton kernel's rows per program
-(``block_rows``), selected here per batch bucket (the §5.3.4 'up to 12%'
-adaptive win).
+CTA-count knob maps to the fused CUDA kernel's rows per block
+(``block_rows``; ceil(tokens / block_rows) blocks), selected here per
+batch bucket (the §5.3.4 'up to 12%' adaptive win).
 """
 import functools
 

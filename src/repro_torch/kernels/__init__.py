@@ -4,7 +4,7 @@ plain PyTorch version (the port of the JAX package's ``kernels/ref.py``):
   flash_attention.py   blockwise online-softmax attention   (CUDA C++)
   decode_attention.py  flash-decode against a KV cache      (CUDA C++)
   rmsnorm.py           RMSNorm                              (CUDA C++)
-                       and fused residual-add + RMSNorm     (Triton)
+                       and fused residual-add + RMSNorm     (CUDA C++)
   grouped_matmul.py    grouped SwiGLU expert FFN            (CUDA C++)
   ssd_scan.py          Mamba2 chunked SSD scan              (CUDA C++)
   tokenweave.py        reduce-scatter + fused add/norm + all-gather

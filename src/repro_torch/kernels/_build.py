@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "grouped_ffn.cu",
-           "ssd_scan.cu", "rmsnorm.cu")
+           "ssd_scan.cu", "rmsnorm.cu", "fused_add_rmsnorm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +37,11 @@ _SIGNATURES = {
          ctypes.POINTER(_LL), _F, _P], _I),
     "repro_rmsnorm_fwd": (
         [_P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _F, _P], _I),
+    "repro_fused_add_rmsnorm_fwd": (
+        [_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I,
+         _I, _I, _F, _P], _I),
+    "repro_fused_add_rmsnorm_info": (
+        [_I, _I, _I, _I, _I, _I, _P, _P, _P], _I),
     "repro_grouped_ffn_fwd": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P], _I),
     "repro_grouped_ffn_info": ([_I, _P, _P, _P], _I),

@@ -17,99 +17,22 @@
 // in shared memory), then the row is scaled and written; g's loads go
 // out with x's and hit L1/L2 after the first block.  Blocks of 4 warps,
 // as many as rows need, so the block scheduler keeps every SM full.  On
-// the H100, 4 warps a row matched the Triton kernel this replaces at the
+// the H100, 4 warps a row matched the Triton kernel this replaced at the
 // models' widths from 2048 on; one or two warps a row were slower there,
 // and so were persistent blocks holding g in registers and prefetching
 // their next row (PERF.md).  One launch per
 // call, and a host wrapper with one ctypes call.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "norm_pack.cuh"
+
 namespace {
+
+using namespace normpack;
 
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-
-typedef __nv_bfloat16 bf16;
-
-// 8 elements of T as raw 16-byte words
-template <typename T>
-struct Pack {
-  uint4 u[sizeof(T) / 2];
-};
-
-template <typename T>
-__device__ __forceinline__ void load(Pack<T>& p, const T* src) {
-#pragma unroll
-  for (int i = 0; i < (int)sizeof(T) / 2; ++i)
-    p.u[i] = reinterpret_cast<const uint4*>(src)[i];
-}
-
-__device__ __forceinline__ void to_f32(const Pack<bf16>& p, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p.u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-__device__ __forceinline__ void to_f32(const Pack<__half>& p, float* f) {
-  const __half2* h = reinterpret_cast<const __half2*>(p.u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __half22float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-__device__ __forceinline__ void to_f32(const Pack<float>& p, float* f) {
-  const float* s = reinterpret_cast<const float*>(p.u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) f[i] = s[i];
-}
-
-// v rounded to T and back
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<bf16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-template <>
-__device__ __forceinline__ float round_to<__half>(float v) {
-  return __half2float(__float2half(v));
-}
-template <>
-__device__ __forceinline__ float round_to<float>(float v) {
-  return v;
-}
-
-__device__ __forceinline__ void store(bf16* dst, const float* f) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = u;
-}
-__device__ __forceinline__ void store(__half* dst, const float* f) {
-  uint4 u;
-  __half2* h = reinterpret_cast<__half2*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = u;
-}
-__device__ __forceinline__ void store(float* dst, const float* f) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(f[0], f[1], f[2], f[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
-}
-
-template <typename TX, typename TG>
-struct Out { typedef float type; };
-template <> struct Out<bf16, bf16> { typedef bf16 type; };
-template <> struct Out<__half, __half> { typedef __half type; };
 
 // One row on ``wpr`` warps (1, 2 or 4) of a 4-warp block: lane L of the
 // row (L = 32 * the warp's place in the row + lane) holds packs L,

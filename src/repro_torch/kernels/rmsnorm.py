@@ -1,6 +1,6 @@
-"""RMSNorm and fused residual-add + RMSNorm: a CUDA kernel
-(``csrc/rmsnorm.cu``), a Triton kernel, and their plain PyTorch
-versions.
+"""RMSNorm and fused residual-add + RMSNorm: two CUDA kernels
+(``csrc/rmsnorm.cu``, ``csrc/fused_add_rmsnorm.cu``) and their plain
+PyTorch versions.
 
 Replaces ``src/repro/kernels/rmsnorm.py:rmsnorm`` and
 ``:fused_add_rmsnorm``.  Over rows of x (n, d) with g (d,):
@@ -12,14 +12,16 @@ Replaces ``src/repro/kernels/rmsnorm.py:rmsnorm`` and
 What bounds them on the H100: bytes.  Each element costs a handful of
 FLOPs against 2 (rmsnorm) or 4 (fused) reads and writes, so the kernels
 must touch every byte once and keep the row in registers between the
-sum of squares and the scaled write.  ``rmsnorm`` is CUDA C++: one or
-four warps a row at the row's exact width (16-byte packs of 8 elements;
-see the source).  ``fused_add_rmsnorm`` is Triton: the column
-block is the next power of two, with masked loads and stores; a program
-owns ``block_rows`` rows — TokenWeave's CTA-count knob
-(``core/strategies/tokenweave.py``) — and walks them in tiles.  Neither
-kernel is built when this module is imported: the CPU tests import it
-on machines without ``nvcc`` or ``triton``.
+sum of squares and the scaled write.  ``rmsnorm`` holds a row in
+registers: one or four warps a row at the row's exact width (16-byte
+packs of 8 elements; see the source), as many blocks as rows need.
+``fused_add_rmsnorm`` runs ceil(n / block_rows) blocks — ``block_rows``
+is TokenWeave's CTA-count knob (``core/strategies/tokenweave.py``), 16 to
+32 blocks at the models' prefills — so each block streams its rows
+through a ring of shared-memory stages filled by bulk copies, with up to
+20 consumer warps on several rows at once (``fused_geometry``).  Neither
+kernel is built when this module is imported: the CPU tests import it on
+machines without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -28,7 +30,6 @@ import torch
 from . import LAUNCHES, kernel_ready
 
 EPS = 1e-5
-_KERNELS: dict = {}
 
 
 def rmsnorm_plain(x, g, *, eps: float = EPS):
@@ -44,41 +45,6 @@ def fused_add_rmsnorm_plain(x, y, g, *, eps: float = EPS):
     var = torch.mean(s * s, dim=-1, keepdim=True)
     h = s * torch.rsqrt(var + eps)
     return s.to(x.dtype), h.to(x.dtype) * g
-
-
-def _kernels():
-    if _KERNELS:
-        return _KERNELS
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def fused_add_rmsnorm_kernel(x_ptr, y_ptr, g_ptr, s_ptr, h_ptr, n_rows, d,
-                                 stride_x, stride_y, stride_s, stride_h, eps,
-                                 ROWS_PER_PROG: tl.constexpr,
-                                 TILE: tl.constexpr, BLOCK_D: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < d
-        g = tl.load(g_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        for r0 in range(0, ROWS_PER_PROG, TILE):
-            rows = pid * ROWS_PER_PROG + r0 + tl.arange(0, TILE)
-            rows64 = rows.to(tl.int64)[:, None]
-            m = (rows < n_rows)[:, None] & cmask[None, :]
-            x = tl.load(x_ptr + rows64 * stride_x + cols[None, :], mask=m,
-                        other=0.0).to(tl.float32)
-            y = tl.load(y_ptr + rows64 * stride_y + cols[None, :], mask=m,
-                        other=0.0).to(tl.float32)
-            s = x + y
-            r = tl.rsqrt(tl.sum(s * s, axis=1) / d + eps)
-            hn = (s * r[:, None]).to(x_ptr.dtype.element_ty).to(tl.float32)
-            tl.store(s_ptr + rows64 * stride_s + cols[None, :],
-                     s.to(s_ptr.dtype.element_ty), mask=m)
-            tl.store(h_ptr + rows64 * stride_h + cols[None, :],
-                     (hn * g[None, :]).to(h_ptr.dtype.element_ty), mask=m)
-
-    _KERNELS.update(fused=fused_add_rmsnorm_kernel)
-    return _KERNELS
 
 
 _FLOATS = (torch.bfloat16, torch.float16, torch.float32)
@@ -104,14 +70,51 @@ def norm_geometry(d: int) -> tuple:
     raise ValueError(f"rmsnorm kernel: width {d} > {1024 * NORM_PACKS[-1]}")
 
 
-def _geometry(n: int, d: int, block_rows: int):
-    """(BLOCK_D, TILE, rows per program, num_warps): a tile holds at most
-    8192 elements per tensor so the row stays in registers."""
-    block_d = 1 << max(0, (d - 1).bit_length())
-    tile = max(1, min(16, 8192 // block_d))
-    rows = max(tile, -(-max(1, block_rows) // tile) * tile)
-    warps = 4 if block_d * tile <= 2048 else 8
-    return block_d, tile, rows, warps
+SMEM_PER_BLOCK = 232448      # 227 KB: the most a block may take
+
+
+def fused_geometry(n: int, d: int, block_rows: int, *, x_bytes: int = 2,
+                   paired: bool = True) -> dict:
+    """Launch geometry of the fused add+RMSNorm kernel for rows (n, d) of
+    ``x_bytes``-byte elements (``paired``: g has x's type, which has 16
+    bits): ``ctas`` = ceil(n / block_rows) blocks of ``threads``, a
+    producer warp and ``consumer_warps`` (20, within the kernel's cap: 20
+    at up to 4 packs a lane where paired, 16 at up to 4 otherwise, 8 at
+    8), a row on ``norm_geometry``'s ``warps_per_row`` warps of ``packs``
+    packs a lane, ``groups`` rows in the consumers at once, and a ring of
+    ``stages`` rows of x and y (at most 64) in ``smem_bytes`` of shared
+    memory.  The caps and the layout are the kernel's own
+    (``repro_fused_add_rmsnorm_info`` reports them;
+    tests/test_torch_kernels_cuda.py holds the two equal).
+
+    A block's 9-21 warps at 52 or more registers a lane leave an SM no
+    registers for a second block at the consumer counts the models run,
+    so the ring takes up to the 227 KB a block may have, never more
+    stages than a block has rows.  Row i goes to stage i % stages and
+    group i % groups; where the ring wraps, stages is a multiple of
+    groups, so that each stage serves one group, which waits for its
+    uses in order (an mbarrier's parity tells one use from the next only
+    then).  Raises ValueError for a width the kernel does not take or
+    ``block_rows`` < 1."""
+    warps, packs = norm_geometry(d)
+    if block_rows < 1:
+        raise ValueError(f"fused_add_rmsnorm: block_rows {block_rows} < 1")
+    ctas = -(-n // block_rows)
+    cap = 8 if packs == 8 else 20 if paired and x_bytes == 2 else 16
+    cw = max(warps, min(20, cap) // warps * warps)
+    stage = 2 * d * x_bytes + 16                  # x and y rows, 2 mbarriers
+    while cw > warps and cw // warps * stage + 8 * cw > SMEM_PER_BLOCK:
+        cw -= warps                               # a stage a group must fit
+    groups = cw // warps
+    fixed = 2 * cw * 4                            # partial sums
+    rows = max(1, min(block_rows, n))             # the most a block has
+    stages = min(64, (SMEM_PER_BLOCK - fixed) // stage)
+    if stages < rows:                             # the ring wraps
+        stages = max(stages // groups, 1) * groups
+    stages = min(stages, rows)
+    return dict(ctas=ctas, threads=32 * (1 + cw), consumer_warps=cw,
+                warps_per_row=warps, packs=packs, groups=groups,
+                stages=stages, smem_bytes=stages * stage + fixed)
 
 
 def _check(name, x, g, *others):
@@ -153,19 +156,29 @@ def rmsnorm(x, g, *, eps: float = EPS):
 
 
 def fused_add_rmsnorm(x, y, g, *, eps: float = EPS, block_rows: int = 256):
-    """(x + y, rmsnorm(x + y) * g) over the rows of x, y (n, d)."""
+    """(x + y, rmsnorm(x + y) * g) over the rows of x, y (n, d), in
+    ceil(n / block_rows) blocks (TokenWeave's CTA count)."""
     if x.device.type != "cuda":
         return fused_add_rmsnorm_plain(x, y, g, eps=eps)
+    from ._build import check, library
     _check("fused_add_rmsnorm", x, g, y)
+    if y.dtype != x.dtype:
+        raise TypeError("fused_add_rmsnorm: x and y must share a dtype")
     n, d = x.shape
+    geo = fused_geometry(n, d, block_rows, x_bytes=x.element_size(),
+                         paired=g.dtype == x.dtype != torch.float32)
+    x, y, g = kernel_ready(x), kernel_ready(y), kernel_ready(g)
     s = torch.empty((n, d), dtype=x.dtype, device=x.device)
     h = torch.empty((n, d), dtype=torch.promote_types(x.dtype, g.dtype),
                     device=x.device)
-    block_d, tile, rows, warps = _geometry(n, d, block_rows)
-    grid = (-(-n // rows),)
-    _kernels()["fused"][grid](x, y, g, s, h, n, d, x.stride(0), y.stride(0),
-                              s.stride(0), h.stride(0), eps,
-                              ROWS_PER_PROG=rows, TILE=tile, BLOCK_D=block_d,
-                              num_warps=warps)
+    if n == 0:
+        return s, h
+    rc = library().repro_fused_add_rmsnorm_fwd(
+        x.data_ptr(), y.data_ptr(), g.data_ptr(), s.data_ptr(), h.data_ptr(),
+        n, d, x.stride(0), y.stride(0), s.stride(0), h.stride(0),
+        _CODES[x.dtype], _CODES[g.dtype], block_rows, geo["stages"],
+        geo["warps_per_row"], geo["packs"], geo["consumer_warps"], eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(rc, "fused_add_rmsnorm")
     LAUNCHES["fused_add_rmsnorm"] += 1
     return s, h

@@ -8,9 +8,10 @@ its halves around the fused *memory-bound* middle:
     s_s, h_s = fused add+norm on the (B, S/tp, d) shard   # 1 pass
     s, h = all_gather([s_s, h_s])    # network
 
-The middle is the Triton kernel of ``rmsnorm.py``; its rows per program
-(``block_rows``) is the CTA-count knob, selected per batch bucket by the
-TokenWeave strategy.  Without a bound ``model`` axis (one GPU, the tests)
+The middle is the CUDA kernel of ``rmsnorm.py``
+(``csrc/fused_add_rmsnorm.cu``); its rows per block (``block_rows``) is
+the CTA-count knob, selected per batch bucket by the TokenWeave
+strategy.  Without a bound ``model`` axis (one GPU, the tests)
 the collective halves are the identity and this is the fused kernel.
 """
 from __future__ import annotations

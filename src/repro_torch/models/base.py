@@ -27,6 +27,7 @@ from ..core import ScheduleContext, partition, record_plan, trace
 from ..core.backend import Realizer
 from ..core.graph import OpGraph
 from ..core.module import Module, TensorSpec, fold_seed
+from ..device import resolve_device
 from .layers import (AddOp, AllGatherOp, AttentionOp, DecodeAttentionOp,
                      EmbedOp, HeadLayout, LmHeadOp, MeshInfo, MLPBlock, OProj,
                      PsumOp, QKVProj, ReduceScatterOp, RMSNormOp, RopeOp,
@@ -434,11 +435,12 @@ class LMBase:
         return out
 
     # params -------------------------------------------------------------------
-    def init_params(self, seed: int = 0, device="cpu",
+    def init_params(self, seed: int = 0, device=None,
                     phase: str = "prefill") -> dict:
-        """Random parameter tree from ``seed``, drawn on ``device``.
-        Layer stacks are ``(n_layers, ...)`` tensors filled layer by layer
-        (one layer's worth of temporaries at a time)."""
+        """Random parameter tree from ``seed``, drawn on ``device`` (default:
+        the GPU).  Layer stacks are ``(n_layers, ...)`` tensors filled layer
+        by layer (one layer's worth of temporaries at a time)."""
+        device = resolve_device(device)
         segs, _ = self.build_segments(phase, 2, 2 * self.mesh.tp
                                       if self.cfg.seq_parallel else 2,
                                       s_max=4)

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.scheduler import ScheduleContext
+from ..device import resolve_device
 from ..models.base import build_forward
 from .kv_cache import DenseCache
 
@@ -108,15 +109,16 @@ class _Fetch:
 class ServeEngine:
     """``scheduler`` accepts an ``OpSchedulerBase``, a ``StrategyPolicy``
     or a strategy name (resolved per step context by ``build_forward``).
-    Params and caches live on ``device``."""
+    Params and caches live on ``device`` (default: the GPU; raises
+    without one unless the caller passes ``device="cpu"``)."""
 
     def __init__(self, model, params, scheduler, cfg: ServeConfig,
-                 device="cpu", step_cache: Optional[dict] = None):
+                 device=None, step_cache: Optional[dict] = None):
         self.model = model
         self.params = params
         self.scheduler = scheduler
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if tuple(sorted(cfg.prefill_buckets)) != tuple(cfg.prefill_buckets):
             raise ValueError("prefill_buckets must be ascending")
         if max(cfg.prefill_buckets) > cfg.s_max:

@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class CacheRowError(RuntimeError):
     """An invalid row operation (double release, moving a free row)."""
@@ -34,7 +36,8 @@ class KVCacheManager:
 
     paged = False
 
-    def __init__(self, model, max_batch: int, s_max: int, device="cpu"):
+    def __init__(self, model, max_batch: int, s_max: int, device=None):
+        device = resolve_device(device)
         self.max_batch = max_batch
         self.s_max = s_max
         self.caches = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)

@@ -379,7 +379,7 @@ class SplitThenMerge(OpSchedulerBase):
 def chain_setup():
     net = Chain()
     g = trace(net, {"x": TensorSpec((8, 8), torch.float32)})
-    params = net.init(0)
+    params = net.init(0, device="cpu")
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (8, 8)).astype(np.float32))
     plan = record_plan(g, SplitThenMerge(), ScheduleContext(local_batch=8))
@@ -466,7 +466,7 @@ class DiamondExplicit(Module):
 def diamond():
     net = DiamondExplicit()
     g = trace(net, {"x": TensorSpec((8, 8), torch.float32)})
-    params = net.init(0)
+    params = net.init(0, device="cpu")
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (8, 8)).astype(np.float32))
     want = realize(g, sequential_plan(g), params, {"x": x})["out"]

@@ -38,6 +38,23 @@ def test_no_jax_or_reference_imports(path):
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
 
 
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_triton_imports(path):
+    """Every kernel of the port is CUDA C++ built by ``kernels/_build.py``:
+    nothing imports Triton."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert all(n.split(".")[0] != "triton" for n in names), \
+            f"{path.relative_to(ROOT)}:{node.lineno} imports triton"
+
+
 def test_port_imports_without_jax():
     code = (
         "import sys\n"
@@ -70,6 +87,59 @@ def test_entry_points_default_to_the_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prog.serve(params)
     assert prog.serve(params, device="cpu").device.type == "cpu"
+
+
+def _smoke_model():
+    from repro_torch.api import compile
+    prog = compile("smollm-135m", smoke=True, device="cpu")
+    return prog.model, prog.init_params(0)
+
+
+def _serve_engine(device=None):
+    from repro_torch.serve import ServeConfig, ServeEngine
+    model, params = _smoke_model()
+    return ServeEngine(model, params, "sequential",
+                       ServeConfig(max_batch=2, s_max=64,
+                                   prefill_buckets=(16, 64)), device=device)
+
+
+def _kv_cache(device=None):
+    from repro_torch.serve import KVCacheManager
+    return KVCacheManager(_smoke_model()[0], 2, 64, device=device)
+
+
+def _init_params(device=None):
+    return _smoke_model()[0].init_params(0, device=device)
+
+
+def _module_init(device=None):
+    segs, _ = _smoke_model()[0].build_segments("prefill", 2, 16, s_max=16)
+    return segs[0].module.init(0, device=device)
+
+
+def _params_from_numpy(device=None):
+    import numpy as np
+
+    from repro_torch.convert import params_from_numpy
+    return params_from_numpy({"w": np.ones((2, 3), np.float32)},
+                             device=device)
+
+
+@pytest.mark.parametrize("make", [_serve_engine, _kv_cache, _init_params,
+                                  _module_init, _params_from_numpy],
+                         ids=["ServeEngine", "KVCacheManager",
+                              "LM.init_params", "Module.init",
+                              "params_from_numpy"])
+def test_constructors_default_to_the_gpu(make):
+    """Each constructor that places tensors runs on the card unless asked
+    for the CPU: without a card it raises, naming the way out."""
+    from repro_torch.device import resolve_device
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu") is not None
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

@@ -241,6 +241,67 @@ def test_norm_geometry_refuses_widths_the_kernel_does_not_take(d):
         trn.norm_geometry(d)
 
 
+@pytest.mark.parametrize("n,d,block_rows", [
+    (4096, 4096, 256), (8192, 4096, 256), (8192, 4096, 32), (4096, 4096, 1),
+    (4096, 4096, 128), (7, 576, 256), (33, 40, 1), (100, 8192, 3),
+    (8192, 2048, 100), (1, 8, 1), (4096, 4096, 2), (100000, 1536, 64),
+    (50000, 8192, 40)])
+@pytest.mark.parametrize("x_bytes,paired", [(2, True), (2, False),
+                                            (4, False)])
+def test_fused_geometry_keeps_the_knob_and_fits_the_ring(
+        n, d, block_rows, x_bytes, paired):
+    """ceil(n / block_rows) blocks whatever the shape; consumer warps
+    within the kernel's cap, in whole rows; a ring of at least one stage
+    and at most a block's rows within 227 KB, as many as fit; a row
+    covered by its warps' packs (``norm_geometry``); where the ring wraps,
+    whole groups of stages."""
+    geo = trn.fused_geometry(n, d, block_rows, x_bytes=x_bytes,
+                             paired=paired)
+    cw = geo["consumer_warps"]
+    cap = (8 if geo["packs"] == 8 else 20 if paired and x_bytes == 2
+           else 16)
+    want = min(cap, 20)
+    assert cw <= cap and cw % geo["warps_per_row"] == 0
+    stage = 2 * d * x_bytes + 16
+    assert cw == want // geo["warps_per_row"] * geo["warps_per_row"] or (
+        (cw + geo["warps_per_row"]) // geo["warps_per_row"] * stage
+        > trn.SMEM_PER_BLOCK)
+    assert geo["ctas"] == -(-n // block_rows)
+    assert (geo["warps_per_row"], geo["packs"]) == trn.norm_geometry(d)
+    assert geo["groups"] * geo["warps_per_row"] == cw
+    assert geo["threads"] == 32 * (1 + cw)
+    assert 1 <= geo["stages"] <= min(block_rows, n, 64)
+    assert geo["smem_bytes"] == geo["stages"] * stage + 2 * cw * 4
+    assert geo["smem_bytes"] <= trn.SMEM_PER_BLOCK
+    if geo["stages"] < min(block_rows, n):      # the ring wraps
+        assert geo["stages"] % geo["groups"] == 0
+    # as many stages as fit (up to the rows and the cap), in whole groups
+    fit = (trn.SMEM_PER_BLOCK - 2 * cw * 4) // stage
+    assert (geo["stages"] == min(block_rows, n, 64)
+            or geo["stages"] > fit - geo["groups"])
+
+
+def test_fused_geometry_gives_tokenweave_its_block_counts():
+    """TokenWeave's block_rows 256 at chatglm3-6b's and zamba2-1.2b's
+    prefills: 16 and 32 blocks of 20 consumer warps (5 rows at once),
+    each block alone on its SM with a ring of 10 rows of x and y at d =
+    4096 bf16 (the most that fits, in whole groups); 32 rows a block
+    (256 blocks) keep the same ring."""
+    for n, ctas in ((4096, 16), (8192, 32)):
+        geo = trn.fused_geometry(n, 4096, 256)
+        assert (geo["ctas"], geo["consumer_warps"], geo["groups"],
+                geo["stages"]) == (ctas, 20, 5, 10)
+    geo = trn.fused_geometry(8192, 4096, 32)
+    assert (geo["ctas"], geo["stages"]) == (256, 10)
+
+
+@pytest.mark.parametrize("d,block_rows", [(44, 256), (8200, 256), (0, 1),
+                                          (4096, 0), (4096, -3)])
+def test_fused_geometry_refuses_what_the_kernel_does_not_take(d, block_rows):
+    with pytest.raises(ValueError):
+        trn.fused_geometry(64, d, block_rows)
+
+
 def test_rmsnorm_rows_alignment_check():
     """Rows the kernel reads in place: 16-byte aligned starts; others are
     copied first."""

@@ -270,13 +270,138 @@ def test_rmsnorm_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d", [(7, 576), (4096, 4096), (33, 40)])
 def test_norm_kernels_match_plain(cuda, n, d):
+    """Both norms against their plain versions; the fused kernel's outputs
+    are the same bits at every block_rows (a row's arithmetic does not
+    depend on the block that runs it)."""
     x, y, g = _dev(3, cuda, (n, d), (n, d), (d,))
     _close(trn.rmsnorm(x, g), trn.rmsnorm_plain(x, g), NORM)
-    for br in (1, 128, 256):
+    s2, h2 = trn.fused_add_rmsnorm_plain(x, y, g)
+    first = None
+    for br in (1, 32, 128, 256):
+        k = LAUNCHES["fused_add_rmsnorm"]
         s, h = trn.fused_add_rmsnorm(x, y, g, block_rows=br)
+        assert LAUNCHES["fused_add_rmsnorm"] == k + 1
+        _close(s, s2, NORM)
+        _close(h, h2, NORM)
+        first = first or (s, h)
+        assert torch.equal(s, first[0]) and torch.equal(h, first[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block_rows", [(4096, 256), (8192, 256),
+                                          (8192, 32), (1000, 3)])
+def test_fused_kernel_launches_one_block_per_block_rows(cuda, n, block_rows,
+                                                        tmp_path):
+    """The launch's grid, as the profiler records it: ceil(n / block_rows)
+    blocks of the geometry's threads."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+    x, y, g = _dev(4, cuda, (n, 4096), (n, 4096), (4096,))
+    trn.fused_add_rmsnorm(x, y, g, block_rows=block_rows)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trn.fused_add_rmsnorm(x, y, g, block_rows=block_rows)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    grids = [(e["args"].get("grid"), e["args"].get("block")) for e in events
+             if e.get("cat") == "kernel" and "fused_kernel" in e.get("name", "")]
+    geo = trn.fused_geometry(n, 4096, block_rows)
+    assert grids == [([-(-n // block_rows), 1, 1], [geo["threads"], 1, 1])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xt", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("gt", [torch.bfloat16, torch.float16, torch.float32])
+def test_fused_geometry_follows_the_kernels_caps(cuda, xt, gt):
+    """``fused_geometry`` against the library's own caps and layout
+    (``repro_fused_add_rmsnorm_info``): the instantiation's cap of
+    consumer warps in whole rows (no shape here is held below it by
+    shared memory), and the shared memory of the ring as the kernel lays
+    it out, within the most a block may take."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    info = _build.library().repro_fused_add_rmsnorm_info
+    codes = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+    x_bytes = torch.tensor([], dtype=xt).element_size()
+    for n, d, br in ((4096, 4096, 256), (8192, 4096, 32), (19, 8, 4),
+                     (37, 576, 8), (100, 2560, 7), (64, 8192, 64)):
+        geo = trn.fused_geometry(n, d, br, x_bytes=x_bytes,
+                                 paired=gt == xt != torch.float32)
+        cap, smem, most = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+        _build.check(info(codes[xt], codes[gt], geo["packs"], d,
+                          geo["stages"], geo["consumer_warps"],
+                          ctypes.byref(cap), ctypes.byref(smem),
+                          ctypes.byref(most)), "fused_add_rmsnorm info")
+        wpr = geo["warps_per_row"]
+        assert geo["consumer_warps"] == cap.value // wpr * wpr
+        assert geo["smem_bytes"] == smem.value <= most.value
+        assert most.value == trn.SMEM_PER_BLOCK
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xt", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("gt", [torch.bfloat16, torch.float16, torch.float32])
+def test_fused_kernel_dtypes(cuda, xt, gt):
+    """Each pair of x (and y) and g types: s in x's type, h in the
+    promoted type (g in f32 makes h f32)."""
+    x, y, g = _dev(5, cuda, (37, 2560), (37, 2560), (2560,))
+    x, y, g = x.to(xt), y.to(xt), g.to(gt)
+    s, h = trn.fused_add_rmsnorm(x, y, g, block_rows=8)
+    s2, h2 = trn.fused_add_rmsnorm_plain(x, y, g)
+    assert s.dtype == s2.dtype == xt
+    assert h.dtype == h2.dtype == torch.promote_types(xt, gt)
+    _close(s, s2, NORM)
+    _close(h, h2, NORM)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 40, 576, 2048, 8192])
+def test_fused_kernel_at_widths_and_empty_input(cuda, d):
+    """Every pack count at its width, and n == 0: empty outputs of the
+    right types and no launch."""
+    x, y, g = _dev(6, cuda, (19, d), (19, d), (d,))
+    s, h = trn.fused_add_rmsnorm(x, y, g, block_rows=4)
+    s2, h2 = trn.fused_add_rmsnorm_plain(x, y, g)
+    _close(s, s2, NORM)
+    _close(h, h2, NORM)
+    k = LAUNCHES["fused_add_rmsnorm"]
+    s, h = trn.fused_add_rmsnorm(x[:0], y[:0], g)
+    assert s.shape == h.shape == (0, d) and s.dtype == h.dtype == x.dtype
+    assert LAUNCHES["fused_add_rmsnorm"] == k
+
+
+@pytest.mark.cuda
+def test_fused_kernel_reads_strided_rows(cuda):
+    """x and y as columns of wider buffers with different row strides,
+    one of them not a multiple of 16 bytes (copied)."""
+    bx, by, g = _dev(7, cuda, (64, 2048 + 72), (64, 2048 + 8), (2048,))
+    for x, y in ((bx[:, :2048], by[:, 8:]), (bx[:, 4:2052], by[:, :2048])):
+        s, h = trn.fused_add_rmsnorm(x, y, g, block_rows=16)
         s2, h2 = trn.fused_add_rmsnorm_plain(x, y, g)
         _close(s, s2, NORM)
         _close(h, h2, NORM)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_refuses_what_it_does_not_take(cuda):
+    g = torch.ones((8200,), dtype=torch.bfloat16, device=cuda)
+    for d in (44, 8200):
+        x = torch.ones((4, d), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError):
+            trn.fused_add_rmsnorm(x, x, g[:d])
+    x = torch.ones((4, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        trn.fused_add_rmsnorm(x, x, g[:64], block_rows=0)
+    with pytest.raises(TypeError):
+        trn.fused_add_rmsnorm(x, x.float(), g[:64])
+    with pytest.raises(TypeError):
+        trn.fused_add_rmsnorm(x.double(), x.double(), g[:64])
+    with pytest.raises(ValueError):
+        trn.fused_add_rmsnorm(x, x[:2], g[:64])
 
 
 @pytest.mark.cuda
@@ -457,7 +582,8 @@ def _at_8_bytes(t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention",
-                                    "rmsnorm", "grouped_ffn", "ssd_scan"])
+                                    "rmsnorm", "fused_add_rmsnorm",
+                                    "grouped_ffn", "ssd_scan"])
 def test_kernels_realign_an_operand_at_an_8_byte_offset(cuda, kernel):
     """Each CUDA kernel given contiguous operands 8 bytes off a 16-byte
     boundary: the wrapper copies them to an aligned base, the kernel
@@ -481,6 +607,13 @@ def test_kernels_realign_an_operand_at_an_8_byte_offset(cuda, kernel):
         x, g = _dev(32, cuda, (64, 2048), (2048,))
         got = trn.rmsnorm(_at_8_bytes(x), _at_8_bytes(g))
         _close(got, trn.rmsnorm_plain(x, g), NORM)
+    elif kernel == "fused_add_rmsnorm":
+        x, y, g = _dev(36, cuda, (64, 2048), (64, 2048), (2048,))
+        s, h = trn.fused_add_rmsnorm(_at_8_bytes(x), _at_8_bytes(y),
+                                     _at_8_bytes(g), block_rows=16)
+        s2, h2 = trn.fused_add_rmsnorm_plain(x, y, g)
+        _close(s, s2, NORM)
+        _close(h, h2, NORM)
     elif kernel == "grouped_ffn":
         x = _dev(33, cuda, (2, 40, 256))[0]
         w1, w3, w2 = _ffn_weights(34, cuda, 2, 256, 128)

@@ -40,7 +40,8 @@ def pair(request):
     jm = jbuild_model(jget_smoke(arch), JMeshInfo())
     jparams = jm.init_params(jax.random.PRNGKey(0), phase="prefill")
     prog = tcompile(arch, policy="sequential", smoke=True, device="cpu")
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     return jm, jparams, prog, tparams
 
 

@@ -203,7 +203,8 @@ def pair():
     jm = jbuild_model(smoke(jget_smoke), JMeshInfo())
     jparams = jm.init_params(jax.random.PRNGKey(0), phase="prefill")
     prog = tcompile(smoke(tget_smoke), policy="sequential", device="cpu")
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     return jm, jparams, prog, tparams
 
 

@@ -63,7 +63,8 @@ def served(request):
     want = {r.rid: list(r.output) for r in ref.run()}
 
     prog = tcompile(arch, smoke=True, device="cpu")
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     eng = prog.serve(tparams, ServeConfig(**CFG))
     for i, p in enumerate(prompts):
         eng.submit(Request(i, p, max_new_tokens=NEW_TOKENS))

@@ -290,7 +290,8 @@ def pair(request):
     jm = jbuild_model(jget_smoke(arch), JMeshInfo())
     jparams = jm.init_params(jax.random.PRNGKey(0), phase="prefill")
     prog = tcompile(arch, policy="sequential", smoke=True, device="cpu")
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     return jm, jparams, prog, tparams
 
 
@@ -467,7 +468,8 @@ def _serve_both(arch, seed_caches=None):
     ref = JServeEngine(jm, jparams, "dynamic",
                        JServeConfig(lowered=False, **CFG))
     prog = tcompile(arch, smoke=True, device="cpu")
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
     eng = prog.serve(tparams, ServeConfig(**CFG))
     for k, v in (seed_caches or {}).items():
         ref.cache.caches[k] = jnp.asarray(v).astype(ref.cache.caches[k].dtype)
@@ -576,7 +578,7 @@ def test_cache_keys_skip_the_recurrent_stacks(served):
 def test_move_row_carries_the_recurrent_states(served):
     """Tier compaction moves a request's conv/ssm states (and KV) with it."""
     eng = served[5]
-    mgr = KVCacheManager(eng.model, 4, 32)
+    mgr = KVCacheManager(eng.model, 4, 32, device="cpu")
     for k, c in mgr.caches.items():
         c.copy_(torch.randn(c.shape))
     before = {k: c.clone() for k, c in mgr.caches.items()}

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Probes of the port's decode attention, RMSNorm and SSD kernels on one GPU.
+"""Probes of the port's decode attention, norm and SSD kernels on one GPU.
 
   decode   builds a copy of ``csrc/decode_attention.cu`` whose blocks
            stamp ``%globaltimer`` at each phase (entry, cache_len read,
@@ -21,15 +21,31 @@
            version at the kernels phase's SSD cases, times them in turns
            (device time alone) and prints each warp's mean cycles a block
            per phase, with ptxas's registers and spills of each build
+  fused    times the fused add+RMSNorm kernel at the kernels phase's two
+           TokenWeave cases (4096 and 8192 rows of 4096 bf16) over a sweep
+           of block counts (``FUSED_CTAS``, by ``block_rows``) and, at
+           TokenWeave's 256 rows a block, of consumer warps, warps a row
+           and ring stages, beside the ``torch.add`` + ``F.rms_norm``
+           composition and, for each ``--fused-other NAME=DIR``, the fused
+           kernel of the tree at DIR (a checkout's root, such as the
+           parent commit unpacked; its ``src/repro_torch`` is imported
+           under another name); each held to the plain version, this
+           tree's outputs bitwise equal wherever a row has the same warps,
+           all timed in turns (device time alone), with the bytes a busy
+           SM moves per microsecond; then copies without the kernel's
+           stores, its loads or both in turns with it, and each warp's
+           ``clock64`` cycles a row per bucket (``FUSED_MARKS``)
 
-Usage:  python3 tools/kernel_probes.py [--probes decode,rmsnorm,ssd]
-            [--ssd-other NAME=DIR ...]
+Usage:  python3 tools/kernel_probes.py [--probes decode,rmsnorm,ssd,fused]
+            [--ssd-other NAME=DIR ...] [--fused-other NAME=DIR ...]
 Needs a CUDA device and nvcc; prints one JSON line per case.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -352,12 +368,322 @@ def probe_ssd(out, others=()):
         _build._LIB = saved
 
 
+FUSED_CTAS = (16, 32, 66, 132, 264)
+# (bucket, anchor in fused_add_rmsnorm.cu, where the mark goes): each warp
+# adds the clock64 cycles since its previous mark to the bucket ("<":
+# before the anchor, else after it; "init" starts the clock)
+FUSED_MARKS = [
+    ("<init", "      for (int i = 0; i < rows; ++i) {\n"),
+    ("producer: wait empty",
+     "        if (i >= stages) mbar_wait(&empty[st], ((i / stages) - 1) & 1);\n"),
+    ("producer: issue loads",
+     "        bulk_load(buf + row_bytes, y + (row0 + i) * sy, row_bytes, "
+     "&full[st]);\n"),
+    ("<init", "  for (int i = grp, k = 0; i < rows; i += groups, ++k) {\n"),
+    ("consumer: wait full", "    mbar_wait(&full[st], (i / stages) & 1);\n"),
+    ("<consumer: smem loads, sum",
+     "#pragma unroll\n    for (int off = 16; off > 0; off >>= 1)"),
+    ("<consumer: shuffles, barrier", "    const float r = rsqrtf("),
+    ("consumer: scale, stores",
+     "        gs[j].apply(sv[j], r, h + row * sh + 8 * v);\n      }\n    }\n"),
+]
+FUSED_BUCKETS = [n for n, _ in FUSED_MARKS if n != "<init"]
+# copies of fused_add_rmsnorm.cu without one half of its traffic: no
+# stores (s = x + y and its statistics are computed, nothing is written,
+# so h is not computed either), no loads (the producer arrives on each
+# stage without a copy: the consumers read what the ring holds), neither
+_NO_STORES = ("        store(s + row * ss + 8 * v, sv[j]);\n"
+              "        gs[j].apply(sv[j], r, h + row * sh + 8 * v);\n",
+              "        if (sv[j][0] == 12345.f && r == 12345.f)\n"
+              "          gs[j].apply(sv[j], r, h + row * sh + 8 * v);\n")
+_NO_LOADS = ("        mbar_arrive_expect_tx(&full[st], 2 * row_bytes);\n"
+             "        bulk_load(buf, x + (row0 + i) * sx, row_bytes, "
+             "&full[st]);\n"
+             "        bulk_load(buf + row_bytes, y + (row0 + i) * sy, "
+             "row_bytes, &full[st]);\n",
+             "        mbar_arrive(&full[st]);\n")
+FUSED_HALVES = {"no stores": [_NO_STORES], "no loads": [_NO_LOADS],
+                "neither": [_NO_STORES, _NO_LOADS]}
+
+
+def fused_half_source(csrc, name) -> str:
+    """``csrc``'s fused_add_rmsnorm.cu with the edits of
+    ``FUSED_HALVES[name]``."""
+    src = open(os.path.join(csrc, "fused_add_rmsnorm.cu")).read()
+    for old, new in FUSED_HALVES[name]:
+        if old not in src:
+            raise RuntimeError(f"{name}: anchor not found")
+        src = src.replace(old, new)
+    return src
+FUSED_PRELUDE = r'''
+__device__ long long g_fph[4096][24][8];  // blocks, warps, buckets
+#define PH_INIT long long ph_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0}; \
+  long long ph_t = clock64();
+#define PH(k) do { const long long t_ = clock64(); ph_acc[k] += t_ - ph_t; \
+  ph_t = t_; } while (0)
+#define PH_OUT do { if (blockIdx.x < 4096) for (int k_ = 0; k_ < 8; ++k_) \
+  g_fph[blockIdx.x][threadIdx.x >> 5][k_] = ph_acc[k_]; } while (0)
+'''
+FUSED_EPILOGUE = r'''
+extern "C" int probe_fused_cycles(void* host, int n) {
+  static long long zero[4096][24][8];
+  if (host == nullptr) return (int)cudaMemcpyToSymbol(g_fph, zero, sizeof(zero));
+  return (int)cudaMemcpyFromSymbol(host, g_fph, (size_t)n * 24 * 8 * 8);
+}
+'''
+
+
+def fused_cycles_source(csrc) -> str:
+    """``csrc``'s fused_add_rmsnorm.cu with each warp's cycles summed per
+    bucket of ``FUSED_MARKS`` and written to ``g_fph[block][warp]`` as the
+    producer's lane 0 and each consumer lane 0 finish."""
+    src = open(os.path.join(csrc, "fused_add_rmsnorm.cu")).read()
+    src = src.replace('#include "norm_pack.cuh"\n',
+                      '#include "norm_pack.cuh"\n' + FUSED_PRELUDE, 1)
+    k = 0
+    for name, anchor in FUSED_MARKS:
+        if anchor not in src:
+            raise RuntimeError(f"mark anchor of {name!r} not found")
+        if name == "<init":
+            mark = "  PH_INIT\n"
+        else:
+            mark, k = f"    PH({k});\n", k + 1
+        if name.startswith("<"):
+            src = src.replace(anchor, mark + anchor, 1)
+        else:
+            src = src.replace(anchor, anchor + mark, 1)
+    for anchor, out in (
+            ("      }\n    }\n    return;\n  }\n", "      }\n      PH_OUT;\n"
+             "    }\n    return;\n  }\n"),
+            ("  }\n}\n\ntemplate <typename TX, typename TG, int NP>\nint launch(",
+             "  }\n  if (lane == 0) PH_OUT;\n}\n\ntemplate <typename TX, "
+             "typename TG, int NP>\nint launch(")):
+        if anchor not in src:
+            raise RuntimeError("kernel end not found")
+        src = src.replace(anchor, out, 1)
+    return src + FUSED_EPILOGUE
+
+
+def _other_rmsnorm(name, root):
+    """The ``kernels.rmsnorm`` module of the tree at ``root``, its
+    ``src/repro_torch`` imported as the package ``_other_<name>``."""
+    pkg = f"_other_{name}"
+    base = os.path.join(os.path.abspath(root), "src", "repro_torch")
+    spec = importlib.util.spec_from_file_location(
+        pkg, os.path.join(base, "__init__.py"),
+        submodule_search_locations=[base])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[pkg] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{pkg}.kernels.rmsnorm")
+
+
+def fused_probe_geometry(n, d, block_rows, *, cw=None, wpr=None,
+                         max_stages=64):
+    """``rmsnorm.fused_geometry`` of bf16 rows with ``cw`` consumer warps
+    in rows of ``wpr`` warps and at most ``max_stages`` ring stages in
+    their place (a probe point: the wrapper launches only the first);
+    the ring takes as many stages as fit, in whole groups where it
+    wraps."""
+    from repro_torch.kernels import rmsnorm as rn
+    geo = rn.fused_geometry(n, d, block_rows)
+    wpr = wpr or geo["warps_per_row"]
+    cw = cw or geo["consumer_warps"]
+    packs = next(p for p in rn.NORM_PACKS if 256 * wpr * p >= d)
+    groups, rows = cw // wpr, max(1, min(block_rows, n))
+    stages = min(max_stages, (rn.SMEM_PER_BLOCK - 8 * cw) // (4 * d + 16))
+    if stages < rows:
+        stages = max(stages // groups, 1) * groups
+    stages = min(stages, rows)
+    return dict(geo, threads=32 * (1 + cw), consumer_warps=cw,
+                warps_per_row=wpr, packs=packs, groups=groups, stages=stages,
+                smem_bytes=stages * (4 * d + 16) + 8 * cw)
+
+
+def fused_launch(lib, x, y, w, block_rows, geo):
+    """One launch of ``lib``'s fused add+RMSNorm on bf16 (n, d) rows at
+    the geometry ``geo``, straight through its C entry point."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as rn
+    n, d = x.shape
+    s, h = torch.empty_like(x), torch.empty_like(x)
+    _build.check(lib.repro_fused_add_rmsnorm_fwd(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), s.data_ptr(), h.data_ptr(),
+        n, d, d, d, d, d, 0, 0, block_rows, geo["stages"],
+        geo["warps_per_row"], geo["packs"], geo["consumer_warps"], rn.EPS,
+        torch.cuda.current_stream().cuda_stream), "fused_add_rmsnorm")
+    return s, h
+
+
+def probe_fused(out, others=()):
+    """The fused add+RMSNorm kernel over ``FUSED_CTAS`` at the two
+    TokenWeave cases, and at TokenWeave's block_rows (256) over consumer
+    warps and warps a row (``wpr``; the outputs are the same bits at
+    every point of the same wpr) and with the ring cut to 5 and 10
+    stages, beside the composition and each of ``others`` (NAME=DIR), in
+    turns; then copies without the stores, the loads or both
+    (``FUSED_HALVES``) in turns with the whole kernel, and a copy that sums
+    each warp's cycles per bucket of ``FUSED_MARKS`` at block_rows 256.
+    The wrapper launches the block-count sweep; the other points go
+    straight to the library (``fused_launch``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as rn
+    import chip_smoke as cs
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mods = {k: _other_rmsnorm(k, d) for k, d in
+            (o.split("=", 1) for o in others)}
+    tmp = tempfile.mkdtemp()
+    srcs = {"cycles": fused_cycles_source(str(_build.CSRC)),
+            **{k: fused_half_source(str(_build.CSRC), k)
+               for k in FUSED_HALVES}}
+    procs = {}
+    for i, (k, src) in enumerate(srcs.items()):
+        with open(os.path.join(tmp, f"fused{i}.cu"), "w") as f:
+            f.write(src)
+        procs[k] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-shared", os.path.join(tmp, f"fused{i}.cu"), "-o",
+             os.path.join(tmp, f"fused{i}.so")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    lib = _build.library()
+
+    def point(br=256, **kw):
+        geo = fused_probe_geometry(x.shape[0], x.shape[1], br, **kw)
+        return lambda: fused_launch(lib, x, y, w, br, geo)
+
+    cases = (("chatglm3-6b seq_parallel=False B=2", 4096, 4096),
+             ("zamba2-1.2b shared block B=4", 8192, 4096))
+    for what, n, d in cases:
+        x, y = (torch.randn((n, d), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        w = torch.randn((d,), generator=g, device=dev).to(torch.bfloat16)
+        ref = rn.fused_add_rmsnorm_plain(x, y, w)
+        nbytes = (4 * n * d + d) * 2
+        bound_ms = cs.bound(6.0 * n * d, nbytes)["bound_ms"]
+        fns, checks, first = {}, {}, {}
+        for ctas in FUSED_CTAS:
+            br = -(-n // ctas)
+            fns[f"kernel br={br}"] = (
+                lambda br=br: rn.fused_add_rmsnorm(x, y, w, block_rows=br))
+            for name, mod in mods.items():
+                fns[f"{name} br={br}"] = (
+                    lambda mod=mod, br=br: mod.fused_add_rmsnorm(
+                        x, y, w, block_rows=br))
+        for wpr, cw in ((4, 4), (4, 8), (4, 12), (4, 16), (8, 16), (2, 8)):
+            fns[f"kernel wpr={wpr} cw={cw} br=256"] = point(cw=cw, wpr=wpr)
+        for m in (5, 10):
+            fns[f"kernel stages<={m} br=256"] = point(max_stages=m)
+        for k, fn in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            checks[k] = cs.compare("fused_add_rmsnorm",
+                                   list(zip(got, ref)))["ok"]
+            if k.startswith("kernel"):
+                # the same bits wherever a row has the same warps
+                wk = k.split("wpr=")[1].split()[0] if "wpr=" in k else ""
+                first.setdefault(wk, got)
+                checks[k] = checks[k] and bool(
+                    torch.equal(got[0], first[wk][0])
+                    and torch.equal(got[1], first[wk][1]))
+        fns["composition"] = lambda: F.rms_norm(torch.add(x, y), (d,), w,
+                                                rn.EPS)
+        times: dict = {}
+        for k in list(fns) + list(fns)[::-1]:
+            times.setdefault(k, []).append(cs.device_ms([fns[k]]))
+        rows = {}
+        for k, t in times.items():
+            ms = sum(t) / 2
+            br = int(k.rsplit("=", 1)[1]) if "br=" in k else None
+            ctas = None if br is None else -(-n // br)
+            busy = None if ctas is None else min(ctas, sms)
+            rows[k] = {"device_ms_turns": t, "device_ms": ms,
+                       "ctas": ctas, "ok": checks.get(k, True),
+                       "share_of_bound": bound_ms / ms,
+                       "bytes_per_sm_per_us": (
+                           None if busy is None
+                           else nbytes / busy / (ms * 1e3))}
+        out({"probe": "fused", "case": f"{what}: n={n} d={d} bf16",
+             "bound_ms": bound_ms, "sms": sms,
+             "geometry": {f"br={-(-n // c)}": rn.fused_geometry(
+                 n, d, -(-n // c)) for c in FUSED_CTAS},
+             "results": rows})
+    libs, logs = {}, {}
+    for i, (k, p) in enumerate(procs.items()):
+        logs[k] = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed on the {k} build:\n{logs[k]}")
+        libs[k] = _load_lib(os.path.join(tmp, f"fused{i}.so"))
+    # each half of the kernel alone, in turns with the whole
+    for what, n, d in cases:
+        x, y = (torch.randn((n, d), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        w = torch.randn((d,), generator=g, device=dev).to(torch.bfloat16)
+        geo = rn.fused_geometry(n, d, 256)
+        fns = {"whole": lambda: fused_launch(lib, x, y, w, 256, geo)}
+        for k in FUSED_HALVES:
+            fns[k] = (lambda half=libs[k]: fused_launch(half, x, y, w, 256,
+                                                        geo))
+        times = {}
+        for k in list(fns) + list(fns)[::-1]:
+            try:
+                t = cs.device_ms([fns[k]])
+            except RuntimeError as e:     # the profiler's window
+                t = str(e)
+            times.setdefault(k, []).append(t)
+        nbytes = (4 * n * d + d) * 2
+        out({"probe": "fused halves", "case": f"{what}: n={n} d={d} "
+             f"bf16 block_rows=256", "device_ms_turns": times,
+             "bytes_per_sm_per_us_whole": nbytes / min(
+                 -(-n // 256), sms) / (max(times["whole"]) * 1e3)})
+    cyc_lib = libs["cycles"]
+    cyc_lib.probe_fused_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for what, n, d in cases:
+        x, y = (torch.randn((n, d), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        w = torch.randn((d,), generator=g, device=dev).to(torch.bfloat16)
+        for cw in (8, None):
+            geo = fused_probe_geometry(n, d, 256, cw=cw)
+            fused_launch(cyc_lib, x, y, w, 256, geo)
+            torch.cuda.synchronize()
+            cyc_lib.probe_fused_cycles(None, 0)
+            fused_launch(cyc_lib, x, y, w, 256, geo)
+            torch.cuda.synchronize()
+            nb, nw = geo["ctas"], 1 + geo["consumer_warps"]
+            buf = (ctypes.c_longlong * (nb * 24 * 8))()
+            cyc_lib.probe_fused_cycles(buf, nb)
+            # cycles a row: the producer's over a block's 256 rows, a
+            # consumer warp's over its group's share
+            cyc = {}
+            for k, name in enumerate(FUSED_BUCKETS):
+                prod = name.startswith("producer")
+                ws = [0] if prod else range(1, nw)
+                tot = sum(buf[(b * 24 + wi) * 8 + k]
+                          for b in range(nb) for wi in ws)
+                cyc[name] = tot / nb / len(ws) / (
+                    256 if prod else 256 / geo["groups"])
+            out({"probe": "fused cycles", "case": f"{what}: n={n} d={d} "
+                 f"bf16 block_rows=256 cw={geo['consumer_warps']}",
+                 "geometry": geo, "cycles_per_row": cyc})
+    out({"probe": "fused cycles", "build": cs.ptxas_report(
+        logs["cycles"], ("fused_kernelI13__nv_bfloat16S",))})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--probes", default="decode,rmsnorm,ssd")
+    ap.add_argument("--probes", default="decode,rmsnorm,ssd,fused")
     ap.add_argument("--ssd-other", action="append", default=[],
                     help="NAME=DIR: the ssd_scan.cu of another tree's "
                          "kernels/csrc directory, timed beside this one's")
+    ap.add_argument("--fused-other", action="append", default=[],
+                    help="NAME=DIR: the fused add+RMSNorm of the tree whose "
+                         "root is DIR, timed beside this one's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -374,6 +700,8 @@ def main(argv=None) -> int:
         probe_rmsnorm(out)
     if "ssd" in probes:
         probe_ssd(out, args.ssd_other)
+    if "fused" in probes:
+        probe_fused(out, args.fused_other)
     return 0
 
 
