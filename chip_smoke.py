@@ -21,8 +21,9 @@ Phases, each printing one JSON line:
             the host where a call costs it more than the card), and
             kernel and yardstick on the device alone (``device_ms``,
             ``library_device_ms``: torch.profiler's kernel durations, in
-            turns; decode attention cold, rotating over caches that pass
-            the 50 MB L2) with the host's enqueue cost a call
+            turns, or CUDA events where no profiler window is whole:
+            ``device_ms_by``; decode attention cold, rotating over caches
+            that pass the 50 MB L2) with the host's enqueue cost a call
             (``host_us``)
   reference a 2-layer cut of chatglm3-6b at full width on the GPU
             (kernels) against the same program on the CPU (plain versions)
@@ -34,7 +35,13 @@ Phases, each printing one JSON line:
             add+RMSNorm replaces each layer's [all-reduce -> add ->
             RMSNorm] chain
   serve     ``compile("chatglm3-6b").serve`` answers 4 requests (prompts
-            of 17, 300, 1000 and 2000 tokens, 16 greedy tokens each)
+            of 17, 300, 1000 and 2000 tokens, 16 greedy tokens each): the
+            default engine, which replays each decode tier's step as one
+            CUDA Graph, and then the interpreter (``lowered=False``) on
+            the same mix, whose tokens and launch counts must be the
+            same; then the steady tier-4 decode step's wall time (CUDA
+            events over a window of engine steps), graphs and interpreter
+            in turns, and one graph replay alone
   moe_reference
             deepseek-moe-16b cut to 2 layers (the dense first layer and
             one MoE layer) at full width, B=2 S=128, GPU against CPU
@@ -67,8 +74,8 @@ Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,
             serve,moe_reference,moe_transparency,moe_serve,ssm_reference,
             ssm_transparency,ssm_serve]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
-        torch.profiler breakdown of a warm prefill and a window of decode
-        steps)
+        torch.profiler breakdown of a warm prefill and of a window of
+        decode steps, with graphs and with the interpreter)
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside this file.
 """
@@ -158,22 +165,27 @@ def _dev_us(e):
                          getattr(e, "self_cuda_time_total", 0.0)))
 
 
-def device_ms(fns, iters=30, warmup=3):
+def device_ms(fns, iters=30, warmup=3, windows=5):
     """Device time per call on the card alone: the durations of the
     kernels (and device copies) that ``iters`` calls launch, summed by
     ``torch.profiler``, without the host's gaps between launches.  The
     calls cycle through ``fns`` (each on its own inputs), so a caller can
-    rotate past the 50 MB L2 where the real caller finds its data cold."""
+    rotate past the 50 MB L2 where the real caller finds its data cold.
+
+    Returns the time and how it was taken.  The profiler now and then
+    hands back a window without all of its device events (seen on an
+    H100: none, or fewer kernels than calls, and once in every window of
+    a call): such a window is measured again, up to ``windows`` times,
+    and when none is whole the time comes from CUDA events around the
+    same calls (``"cuda_events"``), which include the host's gaps where
+    a call costs the host more than the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
-    # the profiler now and then hands back a window without all of its
-    # device events (seen on an H100: none, or fewer kernels than calls):
-    # such a window is measured again
-    for _ in range(3):
+    for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
@@ -183,8 +195,15 @@ def device_ms(fns, iters=30, warmup=3):
                   if e.device_type == DeviceType.CUDA]
         total = sum(_dev_us(e) for e in events)
         if total > 0 and sum(e.count for e in events) >= iters:
-            return total / 1e3 / iters
-    raise RuntimeError("torch.profiler recorded too few device events")
+            return total / 1e3 / iters, "profiler"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, "cuda_events"
 
 
 def host_us(fn, iters=50):
@@ -205,14 +224,21 @@ def device_times(kernel, library=None, name="library"):
     """``device_ms`` and ``host_us`` of a kernel's wrapper and
     ``<name>_device_ms`` of its one-call yardstick, each a list of calls
     to rotate through (see ``device_ms``), timed in turns (kernel,
-    yardstick, yardstick, kernel) and averaged over the two turns."""
+    yardstick, yardstick, kernel) and averaged over the two turns;
+    ``device_ms_by`` says how each was taken (the kernel's two turns, then
+    the yardstick's)."""
     k = [device_ms(kernel)]
     lib = None if library is None else [device_ms(library),
                                         device_ms(library)]
     k.append(device_ms(kernel))
-    return {"device_ms": sum(k) / 2, "device_ms_turns": k,
-            f"{name}_device_ms": None if lib is None else sum(lib) / 2,
-            f"{name}_device_ms_turns": lib, "host_us": host_us(kernel[0])}
+    return {"device_ms": sum(t for t, _ in k) / 2,
+            "device_ms_turns": [t for t, _ in k],
+            f"{name}_device_ms": None if lib is None
+            else sum(t for t, _ in lib) / 2,
+            f"{name}_device_ms_turns": None if lib is None
+            else [t for t, _ in lib],
+            "device_ms_by": [how for _, how in k + (lib or [])],
+            "host_us": host_us(kernel[0])}
 
 
 def bound(flops, nbytes):
@@ -962,48 +988,124 @@ def phase_ssm_transparency(dev, params, totals, arch):
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(dev, params, gpu, totals, arch="chatglm3-6b"):
+SERVE_LENS = (17, 300, 1000, 2000)
+
+
+def serve_config(**kw):
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(max_batch=4, s_max=4096, prefill_batch=4,
+                       prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048),
+                       **kw)
+
+
+def serve_engine(prog, params, new_tokens, lowered=True, seed=SEED):
+    """An engine with the serve mix submitted and its decode tiers built
+    (captured, with graphs) ahead of the requests."""
     import numpy as np
+
+    from repro_torch.serve import Request
+    engine = prog.serve(params, serve_config(lowered=lowered))
+    engine.warmup()
+    rng = np.random.default_rng(seed)
+    for i, n in enumerate(SERVE_LENS):
+        engine.submit(Request(i, rng.integers(0, prog.model.cfg.vocab, n)
+                              .astype(np.int32), max_new_tokens=new_tokens))
+    return engine
+
+
+def steps_ms(engine, steps):
+    """Wall time of one engine step over ``steps`` of them, from CUDA
+    events: the stream's time from the first dispatch to the last step's
+    end, host gaps included."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        engine.step()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def phase_serve(dev, params, gpu, totals, arch="chatglm3-6b"):
     import torch
 
     from repro_torch.api import compile
-    from repro_torch.serve import Request, ServeConfig
     prog = compile(arch)          # policy: dynamic
     cfg = prog.model.cfg
-    scfg = ServeConfig(max_batch=4, s_max=4096, prefill_batch=4,
-                       prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048))
-    rng = np.random.default_rng(SEED)
-    lens = (17, 300, 1000, 2000)
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
 
-    def run(new_tokens):
-        engine = prog.serve(params, scfg)
-        for i, p in enumerate(prompts):
-            engine.submit(Request(i, p, max_new_tokens=new_tokens))
-        torch.cuda.synchronize()
+    def run(new_tokens, lowered=True, into=None):
+        """Serve the mix on a warmed engine; the launch counts (added to
+        ``into``) cover the run, not the warm-up's captures."""
+        engine = serve_engine(prog, params, new_tokens, lowered)
         t0 = time.perf_counter()
-        done = engine.run()
-        torch.cuda.synchronize()
-        return engine, done, time.perf_counter() - t0
+        done, counts = counted({} if into is None else into, engine.run)
+        return engine, done, time.perf_counter() - t0, counts
+
+    def summary(engine, done, wall, counts):
+        reqs = sorted(done, key=lambda r: r.rid)
+        return {"wall_s": wall,
+                "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
+                "ttft_s": [r.first_token_s - r.submitted_s for r in reqs],
+                "outputs_head": [r.output[:4] for r in reqs],
+                "stats": engine.stats, "launches": counts}
 
     run(2)                        # warm-up: trace, schedule, JIT
+    run(2, lowered=False)
     torch.cuda.reset_peak_memory_stats()
-    (engine, done, wall), counts = counted(totals, lambda: run(16))
+    engine, done, wall, counts = run(16, into=totals)
+    peak = torch.cuda.max_memory_allocated() / 1e9
     reqs = sorted(done, key=lambda r: r.rid)
-    tokens = sum(len(r.output) for r in reqs)
+    graphs = summary(engine, done, wall, counts)
     ok = (len(reqs) == 4 and all(r.ok and len(r.output) == 16 for r in reqs)
           and all(0 <= t < cfg.vocab for r in reqs for t in r.output))
     for name in SERVE_KERNELS[cfg.family]:
         ok = ok and counts.get(name, 0) > 0
+    st = engine.stats
+    ok = ok and st["graph_replays"] == st["decode_steps"] > 0
+    # the interpreter on the same mix: its launches are not the main
+    # path's, so they stay out of the totals
+    i_engine, i_done, i_wall, i_counts = run(16, lowered=False)
+    interp = summary(i_engine, i_done, i_wall, i_counts)
+    tokens_equal = [r.output for r in reqs] == [
+        r.output for r in sorted(i_done, key=lambda r: r.rid)]
+    ok = ok and tokens_equal and i_counts == counts
+    del engine, i_engine
+    # the steady tier-4 decode step, graphs and interpreter in turns,
+    # past the prefill and three decode steps
+    engines = {"graphs": serve_engine(prog, params, 64),
+               "interpreter": serve_engine(prog, params, 64, lowered=False)}
+    for e in engines.values():
+        for _ in range(4):
+            e.step()
+    steady = {k: [] for k in engines}
+    for _ in range(2):
+        for k, e in engines.items():
+            steady[k].append(steps_ms(e, 8))
+    # the tier-4 graph replayed back to back, alone (it rewrites the
+    # engine's state, which is thrown away after)
+    g4 = engines["graphs"]._graphs[4]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        g4.replay()
+    end.record()
+    end.synchronize()
+    replay_ms = start.elapsed_time(end) / 10
+    del engines, g4
     log({"phase": PREFIX[cfg.family] + "serve",
-         "arch": arch, "gpu": gpu, "prompt_lens": list(lens),
-         "new_tokens": 16, "wall_s": wall, "tokens_per_s": tokens / wall,
-         "ttft_s": [r.first_token_s - r.submitted_s for r in reqs],
-         "outputs_head": [r.output[:4] for r in reqs],
-         "strategies": {f"{ph}:{b}x{s}": fwd.strategies
-                        for (ph, b, s), fwd in prog._serve_steps.items()},
-         "stats": engine.stats, "launches": counts,
-         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": ok})
+         "arch": arch, "gpu": gpu, "prompt_lens": list(SERVE_LENS),
+         "new_tokens": 16, **graphs,
+         "interpreter": interp, "tokens_equal": tokens_equal,
+         "launches_equal": i_counts == counts,
+         "steady_decode_step_ms": steady, "graph_replay_ms": replay_ms,
+         "strategies": {f"{ph}:{b}x{s}" + ("" if lo else ":interpreted"):
+                        fwd.strategies
+                        for (ph, b, s, lo), fwd in prog._serve_steps.items()},
+         "peak_mem_gb": peak, "ok": ok})
     return ok
 
 
@@ -1050,31 +1152,26 @@ def _profile(fn, steps):
 
 def phase_profile(dev, params, arch="chatglm3-6b"):
     """One warm prefill (B=4, bucket 2048) and a window of tier-4 decode
-    steps of the serve path, under the profiler."""
-    import numpy as np
-
+    steps of the serve path, under the profiler: with graphs and with the
+    interpreter."""
     from repro_torch.api import compile
-    from repro_torch.serve import Request, ServeConfig
     prog = compile(arch)
     cfg = prog.model.cfg
     step = prog.prefill(4, 2048)
     batch = prefill_batch(4, 2048, cfg.vocab, dev, SEED + 2)
     step(params, batch)
     prefill = _profile(lambda: step(params, batch), 2)
-    scfg = ServeConfig(max_batch=4, s_max=4096, prefill_batch=4,
-                       prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048))
-    engine = prog.serve(params, scfg)
-    rng = np.random.default_rng(SEED)
-    for i, n in enumerate((17, 300, 1000, 2000)):
-        engine.submit(Request(i, rng.integers(0, cfg.vocab, n).astype(
-            np.int32), max_new_tokens=64))
-    for _ in range(4):              # prefill + warm decode steps
-        engine.step()
-    decode = _profile(engine.step, 16)
-    engine.run()
+    decode = {}
+    for name, lowered in (("graphs", True), ("interpreter", False)):
+        engine = serve_engine(prog, params, 64, lowered)
+        for _ in range(4):              # prefill + warm decode steps
+            engine.step()
+        decode[name] = _profile(engine.step, 16)
+        engine.run()
     log({"phase": PREFIX[cfg.family] + "profile",
          "arch": arch, "prefill_strategies": step.strategies,
-         "prefill_B4_S2048": prefill, "decode_tier4": decode})
+         "prefill_B4_S2048": prefill, "decode_tier4": decode["graphs"],
+         "decode_tier4_interpreter": decode["interpreter"]})
 
 
 # ---------------------------------------------------------------------------
@@ -1200,7 +1297,8 @@ def main(argv=None) -> int:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "composition_ms", "device_ms",
-                "library_device_ms", "composition_device_ms", "host_us")
+                "library_device_ms", "composition_device_ms",
+                "device_ms_by", "host_us")
         log({"kernels": [{k: r.get(k) for k in keys}
                          for r in kernel_rows]})
     print(gpu, flush=True)

@@ -8,15 +8,19 @@ Public API:
   StrategyPolicy / by_phase / by_token_threshold
   / first_viable / when                           — per-context strategy policies
   static_analysis / Realizer / realize            — backend (Alg. 1)
+  lower / specialize / LoweredPlan / LoweringError
+                                                  — the slot IR
   sequential_plan                                 — reference fallback
 """
 from .analysis import AnalysisResult, static_analysis
 from .backend import FusedCallInfo, Realizer, realize, sequential_plan
 from .graph import FULL, OpGraph, OpNode, TensorRef
+from .lowering import LoweredPlan, LoweringError, lower, specialize
 from .module import FnOp, Module, Op, Param, TensorSpec, mark, trace
 from .partition import Mark, SplitEveryOp, SplitFunc, SplitModule, partition
 from .plan import (ExecutionPlan, OpHandle, PlanStep, graph_fingerprint,
-                   scheduler_identity)
+                   scheduler_identity, structural_fingerprint,
+                   structural_key)
 from .policy import (StrategyPolicy, as_policy, by_phase,
                      by_token_threshold, first_viable, has_ops,
                      local_batch_below, phase_is, resolve_strategy,
@@ -34,7 +38,8 @@ __all__ = [
     "StrategyPolicy", "as_policy", "by_phase", "by_token_threshold",
     "first_viable", "when", "has_ops", "local_batch_below", "phase_is",
     "resolve_strategy", "tokens_of",
-    "scheduler_identity",
+    "scheduler_identity", "structural_key", "structural_fingerprint",
     "AnalysisResult", "static_analysis",
     "FusedCallInfo", "Realizer", "realize", "sequential_plan",
+    "LoweredPlan", "LoweringError", "lower", "specialize",
 ]

@@ -16,9 +16,12 @@ in-place writes:
 
 No op writes into a tensor another step still reads: ops return new
 tensors or views they never write, except the decode attention op, which
-updates the KV cache it alone reads (models/layers.py).  Lowering the
-plan to a slot IR replayed as CUDA Graphs is a later step of the port;
-``lowered=True`` is refused until then.
+updates the KV cache it alone reads (models/layers.py).
+
+By default a ``Realizer`` lowers its plan once to the slot IR of
+``core/lowering.py`` and replays that; ``lowered=False`` keeps this
+module's step-by-step interpreter, the reference semantics the lowered
+path is held to bitwise.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 
 from .analysis import BUF, AnalysisResult, static_analysis, step_writes
 from .graph import FULL, OpGraph
+from .lowering import lower
 from .plan import ExecutionPlan, PlanStep
 
 
@@ -60,18 +64,25 @@ class FusedCallInfo:
 
 
 class Realizer:
-    """Executes one plan.  One instance per (graph, plan, analysis)."""
+    """Executes one plan.  One instance per (graph, plan, analysis).
+
+    By default the plan is lowered once to a slot-based instruction
+    stream (``core.lowering``) and ``__call__`` replays that; pass
+    ``lowered=False`` to run the step-by-step interpreter (kept as the
+    reference semantics for differential testing).
+    """
 
     def __init__(self, graph: OpGraph, plan: ExecutionPlan,
                  analysis: Optional[AnalysisResult] = None,
-                 lowered: bool = False):
-        if lowered:
-            raise NotImplementedError(
-                "the lowered slot IR (CUDA Graph capture/replay) is not "
-                "ported yet; use lowered=False")
+                 lowered: bool = True):
         self.graph = graph
         self.plan = plan
-        self.analysis = analysis or static_analysis(graph, plan)
+        self.lowered = None
+        if lowered:
+            self.lowered = lower(graph, plan, analysis)
+            self.analysis = self.lowered.analysis
+        else:
+            self.analysis = analysis or static_analysis(graph, plan)
         self.offsets = []
         acc = 0
         for s in plan.split_sizes:
@@ -117,6 +128,8 @@ class Realizer:
 
     # -- execution -----------------------------------------------------------
     def __call__(self, params, inputs: dict[str, Any]) -> dict[str, Any]:
+        if self.lowered is not None:
+            return self.lowered(params, inputs)
         g, plan, ana = self.graph, self.plan, self.analysis
         env: dict = {}
         for name, t in g.inputs.items():
@@ -184,9 +197,10 @@ class Realizer:
 
 
 def realize(graph: OpGraph, plan: ExecutionPlan, params, inputs,
-            analysis: Optional[AnalysisResult] = None) -> dict:
+            analysis: Optional[AnalysisResult] = None,
+            lowered: bool = True) -> dict:
     """One-shot helper (tests / small models)."""
-    return Realizer(graph, plan, analysis)(params, inputs)
+    return Realizer(graph, plan, analysis, lowered=lowered)(params, inputs)
 
 
 def sequential_plan(graph: OpGraph) -> ExecutionPlan:

@@ -5,15 +5,16 @@ paper's backend consumes: an ordered list of steps, each executing one op
 for one micro-batch, a merged execution of one op across all micro-batches,
 or a fused group replaced by a custom kernel (``replace_func``).
 
-Plans are recorded once per (graph, context) and realized by the
-interpreter in ``core/backend.py``; capture/replay of a recorded plan as
-CUDA Graphs is a later step of the port.
+Plans are recorded once per (graph, context), lowered to a slot IR
+(``core/lowering.py``) and realized by ``core/backend.py``; the serve
+engine captures each decode tier's whole step as one CUDA Graph.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import hashlib
+import weakref
 from typing import Callable, Optional
 
 from .graph import FULL, OpGraph
@@ -162,3 +163,50 @@ def scheduler_identity(obj) -> tuple:
         (k, v) for k, v in vars(obj).items()
         if not k.startswith("_") and _is_prim(v)))
     return ("sched", cls.__module__, cls.__qualname__, attrs)
+
+
+def structural_key(graph: OpGraph, plan: ExecutionPlan) -> tuple:
+    """Shape-free structural identity of a (graph, plan) pair, as a
+    hashable tuple.
+
+    Covers everything ``specialize`` (core/lowering.py) relies on being
+    identical between two lowerings — node wiring, param paths, batch-dim
+    placement, step kinds/handles, fused-kernel closure identity
+    (``fused_fn_identity``), micro-batch *count* — while excluding
+    everything it re-derives per shape bucket: tensor shapes, dtypes and
+    the concrete split sizes.  Two plans with equal structural keys lower
+    to the same slots, liveness and instruction stream; only slice
+    offsets and merge-buffer extents differ.
+
+    A raw tuple rather than a digest: tuple construction + C-level
+    hashing is ~3x cheaper than hashing a serialized form.
+    ``structural_fingerprint`` wraps it into a printable digest.
+
+    Memoized per (plan, graph) — a plan is recorded against exactly one
+    graph; the weakref guard re-walks if a different graph object is
+    ever passed with the same plan.
+    """
+    cached = plan.__dict__.get("_skey")
+    if cached is not None and cached[0]() is graph:
+        return cached[1]
+    nodes = tuple(
+        (n.name, n.inputs, n.outputs, n.resource, n.param_paths,
+         len(n.members))
+        for n in (graph.nodes[oid] for oid in graph.topo_order()))
+    bds = tuple(sorted((t, r.batch_dim) for t, r in graph.tensors.items()))
+    ins = tuple(sorted(graph.inputs.items()))
+    outs = tuple(sorted(graph.outputs.items()))
+    steps = tuple(
+        (s.kind, tuple((h.oid, h.mb) for h in s.handles), s.replace_name,
+         fused_fn_identity(s.replace_fn) if s.replace_fn is not None
+         else None)
+        for s in plan.steps)
+    key = (nodes, bds, ins, outs, len(plan.split_sizes), steps)
+    plan._skey = (weakref.ref(graph), key)
+    return key
+
+
+def structural_fingerprint(graph: OpGraph, plan: ExecutionPlan) -> str:
+    """Printable digest of ``structural_key`` (logs, error messages)."""
+    h = hashlib.sha256(repr(structural_key(graph, plan)).encode())
+    return h.hexdigest()[:16]

@@ -14,7 +14,8 @@ A wrapper given a CUDA tensor launches its kernel or raises; a tensor on
 the CPU or the ``meta`` device takes the plain version.  Every CUDA
 wrapper passes its tensor operands through ``kernel_ready``.  Every launch
 adds one to ``LAUNCHES[name]``, so a run can show which kernels its main
-path went through.
+path went through; a CUDA Graph's replay adds the launches its capture
+recorded (``core/capture.py``).
 """
 import collections
 

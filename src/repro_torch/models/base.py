@@ -147,7 +147,7 @@ def _collect(ys: dict, k: str, i: int, val, count: int, stacked_input=None):
 def build_forward(segments: Sequence[Segment],
                   scheduler,
                   info: ScheduleContext,
-                  lowered: bool = False,
+                  lowered: bool = True,
                   verify: str = "off") -> Forward:
     """Partition + schedule every segment graph, returning the Forward.
 
@@ -157,7 +157,9 @@ def build_forward(segments: Sequence[Segment],
     ``extra['graph']`` so graph-conditional predicates can see op names).
     Partitioning uses the policy's rule *union*, never the resolved
     branch's rules, so every context of one program sees one graph.
-    ``verify`` is accepted and ignored until the verifier is ported.
+    ``lowered`` realizes each plan through the slot IR (the default) or,
+    when False, the step-by-step interpreter.  ``verify`` is accepted and
+    ignored until the verifier is ported.
     """
     from ..core.policy import as_policy, resolve_strategy
     policy = as_policy(scheduler)

@@ -21,6 +21,18 @@ one host sync per decode iteration.
     pinned host memory as soon as it is enqueued, behind an event; the
     loop dispatches step k+1 before it waits on step k's event — one host
     sync per decode iteration.
+  * **One CUDA Graph per decode tier** (``ServeConfig.lowered``, the
+    default).  A tier's whole step — the forward over the lowered slot
+    IR, the cache updates, argmax, the masks and the write of the next
+    ids — is captured once (``core/capture.py``) over buffers the engine
+    owns and never reassigns: ``_last_ids``, the tier views of the
+    caches, and ``_step_in``, whose rows are the (active, will_end, eos)
+    flags and the cache lengths.  A step's host work is then one copy of
+    flags and lengths from pinned staging, ``replay()``, and the fetch of
+    tok/done.  A tier's graph is built on its first use, or ahead of
+    traffic by ``warmup()``.  On the CPU the slot IR runs eagerly and
+    nothing is captured; ``lowered=False`` runs the interpreter eagerly
+    on either device.
 
 Admission control, faults, preemption, chunked prefill, the paged cache,
 speculative and sampled decode arrive with later slices; a prompt longer
@@ -35,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.capture import GraphStep
 from ..core.scheduler import ScheduleContext
 from ..device import resolve_device
 from ..models.base import build_forward
@@ -86,6 +99,10 @@ class ServeConfig:
     # Tiered decode: steps at these batch sizes (ascending, last ==
     # max_batch).  None = power-of-two tiers.
     decode_tiers: Optional[tuple] = None
+    # Realize steps through the lowered slot IR and, on CUDA, replay each
+    # decode tier's step as one CUDA Graph; False runs the interpreter
+    # eagerly (the yardstick).
+    lowered: bool = True
 
 
 class _Fetch:
@@ -138,8 +155,27 @@ class ServeEngine:
         self.waiting: list[Request] = []
         self.active: dict[int, Request] = {}     # row -> request
         self.finished: list[Request] = []
-        self._last_ids = torch.zeros((cfg.max_batch, 1), dtype=torch.int32,
+        # fixed buffers the decode graphs read and write: never rebound
+        B = cfg.max_batch
+        self._last_ids = torch.zeros((B, 1), dtype=torch.int32,
                                      device=self.device)
+        self._step_in = torch.zeros((4, B), dtype=torch.int32,
+                                    device=self.device)
+        # pinned staging for _step_in, two buffers: the loop keeps two
+        # steps in flight, and a buffer is rewritten only once the copy
+        # that read it has run (its event)
+        cuda = self.device.type == "cuda"
+        self._stage = [torch.zeros((4, B), dtype=torch.int32,
+                                   pin_memory=cuda) for _ in range(2)]
+        self._stage_ev = [torch.cuda.Event() if cuda else None
+                          for _ in range(2)]
+        self._stage_i = 0
+        self._graphed = cfg.lowered and cuda
+        self._graphs: dict = {}            # tier -> GraphStep
+        self._capture_stream = torch.cuda.Stream(self.device) \
+            if self._graphed else None
+        self._pool = torch.cuda.graph_pool_handle() if self._graphed \
+            else None
         self._gen = np.zeros((cfg.max_batch,), np.int32)   # tokens sampled
         self._pending = None               # in-flight decode step handle
         self._pending_prefill: list = []   # [(_Fetch, [(slot, req), ...])]
@@ -149,6 +185,8 @@ class ServeEngine:
         self._stats = {"prefill_steps": 0, "prefill_reqs": 0,
                        "decode_steps": 0, "decode_tokens": 0,
                        "host_syncs": 0, "row_moves": 0, "finished": 0,
+                       "graph_captures": 0, "graph_replays": 0,
+                       "capture_s": 0.0,
                        "tier_steps": {t: 0 for t in self.tiers}}
         self._ck = self._cache_keys()
 
@@ -177,6 +215,18 @@ class ServeEngine:
         prev, self._pending = self._pending, self._dispatch_decode()
         self._harvest(prev)
         return self._busy()
+
+    def warmup(self, tiers: Optional[tuple] = None):
+        """Build every decode tier's step (all tiers by default) ahead of
+        traffic — and, when graphed, capture it — so that a tier switch
+        under load never hits a cold build.  Changes no cache, id or
+        length: a graph is warmed on copies and its capture runs
+        nothing."""
+        for t in tiers or self.tiers:
+            if self._graphed:
+                self._graph(t)
+            else:
+                self._forward("decode", t, self.cfg.s_max)
 
     def run(self, max_iters: int = 10_000) -> list:
         """Drive the loop until every request terminates."""
@@ -219,7 +269,7 @@ class ServeEngine:
         return tiers[-1]
 
     def _forward(self, phase: str, batch: int, seq: int):
-        key = (phase, batch, seq)
+        key = (phase, batch, seq, self.cfg.lowered)
         fwd = self._steps.get(key)
         if fwd is None:
             q_len = 1 if phase == "decode" else seq
@@ -227,7 +277,8 @@ class ServeEngine:
                                                 s_max=self.cfg.s_max)
             info = ScheduleContext(local_batch=batch, seq_len=seq,
                                    phase=phase, arch=self.model.cfg.name)
-            fwd = self._steps[key] = build_forward(segs, self.scheduler, info)
+            fwd = self._steps[key] = build_forward(
+                segs, self.scheduler, info, lowered=self.cfg.lowered)
         return fwd
 
     def _finish(self, req: Request, now: float):
@@ -320,6 +371,68 @@ class ServeEngine:
             self.active[dst] = req
             self._stats["row_moves"] += 1
 
+    def _decode_run(self, tier: int, last_ids, step_in, caches):
+        """One decode step at ``tier`` over the given buffers, all in
+        place: the forward over the tier's views, the cache updates,
+        argmax, the masks, and the write of the next ids into
+        ``last_ids``.  Returns the (2, max_batch) tok/done tensor.  This
+        is what a tier's CUDA Graph captures."""
+        fwd = self._forward("decode", tier, self.cfg.s_max)
+        flags, clen = step_in[:3], step_in[3, :tier]
+        bds = self.cache.batch_dims
+        tcaches = {k: v.narrow(bds[k], 0, tier) for k, v in caches.items()}
+        out = fwd(self.params, {"ids": last_ids[:tier],
+                                "positions": clen[:, None],
+                                "cache_len": clen, **tcaches})
+        for k, c in tcaches.items():
+            if out[k].data_ptr() != c.data_ptr():
+                c.copy_(out[k])
+        tok_t = out["logits"][:, -1, :].argmax(-1).to(torch.int32)
+        prev = last_ids[:, 0]
+        tok = prev.clone()
+        tok[:tier] = tok_t
+        active = flags[0].bool()
+        tok = torch.where(active, tok, prev)
+        done = active & (flags[1].bool() | (tok == flags[2]))
+        prev.copy_(tok)
+        return torch.stack([tok, done.to(torch.int32)])
+
+    def _graph(self, tier: int) -> GraphStep:
+        """The tier's step as one CUDA Graph over the engine's buffers,
+        warmed first on copies of them."""
+        g = self._graphs.get(tier)
+        if g is None:
+            bds = self.cache.batch_dims
+
+            def warm():
+                caches = {k: v.narrow(bds[k], 0, tier).clone()
+                          for k, v in self.cache.caches.items()}
+                self._decode_run(tier, self._last_ids.clone(),
+                                 self._step_in.clone(), caches)
+
+            g = self._graphs[tier] = GraphStep(
+                lambda: self._decode_run(tier, self._last_ids, self._step_in,
+                                         self.cache.caches),
+                warm, stream=self._capture_stream, pool=self._pool)
+            self._stats["graph_captures"] += 1
+            self._stats["capture_s"] += g.capture_s
+        return g
+
+    def _stage_step_in(self, flags: np.ndarray):
+        """Flags and cache lengths into ``_step_in``: one copy from
+        pinned staging on CUDA."""
+        stage = self._stage[self._stage_i]
+        ev = self._stage_ev[self._stage_i]
+        self._stage_i ^= 1
+        if ev is not None:
+            ev.synchronize()       # the copy that last read it has run
+        a = stage.numpy()
+        a[:3] = flags
+        a[3] = self.cache.lengths
+        self._step_in.copy_(stage, non_blocking=ev is not None)
+        if ev is not None:
+            ev.record()
+
     def _dispatch_decode(self):
         """Dispatch one decode step at the smallest covering tier.
         Returns ``(fetch, snapshot)`` for the harvest."""
@@ -338,33 +451,21 @@ class ServeEngine:
                              >= self.cfg.s_max - 1)
             flags[2, row] = req.eos_id
             snapshot.append((row, req))
-        fwd = self._forward("decode", tier, self.cfg.s_max)
-        flags_d = self._to_device(flags)
-        clen = self._to_device(self.cache.lengths.copy())[:tier]
-        bds = self.cache.batch_dims
-        tcaches = {k: v.narrow(bds[k], 0, tier)
-                   for k, v in self.cache.caches.items()}
-        out = fwd(self.params, {"ids": self._last_ids[:tier],
-                                "positions": clen[:, None],
-                                "cache_len": clen, **tcaches})
-        for k, c in tcaches.items():
-            if out[k].data_ptr() != c.data_ptr():
-                c.copy_(out[k])
-        tok_t = out["logits"][:, -1, :].argmax(-1).to(torch.int32)
-        prev = self._last_ids[:, 0]
-        tok = prev.clone()
-        tok[:tier] = tok_t
-        active = flags_d[0].bool()
-        tok = torch.where(active, tok, prev)
-        done = active & (flags_d[1].bool() | (tok == flags_d[2]))
-        self._last_ids = tok[:, None].contiguous()
+        graph = self._graph(tier) if self._graphed else None
+        self._stage_step_in(flags)
+        if graph is not None:
+            out = graph.replay()
+            self._stats["graph_replays"] += 1
+        else:
+            out = self._decode_run(tier, self._last_ids, self._step_in,
+                                   self.cache.caches)
         # host mirrors advance at dispatch, not harvest
         for row, _ in snapshot:
             self.cache.lengths[row] += 1
             self._gen[row] += 1
         self._stats["decode_steps"] += 1
         self._stats["tier_steps"][tier] += 1
-        return (_Fetch(torch.stack([tok, done.to(torch.int32)])), snapshot)
+        return (_Fetch(out), snapshot)
 
     def _harvest(self, pending):
         """The loop's single host sync: wait for the pending decode step's

@@ -419,7 +419,6 @@ def test_split_then_merge_correct_and_copy_free(monkeypatch):
         raise AssertionError("merge path must not concatenate")
 
     monkeypatch.setattr(torch, "cat", no_cat)
-    rz = tcore.Realizer(g, plan)
     seen = []
     orig_fn = g.nodes[g.topo_order()[0]].fn
 
@@ -427,7 +426,9 @@ def test_split_then_merge_correct_and_copy_free(monkeypatch):
         seen.append(xin)
         return orig_fn(p, xin)
 
+    # the lowered plan binds each op's callable when it is built
     g.nodes[g.topo_order()[0]].fn = spy
+    rz = tcore.Realizer(g, plan)
     got = rz(params, {"x": x})["out"]
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     base = x.untyped_storage().data_ptr()
@@ -572,9 +573,3 @@ def test_compile_verify_strict_raises_until_the_verifier_is_ported():
     for mode in ("warn", "off"):
         prog = tcompile("smollm-135m", smoke=True, device="cpu", verify=mode)
         assert prog.prefill(1, 8).fn is not None
-
-
-def test_lowered_realizer_is_refused_until_ported(diamond):
-    g = diamond[0]
-    with pytest.raises(NotImplementedError):
-        tcore.Realizer(g, sequential_plan(g), lowered=True)
