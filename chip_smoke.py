@@ -35,13 +35,21 @@ Phases, each printing one JSON line:
             add+RMSNorm replaces each layer's [all-reduce -> add ->
             RMSNorm] chain
   serve     ``compile("chatglm3-6b").serve`` answers 4 requests (prompts
-            of 17, 300, 1000 and 2000 tokens, 16 greedy tokens each): the
-            default engine, which replays each decode tier's step as one
-            CUDA Graph, and then the interpreter (``lowered=False``) on
+            of 17, 300, 1000 and 2000 tokens, 16 greedy tokens each: one
+            (4, 2048) prefill group, then decode): the default engine,
+            which replays each decode tier's step and each prefill group
+            as one CUDA Graph (the (4, 2048) group captured ahead of
+            traffic), and then the interpreter (``lowered=False``) on
             the same mix, whose tokens and launch counts must be the
-            same; then the steady tier-4 decode step's wall time (CUDA
-            events over a window of engine steps), graphs and interpreter
-            in turns, and one graph replay alone
+            same; the build seconds of the program's steps, cold; one
+            warm (4, 2048) prefill group through the engine, graph and
+            interpreter in turns, and its graph replayed alone; the
+            steady tier-4 decode step's wall time (CUDA events over a
+            window of engine steps), graphs and interpreter in turns,
+            and one graph replay alone; the PlanStore's snapshot; then a
+            warm start: the store saved, a fresh ``compile(arch,
+            plan_store_path=...)`` builds its steps (timed) and serves
+            the same mix with no ``lower`` call and the same tokens
   moe_reference
             deepseek-moe-16b cut to 2 layers (the dense first layer and
             one MoE layer) at full width, B=2 S=128, GPU against CPU
@@ -74,8 +82,9 @@ Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,
             serve,moe_reference,moe_transparency,moe_serve,ssm_reference,
             ssm_transparency,ssm_serve]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
-        torch.profiler breakdown of a warm prefill and of a window of
-        decode steps, with graphs and with the interpreter)
+        torch.profiler breakdown of a warm prefill, eager and replayed
+        as the engine's graph, and of a window of decode steps, with
+        graphs and with the interpreter)
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside this file.
 """
@@ -989,6 +998,7 @@ def phase_ssm_transparency(dev, params, totals, arch):
 
 
 SERVE_LENS = (17, 300, 1000, 2000)
+PREFILL_GROUP = (4, 2048)     # the mix's prefill group: (group tier, bucket)
 
 
 def serve_config(**kw):
@@ -998,19 +1008,74 @@ def serve_config(**kw):
                        **kw)
 
 
-def serve_engine(prog, params, new_tokens, lowered=True, seed=SEED):
-    """An engine with the serve mix submitted and its decode tiers built
-    (captured, with graphs) ahead of the requests."""
-    import numpy as np
-
-    from repro_torch.serve import Request
+def serve_engine(prog, params, new_tokens, lowered=True, seed=SEED,
+                 submit=True):
+    """An engine with its decode tiers and the mix's prefill group built
+    (captured, with graphs) ahead of the requests, and the serve mix
+    submitted."""
     engine = prog.serve(params, serve_config(lowered=lowered))
-    engine.warmup()
-    rng = np.random.default_rng(seed)
-    for i, n in enumerate(SERVE_LENS):
-        engine.submit(Request(i, rng.integers(0, prog.model.cfg.vocab, n)
-                              .astype(np.int32), max_new_tokens=new_tokens))
+    engine.warmup(prefill=[PREFILL_GROUP])
+    if submit:
+        for i, p in enumerate(serve_prompts(prog, seed)):
+            engine.submit(serve_request(i, p, new_tokens))
     return engine
+
+
+def serve_prompts(prog, seed=SEED):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, prog.model.cfg.vocab, n).astype(np.int32)
+            for n in SERVE_LENS]
+
+
+def serve_request(rid, prompt, new_tokens):
+    from repro_torch.serve import Request
+    return Request(rid, prompt, max_new_tokens=new_tokens)
+
+
+def prefill_group_ms(engine, prompts):
+    """Wall time of one prefill group dispatched through an idle engine
+    (staging, the graph's replay or the interpreter, the host's
+    bookkeeping), from CUDA events around the dispatch; the group's rows
+    are released after."""
+    import torch
+    reqs = [serve_request(1000 + i, p, 1) for i, p in enumerate(prompts)]
+    for r in reqs:
+        r.row = engine.cache.allocate(r.rid)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    engine._dispatch_prefill(reqs)
+    end.record()
+    end.synchronize()
+    engine._pending_prefill.clear()
+    for r in reqs:
+        engine.active.pop(r.row)
+        engine.cache.release(r.row)
+    return start.elapsed_time(end)
+
+
+def replay_ms(graph, reps):
+    """One graph replayed ``reps`` times back to back, from CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def build_s(prog):
+    """Seconds to build the program's (4, 2048) prefill step and its
+    decode tiers (trace, schedule, lower or restore)."""
+    t0 = time.perf_counter()
+    prog.prefill(*PREFILL_GROUP, s_max=4096)
+    prog.decode_tiers(4, 4096)
+    return time.perf_counter() - t0
 
 
 def steps_ms(engine, steps):
@@ -1029,29 +1094,36 @@ def steps_ms(engine, steps):
 
 
 def phase_serve(dev, params, gpu, totals, arch="chatglm3-6b"):
+    import tempfile
+
     import torch
 
     from repro_torch.api import compile
     prog = compile(arch)          # policy: dynamic
     cfg = prog.model.cfg
+    cold_build_s = build_s(prog)
 
-    def run(new_tokens, lowered=True, into=None):
+    def run(new_tokens, lowered=True, into=None, p=prog):
         """Serve the mix on a warmed engine; the launch counts (added to
         ``into``) cover the run, not the warm-up's captures."""
-        engine = serve_engine(prog, params, new_tokens, lowered)
+        engine = serve_engine(p, params, new_tokens, lowered)
         t0 = time.perf_counter()
         done, counts = counted({} if into is None else into, engine.run)
         return engine, done, time.perf_counter() - t0, counts
 
     def summary(engine, done, wall, counts):
         reqs = sorted(done, key=lambda r: r.rid)
+        st = engine.stats
         return {"wall_s": wall,
                 "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
                 "ttft_s": [r.first_token_s - r.submitted_s for r in reqs],
                 "outputs_head": [r.output[:4] for r in reqs],
-                "stats": engine.stats, "launches": counts}
+                "stats": {k: v for k, v in st.items() if k != "plan_store"},
+                "launches": counts}
 
-    run(2)                        # warm-up: trace, schedule, JIT
+    first = run(2)[0]             # warm-up: trace, schedule, JIT
+    tier_builds = first.stats["tier_builds"]
+    del first
     run(2, lowered=False)
     torch.cuda.reset_peak_memory_stats()
     engine, done, wall, counts = run(16, into=totals)
@@ -1064,14 +1136,30 @@ def phase_serve(dev, params, gpu, totals, arch="chatglm3-6b"):
         ok = ok and counts.get(name, 0) > 0
     st = engine.stats
     ok = ok and st["graph_replays"] == st["decode_steps"] > 0
+    ok = ok and st["prefill_graph_replays"] == st["prefill_steps"] > 0
     # the interpreter on the same mix: its launches are not the main
     # path's, so they stay out of the totals
     i_engine, i_done, i_wall, i_counts = run(16, lowered=False)
     interp = summary(i_engine, i_done, i_wall, i_counts)
-    tokens_equal = [r.output for r in reqs] == [
+    tokens = [r.output for r in reqs]
+    tokens_equal = tokens == [
         r.output for r in sorted(i_done, key=lambda r: r.rid)]
     ok = ok and tokens_equal and i_counts == counts
     del engine, i_engine
+    # one warm (4, 2048) prefill group through idle engines, graph and
+    # interpreter in turns, then the group's graph replayed alone (it
+    # rewrites the engine's state, which is thrown away after)
+    prompts = serve_prompts(prog)
+    engines = {"graphs": serve_engine(prog, params, 1, submit=False),
+               "interpreter": serve_engine(prog, params, 1, lowered=False,
+                                           submit=False)}
+    prefill_ms = {k: [] for k in engines}
+    for order in (("graphs", "interpreter"), ("interpreter", "graphs")):
+        for k in order:
+            prefill_ms[k].append(prefill_group_ms(engines[k], prompts))
+    prefill_replay_ms = replay_ms(
+        engines["graphs"]._prefill_graph(*PREFILL_GROUP), 3)
+    del engines
     # the steady tier-4 decode step, graphs and interpreter in turns,
     # past the prefill and three decode steps
     engines = {"graphs": serve_engine(prog, params, 64),
@@ -1083,28 +1171,45 @@ def phase_serve(dev, params, gpu, totals, arch="chatglm3-6b"):
     for _ in range(2):
         for k, e in engines.items():
             steady[k].append(steps_ms(e, 8))
-    # the tier-4 graph replayed back to back, alone (it rewrites the
-    # engine's state, which is thrown away after)
-    g4 = engines["graphs"]._graphs[4]
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(10):
-        g4.replay()
-    end.record()
-    end.synchronize()
-    replay_ms = start.elapsed_time(end) / 10
-    del engines, g4
+    # the tier-4 graph replayed back to back, alone
+    decode_replay_ms = replay_ms(engines["graphs"]._graph(4), 10)
+    del engines
+    gc.collect()
+    store = prog.stats
+    # warm start: a fresh program opened on the saved store builds its
+    # steps and serves the mix without a single lower() call
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "plans.dfps")
+        saved = prog.store.save(path)
+        warm = compile(arch, plan_store_path=path)
+        warm_build_s = build_s(warm)
+        w_engine, w_done, w_wall, _ = run(16, p=warm)
+        w_tokens = [r.output for r in sorted(w_done, key=lambda r: r.rid)]
+        warm_store = warm.stats
+        del w_engine, warm
+    warm_ok = (warm_store["misses"] == 0 and warm_store["restore_hits"] > 0
+               and warm_store["restore_rejected"] == 0
+               and w_tokens == tokens)
+    ok = ok and warm_ok
+    gc.collect()
     log({"phase": PREFIX[cfg.family] + "serve",
          "arch": arch, "gpu": gpu, "prompt_lens": list(SERVE_LENS),
          "new_tokens": 16, **graphs,
          "interpreter": interp, "tokens_equal": tokens_equal,
          "launches_equal": i_counts == counts,
-         "steady_decode_step_ms": steady, "graph_replay_ms": replay_ms,
+         "prefill_step_ms": prefill_ms,
+         "prefill_graph_replay_ms": prefill_replay_ms,
+         "prefill_capture_s": st["prefill_capture_s"],
+         "steady_decode_step_ms": steady, "graph_replay_ms": decode_replay_ms,
+         "tier_builds": tier_builds, "plan_store": store,
+         "warm_start": {"saved_entries": saved, "cold_build_s": cold_build_s,
+                        "warm_build_s": warm_build_s, "wall_s": w_wall,
+                        "tokens_equal": w_tokens == tokens,
+                        "plan_store": warm_store, "ok": warm_ok},
          "strategies": {f"{ph}:{b}x{s}" + ("" if lo else ":interpreted"):
                         fwd.strategies
-                        for (ph, b, s, lo), fwd in prog._serve_steps.items()},
+                        for (ph, b, s, lo, _g), fwd
+                        in prog._serve_steps.items()},
          "peak_mem_gb": peak, "ok": ok})
     return ok
 
@@ -1151,9 +1256,10 @@ def _profile(fn, steps):
 
 
 def phase_profile(dev, params, arch="chatglm3-6b"):
-    """One warm prefill (B=4, bucket 2048) and a window of tier-4 decode
-    steps of the serve path, under the profiler: with graphs and with the
-    interpreter."""
+    """One warm prefill (B=4, bucket 2048), eager through the program's
+    step and replayed as the serve engine's graph, and a window of tier-4
+    decode steps of the serve path, under the profiler: with graphs and
+    with the interpreter."""
     from repro_torch.api import compile
     prog = compile(arch)
     cfg = prog.model.cfg
@@ -1164,13 +1270,22 @@ def phase_profile(dev, params, arch="chatglm3-6b"):
     decode = {}
     for name, lowered in (("graphs", True), ("interpreter", False)):
         engine = serve_engine(prog, params, 64, lowered)
+        if lowered:
+            # the prefill group's graph, as the engine replays it (on the
+            # staging buffer's contents; the engine's own prefill follows
+            # and rewrites what it wrote)
+            g = engine._prefill_graph(*PREFILL_GROUP)
+            g.replay()
+            prefill_graph = _profile(g.replay, 2)
         for _ in range(4):              # prefill + warm decode steps
             engine.step()
         decode[name] = _profile(engine.step, 16)
         engine.run()
     log({"phase": PREFIX[cfg.family] + "profile",
          "arch": arch, "prefill_strategies": step.strategies,
-         "prefill_B4_S2048": prefill, "decode_tier4": decode["graphs"],
+         "prefill_B4_S2048": prefill,
+         "prefill_B4_S2048_graph": prefill_graph,
+         "decode_tier4": decode["graphs"],
          "decode_tier4_interpreter": decode["interpreter"]})
 
 

@@ -10,6 +10,9 @@ Public API:
   static_analysis / Realizer / realize            — backend (Alg. 1)
   lower / specialize / LoweredPlan / LoweringError
                                                   — the slot IR
+  PlanStore / fingerprint_v2 / FINGERPRINT_VERSION
+                                                  — plan/graph cache
+  verify_lowered / Diagnostic                     — slot IR safety check
   sequential_plan                                 — reference fallback
 """
 from .analysis import AnalysisResult, static_analysis
@@ -18,15 +21,17 @@ from .graph import FULL, OpGraph, OpNode, TensorRef
 from .lowering import LoweredPlan, LoweringError, lower, specialize
 from .module import FnOp, Module, Op, Param, TensorSpec, mark, trace
 from .partition import Mark, SplitEveryOp, SplitFunc, SplitModule, partition
-from .plan import (ExecutionPlan, OpHandle, PlanStep, graph_fingerprint,
-                   scheduler_identity, structural_fingerprint,
-                   structural_key)
+from .plan import (FINGERPRINT_VERSION, ExecutionPlan, OpHandle, PlanStep,
+                   graph_fingerprint, scheduler_identity, strategy_salt,
+                   structural_fingerprint, structural_key)
+from .plan_store import PlanStore, fingerprint_v2
 from .policy import (StrategyPolicy, as_policy, by_phase,
                      by_token_threshold, first_viable, has_ops,
                      local_batch_below, phase_is, resolve_strategy,
                      tokens_of, when)
 from .scheduler import (OpSchedulerBase, SchedCtx, ScheduleContext,
                         ScheduleError, record_plan)
+from .verify import Diagnostic, verify_lowered
 
 __all__ = [
     "FULL", "OpGraph", "OpNode", "TensorRef",
@@ -39,6 +44,8 @@ __all__ = [
     "first_viable", "when", "has_ops", "local_batch_below", "phase_is",
     "resolve_strategy", "tokens_of",
     "scheduler_identity", "structural_key", "structural_fingerprint",
+    "strategy_salt", "FINGERPRINT_VERSION", "PlanStore", "fingerprint_v2",
+    "Diagnostic", "verify_lowered",
     "AnalysisResult", "static_analysis",
     "FusedCallInfo", "Realizer", "realize", "sequential_plan",
     "LoweredPlan", "LoweringError", "lower", "specialize",

@@ -69,17 +69,28 @@ class Realizer:
     By default the plan is lowered once to a slot-based instruction
     stream (``core.lowering``) and ``__call__`` replays that; pass
     ``lowered=False`` to run the step-by-step interpreter (kept as the
-    reference semantics for differential testing).
+    reference semantics for differential testing).  With a
+    ``plan_cache`` (a ``PlanStore``) the lowering comes from its
+    ``get_or_lower`` under ``plan_salt`` and ``op_config``, so a
+    structure it already holds is shared or restored, not re-lowered;
+    ``capture`` says whether the step running the plan is captured as a
+    CUDA Graph (a key of the store's shape bucket).
     """
 
     def __init__(self, graph: OpGraph, plan: ExecutionPlan,
                  analysis: Optional[AnalysisResult] = None,
-                 lowered: bool = True):
+                 lowered: bool = True, plan_cache=None, plan_salt: str = "",
+                 capture: bool = False, op_config=()):
         self.graph = graph
         self.plan = plan
         self.lowered = None
         if lowered:
-            self.lowered = lower(graph, plan, analysis)
+            if plan_cache is not None:
+                self.lowered = plan_cache.get_or_lower(
+                    graph, plan, analysis, salt=plan_salt, capture=capture,
+                    op_config=op_config)
+            else:
+                self.lowered = lower(graph, plan, analysis, capture=capture)
             self.analysis = self.lowered.analysis
         else:
             self.analysis = analysis or static_analysis(graph, plan)

@@ -32,8 +32,11 @@ layer plan another layer's slice of the stacked params and caches, so a
 single plan's call has no fixed addresses to capture.  The unit with
 fixed addresses is the whole step — forward, cache update, argmax and
 masks over buffers the serve engine owns — and that is what
-``serve/engine.py`` captures, one CUDA Graph per decode tier
-(``core/capture.py``).
+``serve/engine.py`` captures, one CUDA Graph per decode tier and per
+prefill group (``core/capture.py``).  ``LoweredPlan.capture`` keeps the
+place of the JAX package's jaxpr-capture flag: it records that the step
+running the plan is captured, and the PlanStore keys on it
+(``core/plan_store.py:bucket_key``); nothing here reads it.
 """
 from __future__ import annotations
 
@@ -97,6 +100,7 @@ class LoweredPlan:
     fingerprint: str
     analysis: AnalysisResult
     stats: dict
+    capture: bool = False              # run inside a captured CUDA Graph
     struct_key: tuple = ()             # shape-free (graph, plan) identity
     _spec_cache: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
@@ -168,7 +172,8 @@ def _start(ref, off: int) -> tuple:
 
 
 def lower(graph: OpGraph, plan: ExecutionPlan,
-          analysis: Optional[AnalysisResult] = None) -> LoweredPlan:
+          analysis: Optional[AnalysisResult] = None,
+          capture: bool = False) -> LoweredPlan:
     """Compile ``(plan, analysis, graph)`` into a ``LoweredPlan``."""
     if plan.graph_fingerprint:
         gfp = graph_fingerprint(graph)
@@ -327,13 +332,15 @@ def lower(graph: OpGraph, plan: ExecutionPlan,
         graph=graph, split_sizes=plan.split_sizes, instrs=tuple(instrs),
         input_slots=tuple(input_slots), output_slots=tuple(output_slots),
         param_paths=tuple(path_ix), n_slots=n_slots, fingerprint=plan_fp,
-        analysis=analysis, struct_key=structural_key(graph, plan),
+        analysis=analysis, capture=capture,
+        struct_key=structural_key(graph, plan),
         stats={"n_slots": n_slots, "n_env_keys": n_keys,
                "slots_reused": reused, "pad_inits": pad_inits,
                "n_instrs": len(instrs)})
 
 
 def specialize(canonical: LoweredPlan, graph: OpGraph, plan: ExecutionPlan,
+               capture: Optional[bool] = None,
                struct_key: Optional[tuple] = None) -> LoweredPlan:
     """Re-derive a canonical lowering for a new shape bucket.
 
@@ -352,6 +359,7 @@ def specialize(canonical: LoweredPlan, graph: OpGraph, plan: ExecutionPlan,
     scheduler asks for a different micro-batch *count* changes the
     structural key and must be lowered as its own canonical.
 
+    ``capture`` (default: the canonical's) sets the new plan's flag.
     Raises ``LoweringError`` when the structural keys disagree.
     ``struct_key``, when given, must be ``structural_key(graph, plan)``
     already computed by the caller.
@@ -433,6 +441,8 @@ def specialize(canonical: LoweredPlan, graph: OpGraph, plan: ExecutionPlan,
         input_slots=canonical.input_slots,
         output_slots=canonical.output_slots,
         param_paths=canonical.param_paths, n_slots=canonical.n_slots,
-        fingerprint=plan_fp, analysis=analysis, struct_key=skey,
+        fingerprint=plan_fp, analysis=analysis,
+        capture=canonical.capture if capture is None else capture,
+        struct_key=skey,
         stats={**canonical.stats,
                "specialized_from": canonical.fingerprint})

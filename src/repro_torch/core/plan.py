@@ -19,6 +19,14 @@ from typing import Callable, Optional
 
 from .graph import FULL, OpGraph
 
+# Version of the structural-key / outer-key schema ("fingerprint v2").
+# Bump whenever ``structural_key`` / ``fused_fn_identity`` /
+# ``plan_store.outer_key`` / ``strategy_salt`` change shape: persisted
+# PlanStore files embed it and refuse to restore across versions
+# (core/plan_serde.py).  3, as in the JAX package: the strategy salt is a
+# digest of the whole scheduler/policy identity, not a class name.
+FINGERPRINT_VERSION = 3
+
 @dataclasses.dataclass(frozen=True)
 class OpHandle:
     """An (operator, micro-batch) instance; ``mb == FULL`` when unsplit."""
@@ -163,6 +171,22 @@ def scheduler_identity(obj) -> tuple:
         (k, v) for k, v in vars(obj).items()
         if not k.startswith("_") and _is_prim(v)))
     return ("sched", cls.__module__, cls.__qualname__, attrs)
+
+
+def strategy_salt(obj) -> str:
+    """Strategy identity as a short printable salt for the PlanStore
+    outer key (``build_forward`` composes it with arch/phase/segment).
+
+    Two different policies never alias cached plans, even where they
+    resolve to the same scheduler class for some context; the same policy
+    rebuilt in a new process gives the same salt, so persisted artifacts
+    stay redeemable (provided its predicates are named functions or
+    frozen dataclasses: a lambda falls back to ``id()`` and never
+    shares)."""
+    ident = scheduler_identity(obj)
+    digest = hashlib.sha256(repr(ident).encode()).hexdigest()[:12]
+    label = getattr(obj, "name", None) or type(obj).__name__
+    return f"{label}:{digest}"
 
 
 def structural_key(graph: OpGraph, plan: ExecutionPlan) -> tuple:

@@ -148,7 +148,10 @@ def build_forward(segments: Sequence[Segment],
                   scheduler,
                   info: ScheduleContext,
                   lowered: bool = True,
-                  verify: str = "off") -> Forward:
+                  verify: str = "off",
+                  plan_cache=None,
+                  op_config=(),
+                  capture: bool = False) -> Forward:
     """Partition + schedule every segment graph, returning the Forward.
 
     ``scheduler`` may be an ``OpSchedulerBase``, a ``StrategyPolicy``, or
@@ -159,10 +162,24 @@ def build_forward(segments: Sequence[Segment],
     branch's rules, so every context of one program sees one graph.
     ``lowered`` realizes each plan through the slot IR (the default) or,
     when False, the step-by-step interpreter.  ``verify`` is accepted and
-    ignored until the verifier is ported.
+    ignored until the plan verifier is ported.
+
+    ``plan_cache`` (a ``PlanStore``) lowers every segment through the
+    store under the salt ``arch|phase|strategy_salt(policy)|segment``:
+    a segment whose structure the store holds at another shape is
+    specialized from it (a share), one it holds persisted is restored.
+    ``op_config`` (``LMBase.op_closure_config()``) enters the store's
+    outer key: what the op callables close over that the graph cannot
+    show.  ``capture`` marks the plans of a step that is captured as a
+    CUDA Graph (``core.plan_store.bucket_key``).
     """
+    from ..core.plan import strategy_salt
     from ..core.policy import as_policy, resolve_strategy
     policy = as_policy(scheduler)
+    salt = f"{info.arch}|{info.phase}|{strategy_salt(policy)}"
+    # partition with the policy's rule union, never the resolved branch's
+    # rules: two shape buckets of one program must see the same graph,
+    # or their structural keys diverge and the store cannot share
     rules = policy.partition_rules()
     realizers, strategies = {}, {}
     segs = []
@@ -173,7 +190,10 @@ def build_forward(segments: Sequence[Segment],
             g = partition(g, rules, default_depth=2)
         plan = record_plan(g, sched, info)
         seg = dataclasses.replace(seg, graph=g)
-        realizers[seg.key] = Realizer(g, plan, lowered=lowered)
+        realizers[seg.key] = Realizer(
+            g, plan, lowered=lowered, plan_cache=plan_cache,
+            plan_salt=f"{salt}|{seg.key}", capture=capture,
+            op_config=op_config)
         strategies[seg.key] = getattr(sched, "name", type(sched).__name__)
         segs.append(seg)
     return Forward(segs, realizers, strategies)
@@ -319,6 +339,9 @@ class LogitsHead(Module):
 
 
 I32 = torch.int32
+# the hand-written kernels the ops dispatch to (``kernels/ops.py``)
+KERNEL_SET = ("decode_attention", "flash_attention", "fused_add_rmsnorm",
+              "grouped_ffn", "rmsnorm", "ssd_scan")
 
 
 class LMBase:
@@ -327,6 +350,23 @@ class LMBase:
     def __init__(self, cfg: ArchConfig, mesh: MeshInfo):
         self.cfg = cfg
         self.mesh = mesh
+
+    def op_closure_config(self) -> tuple:
+        """Canonical (name, value) pairs for the PlanStore's outer key:
+        what this model's op callables close over that graph structure
+        and shapes cannot show — the shard layout, the dtype policy, the
+        rope and activation, and the kernels the ops dispatch to.  Two
+        models whose graphs trace to one structure but differ in any of
+        these must not share lowerings."""
+        m, c = self.mesh, self.cfg
+        return (("arch", c.name),
+                ("tp", m.tp), ("dp", m.dp), ("pods", m.pods),
+                ("fsdp", m.fsdp),
+                ("seq_parallel", bool(c.seq_parallel)),
+                ("act_dtype", "bfloat16"),
+                ("rope", c.rope), ("act", c.act),
+                ("tie_embeddings", bool(c.tie_embeddings)),
+                ("kernels", KERNEL_SET))
 
     # subclasses define these ------------------------------------------------
     def make_embed(self, phase: str) -> Module:

@@ -27,6 +27,10 @@ class DenseCache:
 
     name = "dense"
 
+    def identity(self) -> tuple:
+        """What salts the PlanStore keys of the steps built over it."""
+        return ("dense",)
+
     def build(self, model, cfg, device) -> "KVCacheManager":
         return KVCacheManager(model, cfg.max_batch, cfg.s_max, device)
 

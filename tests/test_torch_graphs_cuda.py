@@ -22,10 +22,20 @@ which ends the process with a traceback after ``TIMEOUT_S``.
     at full width, cut in depth, serve one mix of requests whose tiers
     shrink 4 -> 2 -> 1: with graphs (``ServeConfig()``) the greedy
     tokens equal those of ``lowered=False`` (the interpreter, eagerly),
-    every decode step is one replay, the launch counts equal the eager
-    run's, and ``warmup()`` leaves every cache, id and length bitwise
-    as it found them.
+    every decode step and every prefill group is one replay, the launch
+    counts equal the eager run's, and ``warmup()`` — decode tiers and
+    prefill groups — leaves every cache, id and length bitwise as it
+    found them.
+  * A prefill group replayed as a graph writes bitwise the caches, next
+    ids and first tokens of the same group run eagerly through the slot
+    IR, with a padded slot (3 requests in a group of 4) whose alias of
+    row 0 must lose to slot 0.  Two engines of one Program, stepped in
+    turns, each serve their own interpreter's tokens (their graphs share
+    the Program's store, never buffers or graph pools).
+    An evicted graph is freed, and its next use captures anew.
 """
+import gc
+import weakref
 import dataclasses
 import faulthandler
 
@@ -211,17 +221,20 @@ def _engine_cfg(**kw):
                        prefill_buckets=(32, 64, 128, 256), **kw)
 
 
+def _submit_mix(engine, vocab, seed=0, new_tokens=NEW_TOKENS):
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    for i, (n, new) in enumerate(zip(PROMPTS, new_tokens)):
+        engine.submit(Request(i, rng.integers(0, vocab, n).astype(np.int32),
+                              max_new_tokens=new))
+
+
 def _serve(prog, params, lowered, warm_first=True):
     """Run the mix; returns (engine, tokens by rid, launch counts)."""
-    from repro_torch.serve import Request
     engine = prog.serve(params, _engine_cfg(lowered=lowered))
     if warm_first:
         engine.warmup()
-    rng = np.random.default_rng(0)
-    vocab = prog.model.cfg.vocab
-    for i, (n, new) in enumerate(zip(PROMPTS, NEW_TOKENS)):
-        engine.submit(Request(i, rng.integers(0, vocab, n).astype(np.int32),
-                              max_new_tokens=new))
+    _submit_mix(engine, prog.model.cfg.vocab)
     torch.cuda.synchronize()
     reset_launch_counts()
     done = engine.run()
@@ -264,9 +277,14 @@ def test_every_decode_step_is_one_replay(cuda, served):
     assert st["graph_replays"] == st["decode_steps"]
     assert st["graph_captures"] == len(engine.tiers)   # warmup built all
     assert st["capture_s"] > 0
+    assert st["prefill_graph_replays"] == st["prefill_steps"] > 0
+    assert st["prefill_graph_captures"] == 1           # one (4, 256) group
+    assert st["prefill_capture_s"] > 0
+    assert st["plan_store"]["n_execs"] >= len(engine.tiers) + 1
     used = [t for t, n in st["tier_steps"].items() if n]
     assert len(used) >= 3, st["tier_steps"]            # 4 -> 2 -> 1
     assert eager.stats["graph_replays"] == eager.stats["graph_captures"] == 0
+    assert eager.stats["prefill_graph_replays"] == 0
     assert eager.stats["tier_steps"] == st["tier_steps"]
 
 
@@ -293,12 +311,114 @@ def test_warmup_changes_no_state(cuda, served):
     before = {k: v.clone() for k, v in engine.cache.caches.items()}
     ids, step_in = engine._last_ids.clone(), engine._step_in.clone()
     lengths = engine.cache.lengths.copy()
-    engine.warmup()                 # captures tiers 1 and 2
+    engine.warmup(prefill=((2, 64), (1, 32)))   # tiers 1, 2 and two groups
     torch.cuda.synchronize()
     assert engine.stats["graph_captures"] == len(engine.tiers)
+    assert engine.stats["prefill_graph_captures"] == 3
     for k, v in engine.cache.caches.items():
         assert torch.equal(v, before[k]), k
     assert torch.equal(engine._last_ids, ids)
     assert torch.equal(engine._step_in, step_in)
     assert np.array_equal(engine.cache.lengths, lengths)
     engine.run()
+
+
+# ---------------------------------------------------------------------------
+# prefill groups as graphs, engines sharing a store, eviction
+# ---------------------------------------------------------------------------
+
+
+def _group_state(engine, bp, bucket, lens, seed):
+    """Admit ``lens`` requests as one group at ``(bp, bucket)`` (rows 0..);
+    returns the engine's caches, next ids and first tokens after it."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    vocab = engine.model.cfg.vocab
+    for i, n in enumerate(lens):
+        p = rng.integers(1, vocab, n).astype(np.int32)
+        engine.submit(Request(i, p, max_new_tokens=4))
+    engine._admit()
+    assert engine.stats["prefill_steps"] == 1
+    (fetch, _slots), = engine._pending_prefill
+    tok = torch.from_numpy(fetch.wait().copy())
+    torch.cuda.synchronize()
+    return ({k: v.clone() for k, v in engine.cache.caches.items()},
+            engine._last_ids.clone(), tok,
+            [r.prompt for r in engine.active.values()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [(200, 256, 130, 90), (100, 256, 37)],
+                         ids=["full-group", "padded-slot"])
+def test_prefill_group_replays_the_eager_slot_ir_bitwise(cuda, served, lens):
+    prog, params, _, _ = served
+    graphed = prog.serve(params, _engine_cfg())
+    eager = prog.serve(params, _engine_cfg())
+    eager._graphed = False              # the same lowered step, eagerly
+    caches_g, ids_g, tok_g, prompts = _group_state(graphed, 4, 256, lens,
+                                                   seed=3)
+    caches_e, ids_e, tok_e, _ = _group_state(eager, 4, 256, lens, seed=3)
+    assert graphed.stats["prefill_graph_replays"] == 1
+    assert eager.stats["prefill_graph_replays"] == 0
+    assert torch.equal(tok_g, tok_e)
+    assert torch.equal(ids_g, ids_e)
+    for k in caches_g:
+        assert torch.equal(caches_g[k], caches_e[k]), k
+    # slot 0's request holds row 0: its first token (its own last prompt
+    # token where the prompt is shorter than the bucket) is there, not a
+    # padded slot's
+    first0 = int(prompts[0][-1]) if lens[0] < 256 else int(tok_g[0])
+    assert int(ids_g[0, 0]) == first0
+
+
+@pytest.mark.cuda
+def test_two_engines_of_one_program_in_turns(cuda, served):
+    prog, params, (_, want, _), _ = served
+    a = prog.serve(params, _engine_cfg())
+    b = prog.serve(params, _engine_cfg())
+    vocab = prog.model.cfg.vocab
+    _submit_mix(a, vocab)
+    _submit_mix(b, vocab, seed=5, new_tokens=(4, 4, 7, 5))
+    busy = True
+    while busy:
+        busy = False
+        for e in (a, b):
+            busy = e.step() or busy
+    got_a = {r.rid: list(r.output) for r in a.finished}
+    got_b = {r.rid: list(r.output) for r in b.finished}
+    ref_b = prog.serve(params, _engine_cfg(lowered=False))
+    _submit_mix(ref_b, vocab, seed=5, new_tokens=(4, 4, 7, 5))
+    want_b = {r.rid: list(r.output) for r in ref_b.run()}
+    assert got_a == want
+    assert got_b == want_b
+    for e in (a, b):
+        assert e.stats["prefill_graph_replays"] == e.stats["prefill_steps"]
+    assert a.store is b.store is prog.store
+
+
+@pytest.mark.cuda
+def test_evicted_graph_is_freed_and_recaptured(cuda, served):
+    prog, params, (_, want, _), _ = served
+    capacity = prog.store.exec_capacity
+    try:
+        _evict_and_recapture(prog, params, want)
+    finally:
+        prog.store.exec_capacity = capacity
+
+
+def _evict_and_recapture(prog, params, want):
+    engine = prog.serve(params, _engine_cfg(exec_capacity=1))
+    g4 = weakref.ref(engine._graph(4))
+    assert g4() is not None
+    before = engine.store.stats["exec_evictions"]
+    engine._graph(2)                    # capacity 1: tier 4's graph goes
+    gc.collect()
+    assert g4() is None
+    assert engine.store.stats["exec_evictions"] == before + 1
+    captures = engine.stats["graph_captures"]
+    engine._graph(4)
+    assert engine.stats["graph_captures"] == captures + 1
+    _submit_mix(engine, prog.model.cfg.vocab)
+    got = {r.rid: list(r.output) for r in engine.run()}
+    assert got == want                  # recaptured graphs, same tokens
+

@@ -35,6 +35,8 @@ from repro.models.registry import build_model as jbuild_model
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeConfig as JServeConfig
 from repro.serve.engine import ServeEngine as JServeEngine
+import repro_torch.core.plan_store as tstore
+from repro_torch.api import Program
 from repro_torch.api import compile as tcompile
 from repro_torch.convert import params_from_numpy
 from repro_torch.serve import Request, ServeConfig
@@ -131,6 +133,14 @@ def test_engine_exercised_batching_tiers_and_compaction(served):
 @pytest.mark.parametrize("rid", range(len(PROMPT_LENS)))
 def test_greedy_tokens_match_reference(served, rid, monkeypatch):
     jm, jparams, prompts, want, got, _, _ = served
+    assert_matches_reference(jm, jparams, prompts, got, want, rid,
+                             monkeypatch)
+
+
+def assert_matches_reference(jm, jparams, prompts, got, want, rid,
+                             monkeypatch):
+    """Request ``rid``'s tokens equal the reference's, or differ first
+    where the reference's choice is a near tie."""
     a, b = got[rid], want[rid]
     assert len(a) == len(b) == NEW_TOKENS
     first = next((i for i in range(NEW_TOKENS) if a[i] != b[i]), None)
@@ -157,3 +167,99 @@ def test_engine_refuses_oversized_and_cross_device_input(served):
     with pytest.raises(ValueError):
         prog.serve(params, ServeConfig(**CFG))
     assert torch.device("cpu") == eng.device
+
+
+# ---------------------------------------------------------------------------
+# the PlanStore under the engine, every family
+# ---------------------------------------------------------------------------
+
+FAMILIES = ["smollm-135m", "deepseek-moe-16b", "mamba2-2.7b", "zamba2-1.2b"]
+
+
+def _port_serve(prog, params, prompts, **kw):
+    eng = prog.serve(params, ServeConfig(**CFG, **kw))
+    eng.warmup()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, max_new_tokens=NEW_TOKENS))
+    return eng, {r.rid: list(r.output) for r in eng.run()}
+
+
+def _no_lower(*a, **k):
+    raise AssertionError("lower() called on a warm-started store")
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def stored(request, tmp_path_factory):
+    """A smoke engine of each family served through a path-bound store
+    (``compile(plan_store_path=...)``), the same program's interpreter,
+    the JAX package's interpreter, and two warm starts that may not
+    lower: one from the file ``run()`` checkpointed, one from a
+    ``Program.save`` bundle."""
+    arch = request.param
+    jm = jbuild_model(jget_smoke(arch), JMeshInfo())
+    jparams = jm.init_params(jax.random.PRNGKey(0), phase="prefill")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, jm.cfg.vocab, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    ref = JServeEngine(jm, jparams, "dynamic",
+                       JServeConfig(lowered=False, **CFG))
+    for i, p in enumerate(prompts):
+        ref.submit(JRequest(i, p, max_new_tokens=NEW_TOKENS))
+    want = {r.rid: list(r.output) for r in ref.run()}
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
+    d = tmp_path_factory.mktemp(arch)
+    path, bundle = str(d / "plans.dfps"), str(d / "program.dfpb")
+    prog = tcompile(arch, smoke=True, device="cpu", plan_store_path=path)
+    eng, got = _port_serve(prog, tparams, prompts)
+    _, interp = _port_serve(prog, tparams, prompts, lowered=False)
+    cold = dict(prog.stats)
+    prog.save(bundle)
+    warm = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tstore, "lower", _no_lower)
+        for how, wprog in (
+                ("path", lambda: tcompile(arch, smoke=True, device="cpu",
+                                          plan_store_path=path)),
+                ("bundle", lambda: Program.load(bundle, device="cpu"))):
+            weng, wgot = _port_serve(wprog(), tparams, prompts)
+            warm[how] = (weng.stats["plan_store"], wgot)
+    return dict(arch=arch, eng=eng, got=got, interp=interp, want=want,
+                cold=cold, warm=warm, path=path, jm=jm, jparams=jparams,
+                prompts=prompts)
+
+
+def test_store_decode_tiers_after_the_first_are_shares(stored):
+    tb = stored["eng"].stats["tier_builds"]
+    assert tb[1]["misses"] > 0 and tb[1]["shares"] == 0
+    for t in (2, 4):
+        assert tb[t]["misses"] == 0 and tb[t]["shares"] == tb[1]["misses"]
+    assert stored["cold"]["shares"] > 0 and stored["cold"]["hits"] == 0
+
+
+def test_store_served_tokens_equal_interpreter_and_reference(stored,
+                                                           monkeypatch):
+    assert stored["got"] == stored["interp"]
+    for rid in range(len(PROMPT_LENS)):
+        assert_matches_reference(stored["jm"], stored["jparams"],
+                                 stored["prompts"], stored["got"],
+                                 stored["want"], rid, monkeypatch)
+    assert stored["eng"].stats["prefill_graph_replays"] == 0     # the CPU
+
+
+@pytest.mark.parametrize("how", ["path", "bundle"])
+def test_saved_store_serves_with_zero_lowers(stored, how):
+    snap, tokens = stored["warm"][how]
+    assert snap["misses"] == 0 and snap["restore_hits"] > 0
+    assert snap["restore_rejected"] == snap["restore_errors"] == 0
+    assert snap["restore_hits"] + snap["shares"] \
+        == stored["cold"]["misses"] + stored["cold"]["shares"]
+    assert tokens == stored["got"]
+
+
+def test_run_checkpoints_the_path_bound_store(stored):
+    eng = stored["eng"]
+    assert eng.store.path == stored["path"] and not eng.store.dirty
+    assert eng.stats["plan_store"]["restore_saved"] \
+        == stored["cold"]["misses"]
+
