@@ -50,6 +50,21 @@ Phases, each printing one JSON line:
             warm start: the store saved, a fresh ``compile(arch,
             plan_store_path=...)`` builds its steps (timed) and serves
             the same mix with no ``lower`` call and the same tokens
+  lifecycle chatglm3-6b serves prompts of 2500, 3000 and 4000 tokens
+            (longer than the largest bucket: chunked prefill through the
+            decode graph, the three first chunks packed into one (4,
+            2048) chunk group, each chunk step one CUDA Graph replay)
+            with the same 4 requests behind them, 16 greedy tokens each,
+            with graphs and with the interpreter (tokens, launch counts
+            and dispatch order must be the same); TTFT per request (the
+            17-token prompt's behind the long ones) and peak memory;
+            one warm (4, 2048) chunk step through the engine, graph and
+            interpreter in turns, and its graph replayed alone; then the
+            request lifecycle on one engine: a BoundedQueue shed and an
+            expired deadline at the door, an injected prefill dispatch
+            fault, a priority preemption resumed, ``drain()`` — every
+            request terminated once, counters that agree, every row
+            free, ``failed`` equal to the injected faults
   moe_reference
             deepseek-moe-16b cut to 2 layers (the dense first layer and
             one MoE layer) at full width, B=2 S=128, GPU against CPU
@@ -58,7 +73,9 @@ Phases, each printing one JSON line:
             resolves the MoE layers to DBO, held against two sequential
             B=1 runs; ``comet`` against sequential on the same batch
   moe_serve ``compile("deepseek-moe-16b").serve`` answers the same 4
-            requests: DBO prefill, grouped-FFN decode
+            requests: DBO prefill, grouped-FFN decode; then one
+            3000-token request through its two chunk graphs, held to the
+            interpreter (a ``moe_chunked`` line)
   ssm_reference
             mamba2-2.7b cut to 2 layers (B=2 S=256) and zamba2-1.2b to
             one group (6 Mamba2 layers and the shared block under
@@ -79,12 +96,13 @@ the phases that ran (null when none did), and every kernel must have
 launched on some path.
 
 Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,
-            serve,moe_reference,moe_transparency,moe_serve,ssm_reference,
-            ssm_transparency,ssm_serve]
+            serve,lifecycle,moe_reference,moe_transparency,moe_serve,
+            ssm_reference,ssm_transparency,ssm_serve]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
         torch.profiler breakdown of a warm prefill, eager and replayed
-        as the engine's graph, and of a window of decode steps, with
-        graphs and with the interpreter)
+        as the engine's graph, of a window of decode steps, with graphs
+        and with the interpreter, and — chatglm3-6b — of the (4, 2048)
+        chunk group's graph)
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside this file.
 """
@@ -493,7 +511,8 @@ def phase_kernels(dev, build_log=None):
                    [decode(f"{glm} decode", 32, 2),
                     decode(f"{z2} shared block decode", 32, 32),
                     decode("deepseek-moe-16b decode", 16, 16)]),
-        # rows: the prefill of B x 2048 tokens, and the tier-4 decode step
+        # rows: the prefill of B x 2048 tokens, the tier-4 decode step and
+        # the chunk steps
         kernel_row("rmsnorm", "cuda",
                    "src/repro_torch/kernels/csrc/rmsnorm.cu",
                    "src/repro/kernels/rmsnorm.py:76",
@@ -501,7 +520,11 @@ def phase_kernels(dev, build_log=None):
                     norm(f"{m2} B=4", 8192, 2560),
                     norm(f"{z2} Mamba layers B=4", 8192, 2048),
                     norm(f"{z2} shared block B=4", 8192, 4096),
-                    norm(f"{glm} decode tier 4", 4, 4096)]),
+                    norm(f"{glm} decode tier 4", 4, 4096),
+                    # the prefill group and the first chunk group (4,
+                    # 2048); the 2500-token prompt's final chunk (1, 512)
+                    norm(f"{glm} (4, 2048) group", 8192, 4096),
+                    norm(f"{glm} final chunk (1, 512)", 512, 4096)]),
         # block_rows=256: the TokenWeave choice for >= 4096 tokens (16 and
         # 32 blocks); block_rows=32 fills the card (256 blocks): what the
         # knob costs on one stream
@@ -513,14 +536,19 @@ def phase_kernels(dev, build_log=None):
                     fused(f"{z2} shared block B=4, full grid", 8192, 4096,
                           block_rows=32)]),
         # deepseek-moe-16b's 64 experts: the DBO prefill micro-batch
-        # (capacity 480 of 4096 tokens), the decode tier (capacity 4) and
-        # Comet's chunk (a quarter of the 480-row buffer, in place)
+        # (capacity 480 of 4096 tokens), the decode tier (capacity 4),
+        # Comet's chunk (a quarter of the 480-row buffer, in place) and
+        # the chunked prefill's steps
         kernel_row("grouped_ffn", "cuda",
                    "src/repro_torch/kernels/csrc/grouped_ffn.cu",
                    "src/repro/kernels/grouped_matmul.py:40",
                    [ffn("deepseek-moe-16b DBO prefill", 480),
                     ffn("deepseek-moe-16b decode", 4),
-                    ffn("deepseek-moe-16b Comet chunk", 120, rows_of=480)]),
+                    ffn("deepseek-moe-16b Comet chunk", 120, rows_of=480),
+                    # a 3000-token prompt's chunk steps: 2048 and 1024
+                    # tokens through the decode graph (capacity 240, 120)
+                    ffn("deepseek-moe-16b chunk (1, 2048)", 240),
+                    ffn("deepseek-moe-16b chunk (1, 1024)", 120)]),
         # x, B and C are column views of one post-conv buffer, as the
         # model hands them over
         kernel_row("ssd_scan", "cuda",
@@ -1158,7 +1186,7 @@ def phase_serve(dev, params, gpu, totals, arch="chatglm3-6b"):
         for k in order:
             prefill_ms[k].append(prefill_group_ms(engines[k], prompts))
     prefill_replay_ms = replay_ms(
-        engines["graphs"]._prefill_graph(*PREFILL_GROUP), 3)
+        engines["graphs"]._group_graph("prefill", *PREFILL_GROUP), 3)
     del engines
     # the steady tier-4 decode step, graphs and interpreter in turns,
     # past the prefill and three decode steps
@@ -1215,6 +1243,306 @@ def phase_serve(dev, params, gpu, totals, arch="chatglm3-6b"):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: lifecycle — chunked prefill and the request lifecycle
+# ---------------------------------------------------------------------------
+
+
+LONG_LENS = (2500, 3000, 4000)  # > the largest bucket (2048): chunked
+LIFE_LENS = (300, 1000, 17, 500, 40, 40, 200, 100)  # lifecycle_run's, by rid
+CHUNK_GROUP = (4, 2048)       # the three first chunks, packed (one padded)
+# the groups the chunk mix dispatches: the 17-token prompt's, then one
+# request as each row frees; the first chunks, then each final chunk
+MIX_PREFILL_GROUPS = ((1, 32), (1, 512), (1, 1024), (1, 2048))
+MIX_CHUNK_GROUPS = (CHUNK_GROUP, (1, 512), (1, 1024), (1, 2048))
+
+
+def long_prompts(prog, lens=LONG_LENS, seed=SEED + 7):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, prog.model.cfg.vocab, n).astype(np.int32)
+            for n in lens]
+
+
+def chunk_step_ms(engine, prompts):
+    """Wall time of one chunk step dispatched through an idle engine
+    (staging, the graph's replay or the interpreter, the host's
+    bookkeeping) from CUDA events around the dispatch: the first chunks
+    of ``prompts``, packed into one group.  The rows are released after
+    (their caches are left as the step wrote them)."""
+    import torch
+    reqs = [serve_request(2000 + i, p, 1) for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine._start_chunked(r, engine.cache.allocate(r.rid))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    engine._step_chunked()
+    end.record()
+    end.synchronize()
+    engine._chunking.clear()
+    for r in reqs:
+        engine.active.pop(r.row, None)
+        engine.cache.release(r.row)
+    return start.elapsed_time(end)
+
+
+def chunk_mix(prog, params, lowered, into):
+    """The long prompts, then the serve mix behind them, 16 greedy tokens
+    each, on an engine with every decode tier, prefill group and chunk
+    group the run uses built ahead (captured, with graphs); the launch
+    counts (added to ``into``) cover the run.  The long prompts take
+    three rows and chunk; the 17-token prompt takes the fourth and is
+    prefilled ahead of their first chunk group, the others wait for
+    rows."""
+    engine = prog.serve(params, serve_config(lowered=lowered))
+    engine.warmup(prefill=MIX_PREFILL_GROUPS, chunks=MIX_CHUNK_GROUPS)
+    for i, p in enumerate(long_prompts(prog) + serve_prompts(prog)):
+        engine.submit(serve_request(i, p, 16))
+    t0 = time.perf_counter()
+    done, counts = counted(into, engine.run)
+    return engine, sorted(done, key=lambda r: r.rid), \
+        time.perf_counter() - t0, counts
+
+
+def lifecycle_run(prog, params, lowered=True):
+    """The request lifecycle on one engine, step by step: a BoundedQueue
+    shed and an expired deadline at the door, an injected prefill
+    dispatch fault, a priority preemption resumed, then ``drain()``.
+    Returns the log entry, whether every check held, and each request's
+    (result, tokens)."""
+    import numpy as np
+
+    from repro_torch.serve import (BoundedQueue, DeadlineExceeded, Failed,
+                                   FaultInjector, Finished, Overloaded,
+                                   Request, Shed)
+    vocab = prog.model.cfg.vocab
+    rng = np.random.default_rng(SEED + 11)
+
+    def prompt(n):
+        return rng.integers(0, vocab, n).astype(np.int32)
+
+    # a deterministic schedule: the second prefill dispatch (#1, one
+    # request) fails; #0 holds three requests
+    fault_at = 1
+    faults = FaultInjector(dispatch_fail=(("prefill", fault_at),),
+                           seed=SEED)
+    engine = prog.serve(params, serve_config(admission=BoundedQueue(3),
+                                             faults=faults, lowered=lowered))
+    n = LIFE_LENS
+    b = engine._bucket
+    engine.warmup(prefill=[(4, b(max(n[:3]))), (1, b(n[6])), (1, b(n[7]))])
+    reqs = {}
+
+    def submit(rid, new, **kw):
+        reqs[rid] = Request(rid, prompt(n[rid]), max_new_tokens=new, **kw)
+        return engine.submit(reqs[rid])
+
+    t0 = time.perf_counter()
+    for rid in (0, 1, 2):
+        submit(rid, 48)
+    shed = submit(3, 16)                      # the queue holds 3: shed
+    late = submit(4, 16, deadline_s=0.0)      # expired at the door
+    engine.step()                             # prefill #0: rids 0, 1, 2
+    submit(5, 16)
+    engine.step()                             # prefill #1: the fault
+    submit(6, 32)
+    engine.step()                             # prefill #2: the pool full
+    engine.step()
+    engine.step()
+    submit(7, 8, priority=5)
+    engine.step()                             # preempts rid 6, admits 7
+    n_before = len(reqs[6].output)             # tokens before the resume
+    it = 0
+    while not (reqs[6].row >= 0 and reqs[6].output
+               and reqs[6].output[-1] != -100) and it < 200:
+        engine.step()                         # until rid 6 resumes
+        it += 1
+    report = engine.drain()
+    wall = time.perf_counter() - t0
+    st = engine.stats
+    kinds = {"finished": 0, "shed": 0, "failed": 0}
+    for r in engine.finished:
+        kinds[{Finished: "finished", Shed: "shed",
+               Failed: "failed"}[type(r.result)]] += 1
+    # rid 6 uninterrupted, on a fresh engine (reported, not required: the
+    # resume re-prefills its generated tokens through the prefill path,
+    # whose bf16 GEMMs and flash attention round differently from the
+    # decode steps that first produced them)
+    solo = prog.serve(params, serve_config(lowered=lowered))
+    solo.submit(Request(6, reqs[6].prompt.copy(), max_new_tokens=32))
+    solo_out = solo.run()[0].output
+    checks = {
+        "each_terminated_once": (
+            len(engine.finished) == len(reqs) == st["submitted"]
+            and len({id(r) for r in engine.finished}) == len(reqs)
+            and all(r.done_s > 0 and r.row == -1 for r in engine.finished)),
+        "counters_agree": (
+            kinds == {k: st[k] for k in kinds}
+            and sum(kinds.values()) == st["submitted"]),
+        "rows_free": (len(engine.cache.free_rows) == engine.cfg.max_batch
+                      and engine.cache.row_owner == {}
+                      and report["free_rows"] == engine.cfg.max_batch
+                      and report["stranded"] == []),
+        "failed_equals_injected": (
+            st["failed"] == faults.counts.get("dispatch_fail", 0) == 1
+            and isinstance(reqs[5].result, Failed)),
+        "bounded_queue_shed": (isinstance(shed, Shed)
+                               and isinstance(shed.reason, Overloaded)
+                               and isinstance(reqs[3].result, Shed)),
+        "deadline_shed": (isinstance(late, Shed)
+                          and isinstance(late.reason, DeadlineExceeded)
+                          and st["deadline_missed"] == 1),
+        "preempted_and_resumed": (
+            st["preempted"] == 1 and st["resumed"] >= 1
+            and reqs[6].preemptions == 1 and reqs[6].ok
+            and len(reqs[6].output) == 32),
+        "priority_first": (reqs[7].ok
+                           and reqs[7].first_token_s < reqs[6].done_s),
+        "graphs_only": not lowered or (
+            st["graph_replays"] == st["decode_steps"]
+            and st["prefill_graph_replays"] == st["prefill_steps"]
+            and st["chunk_graph_replays"] == st["chunk_steps"])}
+    first_diff = next((i for i, (a, b) in enumerate(
+        zip(reqs[6].output, solo_out)) if a != b), None)
+    entry = {"wall_s": wall, "fault_at_prefill_dispatch": fault_at,
+             "resumed_tokens_equal_uninterrupted": reqs[6].output == solo_out,
+             "resumed_first_differing_token": first_diff,
+             "resumed_at_token": n_before,
+             "results": {r.rid: (type(r.result).__name__,
+                                 str(getattr(r.result, "reason", "")))
+                         for r in sorted(engine.finished,
+                                         key=lambda r: r.rid)},
+             "drain": report, "faults": faults.counts,
+             "stats": {k: st[k] for k in (
+                 "submitted", "admitted", "finished", "shed", "failed",
+                 "preempted", "resumed", "deadline_missed", "stranded",
+                 "drains", "prefill_steps", "chunk_steps", "decode_steps",
+                 "peak_active")},
+             "checks": checks}
+    out = {r.rid: (type(r.result).__name__, list(r.output))
+           for r in engine.finished}
+    del engine, solo
+    return entry, all(checks.values()), out
+
+
+def phase_lifecycle(dev, params, gpu, totals, arch="chatglm3-6b"):
+    """Chunked prefill on prompts longer than the largest bucket with the
+    serve mix behind them, with graphs and with the interpreter; a chunk
+    step timed through the engine and its graph replayed alone; then the
+    request lifecycle."""
+    import torch
+
+    from repro_torch.api import compile
+    prog = compile(arch)
+    cfg = prog.model.cfg
+    chunk_mix(prog, params, True, {})         # warm-up: build, capture
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    engine, reqs, wall, counts = chunk_mix(prog, params, True, totals)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    st = engine.stats
+    i_engine, i_reqs, i_wall, i_counts = chunk_mix(prog, params, False, {})
+    tokens = [r.output for r in reqs]
+    tokens_equal = tokens == [r.output for r in i_reqs]
+    long_rids = range(len(LONG_LENS))
+    chunks_of = {rid: sum(1 for kind, rids in engine.dispatch_log
+                          if kind == "chunk" and rid in rids)
+                 for rid in long_rids}
+    ok = (len(reqs) == len(SERVE_LENS) + len(LONG_LENS)
+          and all(r.ok and len(r.output) == 16 for r in reqs)
+          and all(0 <= t < cfg.vocab for r in reqs for t in r.output)
+          and tokens_equal and i_counts == counts
+          and engine.dispatch_log == i_engine.dispatch_log
+          and all(n >= 2 for n in chunks_of.values())
+          and st["chunk_graph_replays"] == st["chunk_steps"] > 0
+          and st["graph_replays"] == st["decode_steps"]
+          and st["prefill_graph_replays"] == st["prefill_steps"])
+    for name in SERVE_KERNELS[cfg.family]:
+        ok = ok and counts.get(name, 0) > 0
+    stats = {k: v for k, v in st.items() if k != "plan_store"}
+    dispatch_log = [[kind, list(rids)] for kind, rids in engine.dispatch_log]
+    del engine, i_engine
+    gc.collect()
+    # one warm chunk step of the (4, 2048) group through idle engines,
+    # graph and interpreter in turns, then its graph replayed alone
+    prompts = long_prompts(prog)
+    engines = {"graphs": serve_engine(prog, params, 1, submit=False),
+               "interpreter": serve_engine(prog, params, 1, lowered=False,
+                                           submit=False)}
+    for e in engines.values():
+        e.warmup(chunks=[CHUNK_GROUP])
+    step_ms = {k: [] for k in engines}
+    for order in (("graphs", "interpreter"), ("interpreter", "graphs")):
+        for k in order:
+            step_ms[k].append(chunk_step_ms(engines[k], prompts))
+    chunk_replay_ms = replay_ms(
+        engines["graphs"]._group_graph("chunk", *CHUNK_GROUP), 3)
+    del engines
+    gc.collect()
+    (lifecycle, life_ok, life_out), _ = counted(
+        totals, lambda: lifecycle_run(prog, params))
+    i_life, i_life_ok, i_life_out = lifecycle_run(prog, params,
+                                                  lowered=False)
+    lifecycle["interpreter"] = i_life
+    lifecycle["tokens_equal_interpreter"] = life_out == i_life_out
+    ok = ok and life_ok and i_life_ok and life_out == i_life_out
+    gc.collect()
+    log({"phase": "lifecycle", "arch": arch, "gpu": gpu,
+         "prompt_lens": list(LONG_LENS) + list(SERVE_LENS),
+         "new_tokens": 16, "wall_s": wall,
+         "tokens_per_s": sum(len(t) for t in tokens) / wall,
+         "ttft_s": [r.first_token_s - r.submitted_s for r in reqs],
+         "outputs_head": [r.output[:4] for r in reqs],
+         "chunks_per_long_prompt": chunks_of,
+         "dispatch_log": dispatch_log,
+         "stats": stats, "launches": counts,
+         "interpreter": {"wall_s": i_wall,
+                         "ttft_s": [r.first_token_s - r.submitted_s
+                                    for r in i_reqs],
+                         "launches": i_counts},
+         "tokens_equal": tokens_equal, "launches_equal": i_counts == counts,
+         "chunk_step_ms": step_ms, "chunk_graph_replay_ms": chunk_replay_ms,
+         "peak_mem_gb": peak, "lifecycle": lifecycle, "ok": ok})
+    return ok
+
+
+def phase_moe_chunked(dev, params, totals, arch="deepseek-moe-16b"):
+    """One 3000-token request (chunks of 2048 and 1024) through the chunk
+    graphs, captured ahead, held to the interpreter: tokens and launch
+    counts."""
+    from repro_torch.api import compile
+    prog = compile(arch)
+    prompt = long_prompts(prog, lens=(3000,))[0]
+    runs = {}
+    for lowered, into in ((True, {}), (True, totals), (False, {})):
+        engine = prog.serve(params, serve_config(lowered=lowered))
+        engine.warmup(chunks=[(1, c) for _, c in
+                              engine._chunk_plan(len(prompt))])
+        engine.submit(serve_request(0, prompt, 16))
+        t0 = time.perf_counter()
+        done, counts = counted(into, engine.run)
+        runs[lowered] = (engine, done[0], time.perf_counter() - t0, counts)
+    (g, r, wall, counts), (_, ri, i_wall, i_counts) = runs[True], runs[False]
+    st = g.stats
+    ok = (r.ok and len(r.output) == 16 and r.output == ri.output
+          and counts == i_counts and st["chunk_steps"] == 2
+          and st["chunk_graph_replays"] == st["chunk_steps"]
+          and counts.get("grouped_ffn", 0) > 0)
+    log({"phase": "moe_chunked", "arch": arch, "prompt_len": len(prompt),
+         "wall_s": wall, "interpreter_wall_s": i_wall,
+         "ttft_s": r.first_token_s - r.submitted_s,
+         "outputs_head": r.output[:4], "tokens_equal": r.output == ri.output,
+         "launches": counts, "launches_equal": counts == i_counts,
+         "chunk_steps": st["chunk_steps"],
+         "chunk_graph_replays": st["chunk_graph_replays"],
+         "strategies": {f"{ph}:{b}x{s}": fwd.strategies
+                        for (ph, b, s, lo, _g), fwd
+                        in prog._serve_steps.items() if ph == "chunk"},
+         "ok": ok})
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # phase 5 (optional): where the time goes
 # ---------------------------------------------------------------------------
 
@@ -1257,9 +1585,10 @@ def _profile(fn, steps):
 
 def phase_profile(dev, params, arch="chatglm3-6b"):
     """One warm prefill (B=4, bucket 2048), eager through the program's
-    step and replayed as the serve engine's graph, and a window of tier-4
-    decode steps of the serve path, under the profiler: with graphs and
-    with the interpreter."""
+    step and replayed as the serve engine's graph, a window of tier-4
+    decode steps of the serve path, with graphs and with the
+    interpreter, and (dense) the (4, 2048) chunk group's graph, under
+    the profiler."""
     from repro_torch.api import compile
     prog = compile(arch)
     cfg = prog.model.cfg
@@ -1274,17 +1603,28 @@ def phase_profile(dev, params, arch="chatglm3-6b"):
             # the prefill group's graph, as the engine replays it (on the
             # staging buffer's contents; the engine's own prefill follows
             # and rewrites what it wrote)
-            g = engine._prefill_graph(*PREFILL_GROUP)
+            g = engine._group_graph("prefill", *PREFILL_GROUP)
             g.replay()
             prefill_graph = _profile(g.replay, 2)
         for _ in range(4):              # prefill + warm decode steps
             engine.step()
         decode[name] = _profile(engine.step, 16)
         engine.run()
+    chunk_graph = None
+    if cfg.family == "dense":
+        # the (4, 2048) chunk group's graph on the long prompts' first
+        # chunks, staged through an idle engine
+        engine = serve_engine(prog, params, 1, submit=False)
+        engine.warmup(chunks=[CHUNK_GROUP])
+        chunk_step_ms(engine, long_prompts(prog))
+        chunk_graph = _profile(
+            engine._group_graph("chunk", *CHUNK_GROUP).replay, 2)
+        del engine
     log({"phase": PREFIX[cfg.family] + "profile",
          "arch": arch, "prefill_strategies": step.strategies,
          "prefill_B4_S2048": prefill,
          "prefill_B4_S2048_graph": prefill_graph,
+         "chunk_group_4x2048_graph": chunk_graph,
          "decode_tier4": decode["graphs"],
          "decode_tier4_interpreter": decode["interpreter"]})
 
@@ -1312,7 +1652,7 @@ def run_dense(phases, dev, gpu, totals):
     ok = True
     if "reference" in phases:
         ok = phase_reference(dev, totals) and ok
-    if phases & {"transparency", "serve", "profile"}:
+    if phases & {"transparency", "serve", "profile", "lifecycle"}:
         params = init_params("chatglm3-6b")
         if "transparency" in phases:
             ok = phase_transparency(dev, params, totals) and ok
@@ -1320,6 +1660,8 @@ def run_dense(phases, dev, gpu, totals):
             phase_profile(dev, params)
         if "serve" in phases:
             ok = phase_serve(dev, params, gpu, totals) and ok
+        if "lifecycle" in phases:
+            ok = phase_lifecycle(dev, params, gpu, totals) and ok
     return ok
 
 
@@ -1336,6 +1678,7 @@ def run_moe(phases, dev, gpu, totals):
         if "moe_serve" in phases:
             ok = phase_serve(dev, params, gpu, totals,
                              "deepseek-moe-16b") and ok
+            ok = phase_moe_chunked(dev, params, totals) and ok
     return ok
 
 
@@ -1366,7 +1709,7 @@ def run_ssm(phases, dev, gpu, totals):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,reference,transparency,"
-                    "serve,moe_reference,moe_transparency,moe_serve,"
+                    "serve,lifecycle,moe_reference,moe_transparency,moe_serve,"
                     "ssm_reference,ssm_transparency,ssm_serve")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")

@@ -17,12 +17,11 @@ after every build.  ``Program.save`` / ``Program.load`` bundle the model
 config, the policy and the store in one file.  Entry points run on
 ``"cuda"`` unless the caller asks for another device (the CPU tests pass
 ``device="cpu"``); on a machine without a GPU they raise instead of
-silently running on the CPU.  The plan-level verifier is not ported yet
-(ROADMAP queue 1 item 8; the store verifies every restored slot program
-with ``core/verify.py:verify_lowered``): ``verify="strict"`` raises
-``NotImplementedError`` rather than promise a check it cannot make;
-``"warn"`` and ``"off"`` build, unchecked; any other value raises
-``ValueError``.
+silently running on the CPU.  Every plan a step builder records is
+verified and linted (``core/verify.py``) under the program's ``verify``
+mode: ``"warn"`` (the default) warns on error diagnostics, ``"strict"``
+raises ``PlanVerificationError``, ``"off"`` skips the check; the reports
+collect in ``Program.verify()``.
 """
 from __future__ import annotations
 
@@ -82,20 +81,17 @@ def compile(model, policy=None, smoke: bool = False, device=None,
     ``smoke``  — with an arch name: the reduced same-family config.
     ``device`` — default device of ``init_params`` and ``serve``
                  (``None``: the GPU).
-    ``verify`` — ``"warn"`` or ``"off"``: plans are not verified (the
-                 plan verifier is not ported); ``"strict"`` raises
-                 ``NotImplementedError``.
+    ``verify`` — static plan verification (``core.verify``) of every
+                 plan a step builder records, lowered IR included:
+                 ``"warn"`` warns on error diagnostics, ``"strict"``
+                 raises ``PlanVerificationError``, ``"off"`` skips it.
+                 Every mode but ``"off"`` feeds ``Program.verify()``.
     ``plan_store`` / ``plan_store_path`` — share and persist lowered
                  plans: a path warm-starts the store now and the program
                  checkpoints it after every build.
     """
     from .models.layers import MeshInfo
-    if verify == "strict":
-        raise NotImplementedError(
-            "verify='strict' needs the plan verifier (core/verify.py), "
-            "which is not ported yet (ROADMAP queue 1 item 8); use 'warn' "
-            "or 'off'")
-    if verify not in ("warn", "off"):
+    if verify not in ("strict", "warn", "off"):
         raise ValueError(f"verify must be 'strict', 'warn' or 'off', "
                          f"got {verify!r}")
     # remember how the policy was spelled: Program.save can persist a
@@ -116,7 +112,7 @@ def compile(model, policy=None, smoke: bool = False, device=None,
         from .models.registry import build_model
         model = build_model(model, MeshInfo(tp=1, dp=1))
     return Program(model, policy, device=device, store=store,
-                   policy_spec=policy_spec)
+                   policy_spec=policy_spec, verify=verify)
 
 
 class Program:
@@ -124,7 +120,7 @@ class Program:
 
     def __init__(self, model, policy, device=None,
                  store: Optional[PlanStore] = None,
-                 policy_spec: Optional[str] = None):
+                 policy_spec: Optional[str] = None, verify: str = "warn"):
         self.model = model
         self.policy = policy
         self.device = device
@@ -132,6 +128,8 @@ class Program:
         self.policy_spec = policy_spec  # "<default>" | name | None (opaque)
         self._serve_steps: dict = {}    # shared by every engine it creates
         self._engines = weakref.WeakSet()
+        self.verify_mode = verify
+        self._verify_reports: list = []   # (label, VerifyReport)
 
     # -- lifecycle ---------------------------------------------------------
     def checkpoint(self) -> int:
@@ -157,6 +155,31 @@ class Program:
     def stats(self) -> dict:
         """The store's ``snapshot()``."""
         return self.store.snapshot()
+
+    def verify(self):
+        """Aggregated :class:`~repro_torch.core.verify.VerifyReport` over
+        every plan this program's step builders recorded so far (one
+        verification per segment per build, run at build time under the
+        program's ``verify`` mode).  An empty report means every plan was
+        clean, or ``verify="off"`` suppressed collection."""
+        from .core.verify import VerifyReport
+        out = VerifyReport()
+        for _label, report in self._verify_reports:
+            out = out.merged(report)
+        return out
+
+    def verify_reports(self) -> list:
+        """The ``(label, VerifyReport)`` pairs behind :meth:`verify`, one
+        per (phase, segment) built."""
+        return list(self._verify_reports)
+
+    def _verify_args(self) -> dict:
+        """``build_forward`` keywords for the program's verify mode and
+        report sink (``"off"`` disables both)."""
+        if self.verify_mode == "off":
+            return {"verify": "off", "verify_sink": None}
+        return {"verify": self.verify_mode,
+                "verify_sink": self._verify_reports}
 
     # -- one-file deployment -----------------------------------------------
     def save(self, path: str) -> int:
@@ -297,7 +320,8 @@ class Program:
         fwd = build_forward(segs, self.policy,
                             self._context("prefill", global_batch, seq_len),
                             plan_cache=self.store,
-                            op_config=self.model.op_closure_config())
+                            op_config=self.model.op_closure_config(),
+                            **self._verify_args())
         self.checkpoint()
         return CompiledStep(fn=fwd, segments=segs, batch_inputs=binputs)
 
@@ -315,7 +339,8 @@ class Program:
             fwd = build_forward(segs, self.policy,
                                 self._context("decode", tier, s_max),
                                 plan_cache=self.store,
-                                op_config=self.model.op_closure_config())
+                                op_config=self.model.op_closure_config(),
+                                **self._verify_args())
             out[tier] = CompiledStep(fn=fwd, segments=segs,
                                      batch_inputs=binputs)
         self.checkpoint()
@@ -325,7 +350,9 @@ class Program:
         """A :class:`~repro_torch.serve.ServeEngine` over the program's
         model, policy and (shared, already warm-started) PlanStore, on
         ``device`` (default: the program's device, else the GPU), where
-        ``params`` must live."""
+        ``params`` must live.  Pass a ``ServeConfig`` or its fields as
+        keyword overrides — ``chunked_prefill``, ``admission=``,
+        ``preemption``, ``faults=`` (the request lifecycle) included."""
         from .serve.engine import ServeConfig, ServeEngine
         if cfg is None:
             cfg = ServeConfig(**overrides)

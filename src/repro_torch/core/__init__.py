@@ -12,7 +12,9 @@ Public API:
                                                   — the slot IR
   PlanStore / fingerprint_v2 / FINGERPRINT_VERSION
                                                   — plan/graph cache
-  verify_lowered / Diagnostic                     — slot IR safety check
+  verify / verify_plan / verify_lowered / lint_plan / enforce
+  / VerifyReport / PlanVerificationError / Diagnostic
+                                                  — plan verifier and linter
   sequential_plan                                 — reference fallback
 """
 from .analysis import AnalysisResult, static_analysis
@@ -31,7 +33,8 @@ from .policy import (StrategyPolicy, as_policy, by_phase,
                      tokens_of, when)
 from .scheduler import (OpSchedulerBase, SchedCtx, ScheduleContext,
                         ScheduleError, record_plan)
-from .verify import Diagnostic, verify_lowered
+from .verify import (Diagnostic, PlanVerificationError, VerifyReport,
+                     enforce, lint_plan, verify, verify_lowered, verify_plan)
 
 __all__ = [
     "FULL", "OpGraph", "OpNode", "TensorRef",
@@ -45,7 +48,8 @@ __all__ = [
     "resolve_strategy", "tokens_of",
     "scheduler_identity", "structural_key", "structural_fingerprint",
     "strategy_salt", "FINGERPRINT_VERSION", "PlanStore", "fingerprint_v2",
-    "Diagnostic", "verify_lowered",
+    "Diagnostic", "PlanVerificationError", "VerifyReport", "enforce",
+    "lint_plan", "verify", "verify_lowered", "verify_plan",
     "AnalysisResult", "static_analysis",
     "FusedCallInfo", "Realizer", "realize", "sequential_plan",
     "LoweredPlan", "LoweringError", "lower", "specialize",

@@ -23,6 +23,8 @@ from typing import Callable, Optional, Sequence, Union
 
 from .graph import FULL, OpGraph
 from .plan import ExecutionPlan, OpHandle, PlanStep, graph_fingerprint
+from .verify import enforce, format_missing
+from .verify import verify as run_verify
 
 
 class ScheduleError(RuntimeError):
@@ -211,21 +213,6 @@ class SchedCtx:
                              graph_fingerprint(self.graph))
 
 
-def format_missing(missing: Sequence[tuple], cap: int = 8) -> str:
-    """Render ``[(op_name, missing_parts), ...]`` with the full count and
-    an explicit overflow marker (the incomplete-schedule report)."""
-    def one(name, parts):
-        ps = sorted(parts, key=lambda p: (p == FULL, p))
-        if ps == [FULL]:
-            return name
-        return f"{name}[mb={','.join(str(p) for p in ps)}]"
-    shown = ", ".join(one(n, p) for n, p in missing[:cap])
-    more = len(missing) - cap
-    if more > 0:
-        shown += f" … and {more} more"
-    return f"{len(missing)} op(s) missing: {shown}"
-
-
 class OpSchedulerBase:
     """Base class for user schedulers (paper Fig. 6)."""
 
@@ -243,9 +230,14 @@ class OpSchedulerBase:
 def record_plan(graph: OpGraph, scheduler: OpSchedulerBase,
                 info: ScheduleContext,
                 verify: str = "off") -> ExecutionPlan:
-    """Record a plan.  ``finalize`` already rejects incomplete schedules
-    and dependency violations; the static verifier behind ``verify`` is
-    not ported yet, so the argument is accepted and ignored."""
+    """Record a plan; ``verify`` runs the static verifier on the result:
+    ``"off"`` (default) skips it, ``"warn"`` emits a Python warning on
+    error-severity diagnostics, ``"strict"`` raises
+    :class:`~repro_torch.core.verify.PlanVerificationError`."""
     ctx = SchedCtx(graph, info)
     scheduler.schedule(ctx)
-    return ctx.finalize()
+    plan = ctx.finalize()
+    if verify != "off":
+        report = run_verify(graph, plan, lint=False)
+        enforce(report, verify, what=f"plan from {scheduler.name!r}")
+    return plan

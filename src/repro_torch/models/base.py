@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -27,6 +27,8 @@ from ..core import ScheduleContext, partition, record_plan, trace
 from ..core.backend import Realizer
 from ..core.graph import OpGraph
 from ..core.module import Module, TensorSpec, fold_seed
+from ..core.verify import VerifyReport, enforce, verify_lowered
+from ..core.verify import verify as run_verify
 from ..device import resolve_device
 from .layers import (AddOp, AllGatherOp, AttentionOp, DecodeAttentionOp,
                      EmbedOp, HeadLayout, LmHeadOp, MeshInfo, MLPBlock, OProj,
@@ -151,7 +153,8 @@ def build_forward(segments: Sequence[Segment],
                   verify: str = "off",
                   plan_cache=None,
                   op_config=(),
-                  capture: bool = False) -> Forward:
+                  capture: bool = False,
+                  verify_sink: Optional[list] = None) -> Forward:
     """Partition + schedule every segment graph, returning the Forward.
 
     ``scheduler`` may be an ``OpSchedulerBase``, a ``StrategyPolicy``, or
@@ -161,8 +164,15 @@ def build_forward(segments: Sequence[Segment],
     Partitioning uses the policy's rule *union*, never the resolved
     branch's rules, so every context of one program sees one graph.
     ``lowered`` realizes each plan through the slot IR (the default) or,
-    when False, the step-by-step interpreter.  ``verify`` is accepted and
-    ignored until the plan verifier is ported.
+    when False, the step-by-step interpreter.
+
+    ``verify`` runs the static verifier and linter (``core.verify``) on
+    every segment's recorded plan and its lowered IR (a plan the store
+    specialized or restored included): ``"off"`` skips, ``"warn"`` emits
+    a Python warning on error-severity diagnostics, ``"strict"`` raises
+    ``PlanVerificationError``.  ``verify_sink`` (a list) collects every
+    ``(phase/segment_key, VerifyReport)`` pair whatever the mode — what
+    ``api.Program.verify()`` reads.
 
     ``plan_cache`` (a ``PlanStore``) lowers every segment through the
     store under the salt ``arch|phase|strategy_salt(policy)|segment``:
@@ -181,6 +191,8 @@ def build_forward(segments: Sequence[Segment],
     # rules: two shape buckets of one program must see the same graph,
     # or their structural keys diverge and the store cannot share
     rules = policy.partition_rules()
+    check = verify != "off" or verify_sink is not None
+    mode = verify if verify != "off" else "report"
     realizers, strategies = {}, {}
     segs = []
     for seg in segments:
@@ -190,10 +202,22 @@ def build_forward(segments: Sequence[Segment],
             g = partition(g, rules, default_depth=2)
         plan = record_plan(g, sched, info)
         seg = dataclasses.replace(seg, graph=g)
-        realizers[seg.key] = Realizer(
+        if check:
+            # the plan first: a plan that cannot be realized stops here
+            # with its diagnostics under "strict", not in the lowering
+            report = run_verify(g, plan, lint=True)
+            enforce(report, mode, what=f"segment {seg.key!r} plan")
+        rz = realizers[seg.key] = Realizer(
             g, plan, lowered=lowered, plan_cache=plan_cache,
             plan_salt=f"{salt}|{seg.key}", capture=capture,
             op_config=op_config)
+        if check:
+            if rz.lowered is not None:
+                ir = VerifyReport(tuple(verify_lowered(rz.lowered)))
+                enforce(ir, mode, what=f"segment {seg.key!r} lowered plan")
+                report = report.merged(ir)
+            if verify_sink is not None:
+                verify_sink.append((f"{info.phase}/{seg.key}", report))
         strategies[seg.key] = getattr(sched, "name", type(sched).__name__)
         segs.append(seg)
     return Forward(segs, realizers, strategies)

@@ -2,8 +2,15 @@
 
 The cache tensors are preallocated once on the device, stacked
 ``(n_layers, max_batch, s_max, kv, hd)``; prefill KV is copied into a
-request's row in place and decode updates it in place.  The paged cache
-arrives with a later slice.
+request's row in place and decode updates it in place.  The manager
+keeps the row lifecycle on the host: ``free_rows`` (sorted),
+``row_owner`` (row -> request id), the ``lengths`` mirror, and typed
+:class:`CacheRowError` on a double release or a bad ``move_row``.
+Allocation returns ``None`` on an empty pool — an admission signal, not
+an error — and the engine may deny it further (a pressure window or the
+fault injector, ``ServeEngine._try_allocate``).  ``free_tokens`` /
+``token_capacity`` are the admission context's capacity signals,
+row-granular here.  The paged cache arrives with a later slice.
 """
 from __future__ import annotations
 
@@ -18,7 +25,10 @@ from ..device import resolve_device
 
 
 class CacheRowError(RuntimeError):
-    """An invalid row operation (double release, moving a free row)."""
+    """Row bookkeeping violation: double release, releasing a row that
+    was never allocated, or an invalid ``move_row``.  These are engine
+    bugs (or deliberate chaos probes), never load conditions: a leaked
+    or doubly freed row would corrupt a later request's cache."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +77,8 @@ class KVCacheManager:
         if row not in self.row_owner:
             raise CacheRowError(
                 f"release of row {row} which is not allocated "
-                f"(active rows: {sorted(self.row_owner)})")
+                f"(double release or unknown row; active rows: "
+                f"{sorted(self.row_owner)})")
         self.row_owner.pop(row)
         self.lengths[row] = 0
         bisect.insort(self.free_rows, row)
@@ -76,9 +87,15 @@ class KVCacheManager:
         """Relocate a request's cache rows ``src -> dst`` (tier-shrink
         compaction): one in-place row copy per cache tensor, ordered on
         the stream behind any step still in flight."""
-        if src == dst or src not in self.row_owner \
-                or dst not in self.free_rows:
-            raise CacheRowError(f"bad move_row {src} -> {dst}")
+        if src == dst:
+            raise CacheRowError(f"move_row src == dst == {src}")
+        if src not in self.row_owner:
+            raise CacheRowError(
+                f"move_row src {src} is not an active row "
+                f"(active: {sorted(self.row_owner)})")
+        if dst not in self.free_rows:
+            raise CacheRowError(f"move_row dst {dst} is not free "
+                                f"(free: {self.free_rows})")
         for k, c in self.caches.items():
             bd = self.batch_dims[k]
             c.select(bd, dst).copy_(c.select(bd, src))
@@ -87,3 +104,20 @@ class KVCacheManager:
         self.row_owner[dst] = self.row_owner.pop(src)
         self.free_rows.remove(dst)
         bisect.insort(self.free_rows, src)
+
+    # -- capacity (the admission context's signals) -----------------------
+    def token_capacity(self) -> int:
+        return self.max_batch * self.s_max
+
+    def free_tokens(self) -> int:
+        """Token capacity still allocatable (admission pressure signal)."""
+        return len(self.free_rows) * self.s_max
+
+    def resident_tokens(self) -> int:
+        return int(self.lengths.sum())
+
+    def kv_stats(self) -> dict:
+        return {"backend": DenseCache.name,
+                "capacity_tokens": self.token_capacity(),
+                "free_tokens": self.free_tokens(),
+                "resident_tokens": self.resident_tokens()}

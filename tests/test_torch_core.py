@@ -562,14 +562,43 @@ def test_double_execution_rejected(diamond):
 
 
 def test_compile_verify_strict_raises_until_the_verifier_is_ported():
-    """``verify="strict"`` promises a check the port cannot make yet, so
-    it raises; a misspelt mode raises ValueError; "warn" and "off"
-    build."""
+    """The verifier is ported: ``verify="strict"`` builds a clean plan and
+    raises ``PlanVerificationError`` on a corrupted one (before the
+    lowering could trip over it); "warn" warns on the same plan; a
+    misspelt mode raises ValueError; every mode but "off" collects one
+    report per segment built in ``Program.verify()``."""
+    import warnings
+
     from repro_torch.api import compile as tcompile
-    with pytest.raises(NotImplementedError, match="verify"):
-        tcompile("smollm-135m", smoke=True, device="cpu", verify="strict")
+    from repro_torch.core.verify import PlanVerificationError
+
+    class Rogue(OpSchedulerBase):
+        """A full schedule with its last step dropped behind the
+        recorder's bookkeeping: only the verifier can see it."""
+        name = "rogue"
+
+        def schedule(self, ctx):
+            ctx.run_rest_sequential()
+            ctx.steps.pop()
+
     with pytest.raises(ValueError, match="verify"):
         tcompile("smollm-135m", smoke=True, device="cpu", verify="loud")
-    for mode in ("warn", "off"):
+    for mode in ("strict", "warn", "off"):
         prog = tcompile("smollm-135m", smoke=True, device="cpu", verify=mode)
         assert prog.prefill(1, 8).fn is not None
+        assert prog.verify().ok
+        reports = prog.verify_reports()
+        assert len(reports) == (0 if mode == "off" else 3), reports
+        assert all(lbl.startswith("prefill/") for lbl, _ in reports)
+    rogue = tcompile("smollm-135m", policy=Rogue(), smoke=True,
+                     device="cpu", verify="strict")
+    with pytest.raises(PlanVerificationError) as ei:
+        rogue.prefill(1, 8)
+    assert "VFY005" in str(ei.value)
+    rogue = tcompile("smollm-135m", policy=Rogue(), smoke=True,
+                     device="cpu", verify="warn")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        with pytest.raises(KeyError):       # the lowering still fails
+            rogue.prefill(1, 8)
+    assert any("VFY005" in str(w.message) for w in rec)

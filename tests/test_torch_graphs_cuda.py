@@ -33,6 +33,13 @@ which ends the process with a traceback after ``TIMEOUT_S``.
     turns, each serve their own interpreter's tokens (their graphs share
     the Program's store, never buffers or graph pools).
     An evicted graph is freed, and its next use captures anew.
+  * A chunk group (chunked prefill through the decode graph) replayed as
+    a graph writes bitwise the caches and next ids of the same group run
+    eagerly through the slot IR — a packed group with a padded slot, then
+    a prompt's final chunk, whose sentinel token lands in ``_last_ids``
+    — and a mix with prompts longer than the largest bucket serves the
+    interpreter's tokens and launch counts with every chunk step one
+    replay.
 """
 import gc
 import weakref
@@ -422,3 +429,84 @@ def _evict_and_recapture(prog, params, want):
     got = {r.rid: list(r.output) for r in engine.run()}
     assert got == want                  # recaptured graphs, same tokens
 
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill as graphs
+# ---------------------------------------------------------------------------
+
+LONG_PROMPTS = (400, 300, 280)      # > the largest bucket (256): chunked
+
+
+def _chunk_states(engine, seed):
+    """Submit the long prompts and run two admission passes (the packed
+    first chunks, then the oldest prompt's final chunk); returns the
+    caches and next ids after each."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    vocab = engine.model.cfg.vocab
+    for i, n in enumerate(LONG_PROMPTS):
+        engine.submit(Request(i, rng.integers(1, vocab, n).astype(np.int32),
+                              max_new_tokens=4))
+    states = []
+    for _ in range(2):
+        engine._admit()
+        torch.cuda.synchronize()
+        states.append(({k: v.clone() for k, v in engine.cache.caches.items()},
+                       engine._last_ids.clone()))
+    return states
+
+
+@pytest.mark.cuda
+def test_chunk_group_replays_the_eager_slot_ir_bitwise(cuda, served):
+    prog, params, _, _ = served
+    graphed = prog.serve(params, _engine_cfg())
+    eager = prog.serve(params, _engine_cfg())
+    eager._graphed = False              # the same lowered step, eagerly
+    got = _chunk_states(graphed, seed=4)
+    want = _chunk_states(eager, seed=4)
+    # (4, 256): three first chunks and a padded slot; then (1, 256): the
+    # 400-token prompt's final chunk
+    assert graphed.dispatch_log == eager.dispatch_log == [
+        ("chunk", (0, 1, 2)), ("chunk", (0,))]
+    assert graphed.stats["chunk_graph_replays"] == 2
+    assert graphed.stats["chunk_graph_captures"] == 2
+    assert eager.stats["chunk_graph_replays"] == 0
+    for (caches_g, ids_g), (caches_e, ids_e) in zip(got, want):
+        assert torch.equal(ids_g, ids_e)
+        for k in caches_g:
+            assert torch.equal(caches_g[k], caches_e[k]), k
+    row = next(r for r, q in graphed.active.items() if q.rid == 0)
+    assert int(got[1][1][row, 0]) == int(graphed.active[row].prompt[-1])
+    for e in (graphed, eager):
+        e.run()
+
+
+@pytest.mark.cuda
+def test_chunked_serving_with_graphs_matches_the_interpreter(cuda, served):
+    from repro_torch.serve import Request
+    prog, params, _, _ = served
+    vocab = prog.model.cfg.vocab
+    runs = {}
+    for lowered in (True, False):
+        engine = prog.serve(params, _engine_cfg(lowered=lowered))
+        _submit_mix(engine, vocab)
+        rng = np.random.default_rng(9)
+        for i, n in enumerate(LONG_PROMPTS, start=len(PROMPTS)):
+            engine.submit(Request(i, rng.integers(0, vocab, n)
+                                  .astype(np.int32), max_new_tokens=5))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        done = engine.run()
+        torch.cuda.synchronize()
+        runs[lowered] = (engine, {r.rid: list(r.output) for r in done},
+                         launch_counts())
+    (g, got, got_n), (e, want, want_n) = runs[True], runs[False]
+    assert got == want and got_n == want_n
+    assert all(r.ok for r in g.finished)
+    st = g.stats
+    assert st["chunk_steps"] >= len(LONG_PROMPTS)
+    assert st["chunk_graph_replays"] == st["chunk_steps"]
+    assert st["graph_replays"] == st["decode_steps"]
+    assert st["prefill_graph_replays"] == st["prefill_steps"]
+    assert g.dispatch_log == e.dispatch_log

@@ -39,7 +39,8 @@ import repro_torch.core.plan_store as tstore
 from repro_torch.api import Program
 from repro_torch.api import compile as tcompile
 from repro_torch.convert import params_from_numpy
-from repro_torch.serve import Request, ServeConfig
+from repro_torch.serve import (ChunkingDisabled, EmptyPrompt, PromptOverflow,
+                               Request, ServeConfig)
 
 ARCHS = ["smollm-135m", "deepseek-moe-16b"]
 BF16 = dict(atol=3e-2, rtol=3e-2)
@@ -156,11 +157,20 @@ def assert_matches_reference(jm, jparams, prompts, got, want, rid,
 
 
 def test_engine_refuses_oversized_and_cross_device_input(served):
+    """A prompt with no decode slot left in ``s_max`` and an empty one
+    are refused with typed errors; one longer than the largest bucket is
+    refused only where chunked prefill is off (it is served chunked
+    otherwise: tests/test_torch_lifecycle.py)."""
     eng = served[5]
-    with pytest.raises(ValueError):
-        eng.submit(Request(99, np.zeros(40, np.int32)))      # > bucket 32
-    with pytest.raises(ValueError):
+    with pytest.raises(PromptOverflow):
+        eng.submit(Request(99, np.zeros(64, np.int32)))      # s_max 64
+    with pytest.raises(EmptyPrompt):
         eng.submit(Request(99, np.zeros(0, np.int32)))
+    unchunked = Program(eng.model, eng.scheduler, device="cpu").serve(
+        eng.params, ServeConfig(**CFG, chunked_prefill=False))
+    with pytest.raises(ChunkingDisabled):
+        unchunked.submit(Request(99, np.zeros(40, np.int32)))  # > bucket 32
+    assert not eng.waiting and not unchunked.waiting
     prog = tcompile(eng.model.cfg, device="cpu")
     params = prog.init_params(0)
     params["embed"]["emb"]["w"] = params["embed"]["emb"]["w"].to("meta")
@@ -263,3 +273,162 @@ def test_run_checkpoints_the_path_bound_store(stored):
     assert eng.stats["plan_store"]["restore_saved"] \
         == stored["cold"]["misses"]
 
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill: prompts longer than the largest bucket, every family
+# ---------------------------------------------------------------------------
+
+CHUNK_CFG = dict(max_batch=4, s_max=64, prefill_buckets=(16, 32))
+LONG = (np.arange(40, dtype=np.int32) * 7 + 3) % 100
+ONE_SHORT = (np.arange(33, dtype=np.int32) * 5 + 1) % 100   # n-1 = 32
+
+
+def _chunk_mix(eng, mod):
+    """The long prompt first, three short ones behind it, then (once they
+    are done) a prompt whose chunks cover exactly n-1 tokens."""
+    rng = np.random.default_rng(8)
+    eng.submit(mod.Request(0, LONG.copy(), max_new_tokens=3))
+    for i in (1, 2, 3):
+        eng.submit(mod.Request(i, rng.integers(0, 100, 8).astype(np.int32),
+                               max_new_tokens=3))
+    eng.run()
+    eng.submit(mod.Request(4, ONE_SHORT.copy(), max_new_tokens=2))
+    eng.run()
+    return {r.rid: r for r in eng.finished}
+
+
+CHUNK_FAMILIES = ["chatglm3-6b", "deepseek-moe-16b", "mamba2-2.7b",
+                  "zamba2-1.2b"]
+
+
+@pytest.fixture(scope="module", params=CHUNK_FAMILIES)
+def chunked(request):
+    """The chunk mix on the JAX engine (``lowered=False``), the port's
+    engine and the port's interpreter, same parameters."""
+    import repro.serve as jserve
+    import repro_torch.serve as tserve
+    arch = request.param
+    jm = jbuild_model(jget_smoke(arch), JMeshInfo())
+    jparams = jm.init_params(jax.random.PRNGKey(0), phase="prefill")
+    ref = JServeEngine(jm, jparams, "dynamic",
+                       JServeConfig(lowered=False, **CHUNK_CFG))
+    want = _chunk_mix(ref, jserve)
+    prog = tcompile(arch, smoke=True, device="cpu")
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
+    eng = prog.serve(tparams, ServeConfig(**CHUNK_CFG))
+    got = _chunk_mix(eng, tserve)
+    interp = prog.serve(tparams, ServeConfig(lowered=False, **CHUNK_CFG))
+    got_interp = _chunk_mix(interp, tserve)
+    return dict(arch=arch, jm=jm, jparams=jparams, prog=prog,
+                tparams=tparams, ref=ref, want=want, eng=eng, got=got,
+                interp=interp, got_interp=got_interp)
+
+
+def _near_tie(c, rid, monkeypatch):
+    """Tokens of ``rid`` equal the reference's, or first differ where the
+    reference's choice is a near tie (attention and MoE models; the SSM
+    models' chunk steps must match exactly: the reference's prefill
+    forward is not what their served tokens come from)."""
+    a, b = c["got"][rid].output, list(c["want"][rid].output)
+    assert len(a) == len(b)
+    first = next((i for i in range(len(a)) if a[i] != b[i]), None)
+    if first is None:
+        return
+    assert c["arch"] in ARCHS + ["chatglm3-6b"], (rid, a, b)
+    context = list(c["want"][rid].prompt) + b[:first]
+    margin, bound, route_tie = reference_margin(c["jm"], c["jparams"],
+                                                context, monkeypatch)
+    assert margin < bound or route_tie, (rid, a, b, margin, bound)
+
+
+@pytest.mark.parametrize("rid", range(5))
+def test_chunked_tokens_match_reference(chunked, rid, monkeypatch):
+    assert chunked["got"][rid].ok and chunked["want"][rid].ok
+    assert chunked["got"][rid].output == chunked["got_interp"][rid].output
+    _near_tie(chunked, rid, monkeypatch)
+
+
+def test_chunked_dispatch_and_counters_match_reference(chunked):
+    eng, ref = chunked["eng"], chunked["ref"]
+    assert eng.dispatch_log == ref.dispatch_log
+    assert eng.dispatch_log == chunked["interp"].dispatch_log
+    for k in ("chunk_steps", "prefill_steps", "decode_steps",
+              "decode_tokens", "finished", "peak_active"):
+        assert eng.stats[k] == ref.stats[k], k
+    # 40 tokens: chunks (0, 32) and (32, 16); 33 tokens: (0, 32)
+    assert eng.stats["chunk_steps"] == 3
+    assert eng.stats["chunk_graph_replays"] == 0           # the CPU
+    assert len(chunked["got"][4].output) == 2              # one short
+
+
+def test_chunked_prefill_fairness_ttft_ordering(chunked):
+    """The long prompt submitted first does not monopolize dispatch: the
+    short prompts prefill before its last chunk and see their first
+    token strictly earlier.  On the attention models fairness does not
+    change its tokens (against a solo run); on the SSM models a decode
+    step between two chunks advances the chunking row's recurrent state,
+    in the reference as here, so there the solo run is held to the
+    reference's solo run instead."""
+    import repro.serve as jserve
+    log = chunked["eng"].dispatch_log
+    last_chunk = max(i for i, e in enumerate(log)
+                     if e[0] == "chunk" and 0 in e[1])
+    first_prefill = min(i for i, e in enumerate(log) if e[0] == "prefill")
+    assert first_prefill < last_chunk, log
+    done = chunked["got"]
+    for i in (1, 2, 3):
+        assert done[i].first_token_s < done[0].first_token_s, i
+    solo = chunked["prog"].serve(chunked["tparams"], ServeConfig(**CHUNK_CFG))
+    solo.submit(Request(0, LONG.copy(), max_new_tokens=3))
+    ref = JServeEngine(chunked["jm"], chunked["jparams"], "dynamic",
+                       JServeConfig(lowered=False, **CHUNK_CFG))
+    ref.submit(jserve.Request(0, LONG.copy(), max_new_tokens=3))
+    ref_solo = list(ref.run()[0].output)
+    solo_out = solo.run()[0].output
+    if chunked["jm"].cfg.family in ("ssm", "hybrid"):
+        assert solo_out == ref_solo
+    else:
+        assert solo_out == done[0].output
+        assert ref_solo == list(chunked["want"][0].output)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "deepseek-moe-16b"])
+def test_chunked_prefill_matches_offline_greedy(arch, monkeypatch):
+    """A prompt longer than every bucket, chunked through the decode
+    graph, against the port's own offline greedy (a whole-prompt prefill
+    forward per token), up to a near tie of the reference's."""
+    jm = jbuild_model(jget_smoke(arch), JMeshInfo())
+    jparams = jm.init_params(jax.random.PRNGKey(0), phase="prefill")
+    prog = tcompile(arch, smoke=True, device="cpu")
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
+    eng = prog.serve(tparams, ServeConfig(**CHUNK_CFG))
+    eng.submit(Request(0, LONG.copy(), max_new_tokens=3))
+    got = eng.run()[0].output
+    assert eng.stats["chunk_steps"] >= 2
+    ids, want = list(LONG), []
+    for _ in range(3):
+        n = len(ids)
+        step = prog.prefill(1, n, s_max=64)
+        out = step(tparams, {
+            "ids": torch.tensor([ids], dtype=torch.int32),
+            "positions": torch.arange(n, dtype=torch.int32)[None]})
+        want.append(int(out["logits"][0, -1].float().argmax()))
+        ids.append(want[-1])
+    first = next((i for i in range(3) if got[i] != want[i]), None)
+    if first is not None:
+        margin, bound, route_tie = reference_margin(
+            jm, jparams, list(LONG) + want[:first], monkeypatch)
+        assert margin < bound or route_tie, (got, want)
+
+
+def test_chunked_prefill_disabled_and_oversized_reject(chunked):
+    prog, tparams = chunked["prog"], chunked["tparams"]
+    off = prog.serve(tparams, ServeConfig(chunked_prefill=False, **CHUNK_CFG))
+    with pytest.raises(ChunkingDisabled, match="largest prefill bucket"):
+        off.submit(Request(0, LONG.copy(), max_new_tokens=2))
+    with pytest.raises(PromptOverflow, match="s_max"):
+        chunked["eng"].submit(Request(9, np.zeros(64, np.int32)))
+    assert not off.waiting and not chunked["eng"].waiting
