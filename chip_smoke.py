@@ -65,6 +65,24 @@ Phases, each printing one JSON line:
             fault, a priority preemption resumed, ``drain()`` — every
             request terminated once, counters that agree, every row
             free, ``failed`` equal to the injected faults
+  paged     chatglm3-6b on ``PagedCache(page_size=16)``: the mix with
+            graphs, with the interpreter and on the dense cache (tokens
+            and launch counts equal), the steady tier-4 step paged and
+            dense in turns, the gather and frontier scatter alone (CUDA
+            events) and a profiled window of decode steps (device time,
+            index kernels); 16 requests (the mix's prompts four times,
+            64 greedy tokens) at ``max_batch=16`` in a 1024-page pool —
+            the dense ``max_batch=4`` pool's bytes — with graphs and with
+            the interpreter (16 resident at once, no page held after
+            ``drain()``) against dense ``max_batch=4`` on the same
+            requests; then the same traffic in 512 pages (page denials,
+            every request terminated once, no page or row leaked)
+  sampling  chatglm3-6b's mix with temperature 0.8, top-k 50, top-p 0.95:
+            graphs against the interpreter, a fresh engine repeating the
+            tokens, ``SamplingConfig()`` against the default greedy
+            engine, Philox's bits on the card against the CPU's, tokens
+            of fixed logits on both devices, and the steady tier-4 step
+            sampled and greedy in turns
   moe_reference
             deepseek-moe-16b cut to 2 layers (the dense first layer and
             one MoE layer) at full width, B=2 S=128, GPU against CPU
@@ -75,7 +93,9 @@ Phases, each printing one JSON line:
   moe_serve ``compile("deepseek-moe-16b").serve`` answers the same 4
             requests: DBO prefill, grouped-FFN decode; then one
             3000-token request through its two chunk graphs, held to the
-            interpreter (a ``moe_chunked`` line)
+            interpreter (a ``moe_chunked`` line); then the mix on the paged
+            cache against the dense one and the paged interpreter, its
+            steady tier-4 step and its gather and scatter (``moe_paged``)
   ssm_reference
             mamba2-2.7b cut to 2 layers (B=2 S=256) and zamba2-1.2b to
             one group (6 Mamba2 layers and the shared block under
@@ -96,8 +116,8 @@ the phases that ran (null when none did), and every kernel must have
 launched on some path.
 
 Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,
-            serve,lifecycle,moe_reference,moe_transparency,moe_serve,
-            ssm_reference,ssm_transparency,ssm_serve]
+            serve,lifecycle,paged,sampling,moe_reference,moe_transparency,
+            moe_serve,ssm_reference,ssm_transparency,ssm_serve]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
         torch.profiler breakdown of a warm prefill, eager and replayed
         as the engine's graph, of a window of decode steps, with graphs
@@ -1031,29 +1051,30 @@ PREFILL_GROUP = (4, 2048)     # the mix's prefill group: (group tier, bucket)
 
 def serve_config(**kw):
     from repro_torch.serve import ServeConfig
-    return ServeConfig(max_batch=4, s_max=4096, prefill_batch=4,
-                       prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048),
-                       **kw)
+    return ServeConfig(**{**dict(
+        max_batch=4, s_max=4096, prefill_batch=4,
+        prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048)), **kw})
 
 
 def serve_engine(prog, params, new_tokens, lowered=True, seed=SEED,
-                 submit=True):
+                 submit=True, lens=SERVE_LENS, **cfg):
     """An engine with its decode tiers and the mix's prefill group built
     (captured, with graphs) ahead of the requests, and the serve mix
-    submitted."""
-    engine = prog.serve(params, serve_config(lowered=lowered))
+    (prompts of ``lens`` tokens) submitted; ``cfg``: more ServeConfig
+    fields (the cache backend, sampling, ``max_batch``)."""
+    engine = prog.serve(params, serve_config(lowered=lowered, **cfg))
     engine.warmup(prefill=[PREFILL_GROUP])
     if submit:
-        for i, p in enumerate(serve_prompts(prog, seed)):
+        for i, p in enumerate(serve_prompts(prog, seed, lens)):
             engine.submit(serve_request(i, p, new_tokens))
     return engine
 
 
-def serve_prompts(prog, seed=SEED):
+def serve_prompts(prog, seed=SEED, lens=SERVE_LENS):
     import numpy as np
     rng = np.random.default_rng(seed)
     return [rng.integers(0, prog.model.cfg.vocab, n).astype(np.int32)
-            for n in SERVE_LENS]
+            for n in lens]
 
 
 def serve_request(rid, prompt, new_tokens):
@@ -1192,13 +1213,7 @@ def phase_serve(dev, params, gpu, totals, arch="chatglm3-6b"):
     # past the prefill and three decode steps
     engines = {"graphs": serve_engine(prog, params, 64),
                "interpreter": serve_engine(prog, params, 64, lowered=False)}
-    for e in engines.values():
-        for _ in range(4):
-            e.step()
-    steady = {k: [] for k in engines}
-    for _ in range(2):
-        for k, e in engines.items():
-            steady[k].append(steps_ms(e, 8))
+    steady = steady_pair(engines)
     # the tier-4 graph replayed back to back, alone
     decode_replay_ms = replay_ms(engines["graphs"]._graph(4), 10)
     del engines
@@ -1543,6 +1558,336 @@ def phase_moe_chunked(dev, params, totals, arch="deepseek-moe-16b"):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: paged — the paged KV cache
+# ---------------------------------------------------------------------------
+
+
+PAGE = 16
+# part 2's traffic: the mix's prompts four times, 64 greedy tokens each
+MANY_LENS = SERVE_LENS * 4
+MANY_TOKENS = 64
+POOL_PAGES = 1024             # 16384 tokens: the dense max_batch=4 pool's
+SMALL_POOL_PAGES = 512        # part 3: half of it, under pressure
+
+
+def paged_cache(num_pages=None):
+    from repro_torch.serve import PagedCache
+    return PagedCache(page_size=PAGE, num_pages=num_pages)
+
+
+def served(engine, into=None):
+    """Run an engine to the end with its launches counted (added to
+    ``into``): (requests by rid, wall seconds, counts)."""
+    t0 = time.perf_counter()
+    done, counts = counted({} if into is None else into, engine.run)
+    wall = time.perf_counter() - t0
+    return sorted(done, key=lambda r: r.rid), wall, counts
+
+
+def tokens_of(reqs):
+    return [list(r.output) for r in reqs]
+
+
+def paging_ms(engine, tier):
+    """The paged decode step's gather (the tier's pages into its (tier,
+    s_max) views) and frontier scatter, called alone on the engine's pool
+    and page table as staged: ``{"gather": ..., "scatter": ...}``, each
+    ``{"ms": CUDA events over back-to-back calls (the host's launches
+    where they cost more), "device_ms": the kernels' durations alone,
+    "device_ms_by": how}``.  The scatter rewrites each row's frontier
+    page with what the gather read, so the pool is unchanged."""
+    cache = engine.cache
+    pages, clen = engine._step_pages, engine._step_in[3]
+    view = cache.gather_rows(cache.caches, pages, tier)
+    out = {}
+    for name, fn in (
+            ("gather", lambda: cache.gather_rows(cache.caches, pages, tier)),
+            ("scatter", lambda: cache.scatter_frontier(
+                cache.caches, view, pages, clen, tier))):
+        dev_ms, by = device_ms([fn], iters=10)
+        out[name] = {"ms": cuda_ms(fn, iters=10), "device_ms": dev_ms,
+                     "device_ms_by": by}
+    return out
+
+
+def steady_pair(engines, steps=8):
+    """The steady tier-4 step of each engine (CUDA events over ``steps``
+    engine steps) in turns, twice, past the prefill and three decode
+    steps."""
+    for e in engines.values():
+        for _ in range(4):
+            e.step()
+    out = {k: [] for k in engines}
+    for _ in range(2):
+        for k, e in engines.items():
+            out[k].append(steps_ms(e, steps))
+    return out
+
+
+def step_profile(engine, steps=16):
+    """A window of decode steps under the profiler: the step's device
+    time and its top kernels (paged: the gather's ``index_select`` and
+    the scatter's ``index_copy_`` among them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            # names cut to 80 characters; kernels that share the cut add
+            by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) + _dev_us(e)
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)
+    return {"device_ms_per_step": sum(by_name.values()) / 1e3 / steps,
+            "top_kernels_ms_per_step": {k: us / 1e3 / steps
+                                        for k, us in top[:12]}}
+
+
+def phase_paged(dev, params, gpu, totals, arch="chatglm3-6b"):
+    """chatglm3-6b on the paged cache: the mix against the dense cache
+    (tokens, steady step, the gather and scatter), 16 requests resident
+    in the dense 4-row pool's bytes, and the same traffic in half that
+    pool (page denials, preemption, no leak)."""
+    import torch
+
+    from repro_torch.api import compile
+    prog = compile(arch)
+    cfg = prog.model.cfg
+    paged = paged_cache()
+    served(serve_engine(prog, params, 2, cache=paged))     # builds
+    # part 1: the 4-request mix, paged (graphs, interpreter) and dense
+    torch.cuda.reset_peak_memory_stats()
+    g, g_wall, g_counts = served(
+        serve_engine(prog, params, 16, cache=paged), into=totals)
+    mix_peak = torch.cuda.max_memory_allocated() / 1e9
+    i, _, i_counts = served(serve_engine(prog, params, 16, lowered=False,
+                                         cache=paged))
+    d, d_wall, d_counts = served(serve_engine(prog, params, 16))
+    mix_equal = tokens_of(g) == tokens_of(i) == tokens_of(d)
+    ok = (mix_equal and g_counts == i_counts
+          and all(r.ok and len(r.output) == 16 for r in g)
+          and all(0 <= t < cfg.vocab for r in g for t in r.output))
+    for name in SERVE_KERNELS[cfg.family]:
+        ok = ok and g_counts.get(name, 0) > 0
+    engines = {"paged": serve_engine(prog, params, 64, cache=paged),
+               "dense": serve_engine(prog, params, 64)}
+    steady = steady_pair(engines)
+    st = engines["paged"].stats
+    ok = ok and st["graph_replays"] == st["decode_steps"] > 0
+    ok = ok and st["prefill_graph_replays"] == st["prefill_steps"] > 0
+    paging = paging_ms(engines["paged"], 4)
+    profiles = {k: step_profile(e) for k, e in engines.items()}
+    for e in engines.values():
+        e.run()
+    ok = ok and engines["paged"].cache.pages_used() == 0
+    del engines
+    gc.collect()
+    # part 2: 16 requests at max_batch=16 in the dense 4-row pool's bytes
+    many = dict(lens=MANY_LENS, max_batch=16)
+    runs = {}
+    for name, kw in (("paged", dict(cache=paged_cache(POOL_PAGES), **many)),
+                     ("paged_interpreter",
+                      dict(cache=paged_cache(POOL_PAGES), lowered=False,
+                           **many)),
+                     ("dense_max_batch_4", dict(lens=MANY_LENS))):
+        torch.cuda.reset_peak_memory_stats()
+        engine = serve_engine(prog, params, MANY_TOKENS, **kw)
+        reqs, wall, counts = served(
+            engine, into=totals if name == "paged" else None)
+        drained = engine.drain()
+        runs[name] = dict(
+            engine=engine, reqs=reqs, counts=counts,
+            summary={"wall_s": wall,
+                     "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
+                     "max_ttft_s": max(r.first_token_s - r.submitted_s
+                                       for r in reqs),
+                     "peak_active": engine.stats["peak_active"],
+                     "tier_steps": engine.stats["tier_steps"],
+                     "kv": engine.stats["kv"],
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "drain": {k: drained[k] for k in
+                               ("finished", "free_rows", "stranded")}})
+        del engine
+        gc.collect()
+    pg, pi = runs["paged"], runs["paged_interpreter"]
+    st = pg["engine"].stats
+    many_ok = (len(pg["reqs"]) == 16 and all(r.ok and len(r.output)
+                                              == MANY_TOKENS
+                                              for r in pg["reqs"])
+               and st["peak_active"] == 16
+               and tokens_of(pg["reqs"]) == tokens_of(pi["reqs"])
+               and pg["counts"] == pi["counts"]
+               and st["graph_replays"] == st["decode_steps"]
+               and st["prefill_graph_replays"] == st["prefill_steps"]
+               and all(r["engine"].cache.pages_used() == 0
+                       for k, r in runs.items() if k != "dense_max_batch_4"))
+    ok = ok and many_ok
+    # part 3: the same traffic in half the pool
+    engine = serve_engine(prog, params, MANY_TOKENS,
+                          cache=paged_cache(SMALL_POOL_PAGES), **many)
+    reqs, small_wall, _ = served(engine)
+    engine.drain()
+    rids = sorted(r.rid for r in engine.finished)
+    st = engine.stats
+    small_ok = (st["page_denied"] > 0 and rids == list(range(16))
+                and all(r.result is not None for r in reqs)
+                and engine.cache.pages_used() == 0
+                and engine.cache.row_owner == {}
+                and len(engine.cache.free_rows) == 16
+                and st["finished"] + st["shed"] + st["failed"] == 16)
+    ok = ok and small_ok
+    small = {"wall_s": small_wall,
+             "tokens_per_s": sum(len(r.output) for r in reqs) / small_wall,
+             "results": sorted({type(r.result).__name__ for r in reqs}),
+             **{k: st[k] for k in ("page_denied", "preempted", "resumed",
+                                   "finished", "failed", "peak_active")},
+             "kv": st["kv"], "ok": small_ok}
+    del engine
+    gc.collect()
+    log({"phase": "paged", "arch": arch, "gpu": gpu, "page_size": PAGE,
+         "mix": {"prompt_lens": list(SERVE_LENS), "new_tokens": 16,
+                 "tokens_equal": mix_equal,
+                 "launches_equal": g_counts == i_counts,
+                 "tokens_per_s": {"paged": 64 / g_wall, "dense": 64 / d_wall},
+                 "outputs_head": [r.output[:4] for r in g],
+                 "launches": g_counts, "peak_mem_gb": mix_peak,
+                 "steady_decode_step_ms": steady, "paging": paging,
+                 "decode_profile": profiles},
+         "many": {"prompt_lens": list(MANY_LENS), "new_tokens": MANY_TOKENS,
+                  "pool_pages": POOL_PAGES,
+                  "tokens_equal": tokens_of(pg["reqs"])
+                  == tokens_of(pi["reqs"]),
+                  "launches_equal": pg["counts"] == pi["counts"],
+                  "tokens_equal_dense_max_batch_4": tokens_of(pg["reqs"])
+                  == tokens_of(runs["dense_max_batch_4"]["reqs"]),
+                  **{k: r["summary"] for k, r in runs.items()},
+                  "ok": many_ok},
+         "small_pool": {"pool_pages": SMALL_POOL_PAGES, **small},
+         "ok": ok})
+    return ok
+
+
+def phase_moe_paged(dev, params, totals, arch="deepseek-moe-16b"):
+    """deepseek-moe-16b's mix on the paged cache against the dense one
+    and the paged interpreter; the steady tier-4 step both ways in turns
+    and the gather and scatter alone."""
+    from repro_torch.api import compile
+    prog = compile(arch)
+    paged = paged_cache()
+    g, g_wall, g_counts = served(
+        serve_engine(prog, params, 16, cache=paged), into=totals)
+    i, _, i_counts = served(serve_engine(prog, params, 16, lowered=False,
+                                         cache=paged))
+    d, d_wall, _ = served(serve_engine(prog, params, 16))
+    equal = tokens_of(g) == tokens_of(i) == tokens_of(d)
+    ok = (equal and g_counts == i_counts and all(r.ok for r in g)
+          and g_counts.get("grouped_ffn", 0) > 0)
+    engines = {"paged": serve_engine(prog, params, 64, cache=paged),
+               "dense": serve_engine(prog, params, 64)}
+    steady = steady_pair(engines)
+    st = engines["paged"].stats
+    ok = ok and st["graph_replays"] == st["decode_steps"] > 0
+    paging = paging_ms(engines["paged"], 4)
+    profiles = {k: step_profile(e) for k, e in engines.items()}
+    for e in engines.values():
+        e.run()
+    ok = ok and engines["paged"].cache.pages_used() == 0
+    del engines
+    gc.collect()
+    log({"phase": "moe_paged", "arch": arch, "tokens_equal": equal,
+         "decode_profile": profiles,
+         "launches_equal": g_counts == i_counts,
+         "tokens_per_s": {"paged": 64 / g_wall, "dense": 64 / d_wall},
+         "steady_decode_step_ms": steady, "paging": paging,
+         "outputs_head": [r.output[:4] for r in g],
+         "ok": ok})
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: sampling — temperature, top-k and top-p on the device
+# ---------------------------------------------------------------------------
+
+
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def phase_sampling(dev, params, gpu, totals, arch="chatglm3-6b"):
+    """chatglm3-6b's mix sampled: graphs against the interpreter, a fresh
+    engine with the same seed, ``SamplingConfig()`` against the default
+    greedy engine, the generator's bits on the card against the CPU's,
+    and tokens of fixed logits on the card against the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.serve import SamplingConfig
+    from repro_torch.serve import sampling as tsamp
+    prog = compile(arch)
+    vocab = prog.model.cfg.vocab
+    sampled = SamplingConfig(**SAMPLED)
+    served(serve_engine(prog, params, 2, sampling=sampled))   # builds
+    s, s_wall, s_counts = served(
+        serve_engine(prog, params, 16, sampling=sampled),
+        into=totals)
+    i, _, i_counts = served(serve_engine(prog, params, 16, lowered=False,
+                                         sampling=sampled))
+    again, _, _ = served(serve_engine(prog, params, 16, sampling=sampled))
+    greedy_cfg, gc_wall, _ = served(
+        serve_engine(prog, params, 16, sampling=SamplingConfig()))
+    greedy, g_wall, _ = served(serve_engine(prog, params, 16))
+    checks = {
+        "graphs_equal_interpreter": tokens_of(s) == tokens_of(i),
+        "launches_equal": s_counts == i_counts,
+        "same_seed_repeats": tokens_of(s) == tokens_of(again),
+        "in_vocab": all(0 <= t < vocab for r in s for t in r.output),
+        "all_finished": all(r.ok and len(r.output) == 16 for r in s),
+        "greedy_config_equals_default":
+            tokens_of(greedy_cfg) == tokens_of(greedy),
+        "differs_from_greedy": tokens_of(s) != tokens_of(greedy)}
+    # the generator's bits: a (seed, rid, position) grid on both devices
+    rng = np.random.default_rng(SEED)
+    seeds = torch.from_numpy(rng.integers(0, 1 << 32, 256, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    rids = torch.from_numpy(rng.integers(0, 1 << 31, 256))
+    pos = torch.from_numpy(rng.integers(0, 1 << 20, 256))
+    cpu_bits = tsamp.random_bits(seeds, rids, pos, vocab)
+    gpu_bits = tsamp.random_bits(seeds.to(dev), rids.to(dev), pos.to(dev),
+                                 vocab)
+    checks["bits_equal_cpu"] = torch.equal(gpu_bits.cpu(), cpu_bits)
+    del cpu_bits, gpu_bits
+    # tokens of fixed logits (64 rows at the vocab) on both devices
+    logits = torch.from_numpy(rng.standard_normal((64, vocab))
+                              .astype(np.float32) * 3)
+    kw = dict(seeds=seeds[:64], rids=rids[:64], positions=pos[:64])
+    cpu_tok = tsamp.sample_tokens(logits, sampled, **kw)
+    gpu_tok = tsamp.sample_tokens(logits.to(dev), sampled,
+                                  **{k: v.to(dev) for k, v in kw.items()})
+    agree = float((gpu_tok.cpu() == cpu_tok).float().mean())
+    ok = all(checks.values())
+    engines = {"sampled": serve_engine(prog, params, 64, sampling=sampled),
+               "greedy": serve_engine(prog, params, 64)}
+    steady = steady_pair(engines)
+    for e in engines.values():
+        e.run()
+    del engines
+    gc.collect()
+    log({"phase": "sampling", "arch": arch, "gpu": gpu, "sampling": SAMPLED,
+         "checks": checks, "cpu_gpu_token_agreement": agree,
+         "tokens_per_s": {"sampled": 64 / s_wall, "greedy": 64 / g_wall,
+                          "greedy_config": 64 / gc_wall},
+         "steady_decode_step_ms": steady,
+         "outputs_head": [r.output[:4] for r in s], "launches": s_counts,
+         "ok": ok})
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # phase 5 (optional): where the time goes
 # ---------------------------------------------------------------------------
 
@@ -1652,7 +1997,8 @@ def run_dense(phases, dev, gpu, totals):
     ok = True
     if "reference" in phases:
         ok = phase_reference(dev, totals) and ok
-    if phases & {"transparency", "serve", "profile", "lifecycle"}:
+    if phases & {"transparency", "serve", "profile", "lifecycle", "paged",
+                 "sampling"}:
         params = init_params("chatglm3-6b")
         if "transparency" in phases:
             ok = phase_transparency(dev, params, totals) and ok
@@ -1662,6 +2008,10 @@ def run_dense(phases, dev, gpu, totals):
             ok = phase_serve(dev, params, gpu, totals) and ok
         if "lifecycle" in phases:
             ok = phase_lifecycle(dev, params, gpu, totals) and ok
+        if "paged" in phases:
+            ok = phase_paged(dev, params, gpu, totals) and ok
+        if "sampling" in phases:
+            ok = phase_sampling(dev, params, gpu, totals) and ok
     return ok
 
 
@@ -1679,6 +2029,7 @@ def run_moe(phases, dev, gpu, totals):
             ok = phase_serve(dev, params, gpu, totals,
                              "deepseek-moe-16b") and ok
             ok = phase_moe_chunked(dev, params, totals) and ok
+            ok = phase_moe_paged(dev, params, totals) and ok
     return ok
 
 
@@ -1709,8 +2060,9 @@ def run_ssm(phases, dev, gpu, totals):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,reference,transparency,"
-                    "serve,lifecycle,moe_reference,moe_transparency,moe_serve,"
-                    "ssm_reference,ssm_transparency,ssm_serve")
+                    "serve,lifecycle,paged,sampling,moe_reference,"
+                    "moe_transparency,moe_serve,ssm_reference,"
+                    "ssm_transparency,ssm_serve")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")
     args = ap.parse_args(argv)

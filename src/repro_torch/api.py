@@ -14,7 +14,7 @@ prefill buckets, decode tiers, serve engines — so a known structure is
 specialized or restored, not re-lowered; a ``plan_store_path``
 warm-starts the store at compile time and the program checkpoints it
 after every build.  ``Program.save`` / ``Program.load`` bundle the model
-config, the policy and the store in one file.  Entry points run on
+config, the policy, the KV cache backend and the store in one file.  Entry points run on
 ``"cuda"`` unless the caller asks for another device (the CPU tests pass
 ``device="cpu"``); on a machine without a GPU they raise instead of
 silently running on the CPU.  Every plan a step builder records is
@@ -71,7 +71,8 @@ class CompiledStep:
 
 def compile(model, policy=None, smoke: bool = False, device=None,
             verify: str = "warn", plan_store: Optional[PlanStore] = None,
-            plan_store_path: Optional[str] = None) -> "Program":
+            plan_store_path: Optional[str] = None,
+            cache=None) -> "Program":
     """Build a :class:`Program`.
 
     ``model``  — an arch name (``"chatglm3-6b"``), an ``ArchConfig``, or a
@@ -89,6 +90,12 @@ def compile(model, policy=None, smoke: bool = False, device=None,
     ``plan_store`` / ``plan_store_path`` — share and persist lowered
                  plans: a path warm-starts the store now and the program
                  checkpoints it after every build.
+    ``cache``  — KV cache backend of ``serve()``: a
+                 ``serve.CacheBackend`` (``DenseCache`` / ``PagedCache``),
+                 the names ``"dense"`` / ``"paged"``, or ``None`` to leave
+                 the choice to ``ServeConfig``.  Its identity salts the
+                 serve steps' PlanStore keys and is saved in
+                 ``Program.save`` bundles.
     """
     from .models.layers import MeshInfo
     if verify not in ("strict", "warn", "off"):
@@ -112,7 +119,7 @@ def compile(model, policy=None, smoke: bool = False, device=None,
         from .models.registry import build_model
         model = build_model(model, MeshInfo(tp=1, dp=1))
     return Program(model, policy, device=device, store=store,
-                   policy_spec=policy_spec, verify=verify)
+                   policy_spec=policy_spec, verify=verify, cache=cache)
 
 
 class Program:
@@ -120,7 +127,8 @@ class Program:
 
     def __init__(self, model, policy, device=None,
                  store: Optional[PlanStore] = None,
-                 policy_spec: Optional[str] = None, verify: str = "warn"):
+                 policy_spec: Optional[str] = None, verify: str = "warn",
+                 cache=None):
         self.model = model
         self.policy = policy
         self.device = device
@@ -130,6 +138,10 @@ class Program:
         self._engines = weakref.WeakSet()
         self.verify_mode = verify
         self._verify_reports: list = []   # (label, VerifyReport)
+        if cache is not None:
+            from .serve.kv_cache import resolve_cache_backend
+            cache = resolve_cache_backend(cache)
+        self.cache_backend = cache      # None: ServeConfig decides
 
     # -- lifecycle ---------------------------------------------------------
     def checkpoint(self) -> int:
@@ -196,8 +208,8 @@ class Program:
             "mesh_info": dataclasses.asdict(self.model.mesh),
             "policy_spec": self.policy_spec,
             "policy_salt": strategy_salt(self.policy),
-            # the port has one KV cache backend, the dense one
-            "cache_backend": ["dense"],
+            "cache_backend": (list(self.cache_backend.identity())
+                              if self.cache_backend is not None else None),
         }
         path = os.path.abspath(path)
         fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
@@ -222,14 +234,16 @@ class Program:
         return n
 
     @staticmethod
-    def load(path: str, policy=None, device=None) -> "Program":
+    def load(path: str, policy=None, device=None, cache=None) -> "Program":
         """Rebuild a :class:`Program` from a :meth:`save` bundle: the model
-        from its config, the policy from its saved spec, and the PlanStore
-        warm-started from the embedded artifact, so every plan it held
-        restores with zero ``lower`` calls.  ``policy=`` overrides, and is
-        required when the bundle was saved with an opaque policy object;
-        a reconstructed policy whose salt differs from the saved one is
-        refused rather than silently missing every cached plan."""
+        from its config, the policy from its saved spec, the cache
+        backend from its identity, and the PlanStore warm-started from
+        the embedded artifact, so every plan it held restores with zero
+        ``lower`` calls.  ``policy=`` overrides, and is required when the
+        bundle was saved with an opaque policy object; a reconstructed
+        policy whose salt differs from the saved one is refused rather
+        than silently missing every cached plan.  ``cache=`` overrides
+        the saved backend; an identity no backend has is refused."""
         from .configs.base import ArchConfig, MoEConfig, SSMConfig
         from .core.plan_serde import deep_tuple
         from .models.layers import MeshInfo
@@ -254,10 +268,14 @@ class Program:
                 raise ProgramBundleError(
                     f"bundle {field} {header.get(field)} != {want}; "
                     "re-save the bundle with this version")
-        if header.get("cache_backend") != ["dense"]:
-            raise ProgramBundleError(
-                f"bundle cache backend {header.get('cache_backend')!r}: "
-                "the port has only the dense one")
+        if cache is None and header.get("cache_backend") is not None:
+            from .serve.kv_cache import backend_from_identity
+            try:
+                cache = backend_from_identity(
+                    deep_tuple(header["cache_backend"]))
+            except (TypeError, ValueError) as e:
+                raise ProgramBundleError(
+                    f"bundle cache backend: {e}") from None
         arch = dict(header["arch"])
         if arch.get("moe"):
             arch["moe"] = MoEConfig(**arch["moe"])
@@ -290,7 +308,7 @@ class Program:
         from .models.registry import build_model
         model = build_model(arch, MeshInfo(**header["mesh_info"]))
         program = compile(model, policy=policy, device=device,
-                          plan_store=store)
+                          plan_store=store, cache=cache)
         program.policy_spec = spec
         if not explicit \
                 and strategy_salt(program.policy) != header["policy_salt"]:
@@ -352,12 +370,17 @@ class Program:
         ``device`` (default: the program's device, else the GPU), where
         ``params`` must live.  Pass a ``ServeConfig`` or its fields as
         keyword overrides — ``chunked_prefill``, ``admission=``,
-        ``preemption``, ``faults=`` (the request lifecycle) included."""
+        ``preemption``, ``faults=`` (the request lifecycle), ``cache=``,
+        ``sampling=``, ``seed`` and ``async_host`` included.  The
+        program's cache backend is the default; ``ServeConfig.cache``
+        wins over it."""
         from .serve.engine import ServeConfig, ServeEngine
         if cfg is None:
             cfg = ServeConfig(**overrides)
         elif overrides:
             cfg = dataclasses.replace(cfg, **overrides)
+        if cfg.cache is None and self.cache_backend is not None:
+            cfg = dataclasses.replace(cfg, cache=self.cache_backend)
         dev = resolve_device(device if device is not None else self.device)
         engine = ServeEngine(self.model, params, self.policy, cfg,
                              device=dev, step_cache=self._serve_steps,

@@ -500,6 +500,35 @@ class LMBase:
                                          self.CACHE_MODEL_DIMS[base])
         return out
 
+    def decode_cache_page_env(self, num_pages: int, page_size: int) -> dict:
+        """Paged decode-cache pool specs: ``decode_cache_env`` with the
+        request-batch dim read as a physical-page dim and the sequence
+        dim shrunk to one page — ``(P, page, kv, hd)`` per layer,
+        ``(L, P, page, kv, hd)`` stacked.  The serve engine gathers the
+        pages back into the contiguous ``(B, s_max, ...)`` view each
+        step, so the decode forward never sees the paging.
+
+        Raises ``UnpageableCache`` for decode state with no sequence axis
+        to page over (SSM conv/ssm states are one fixed size a request):
+        every cache's ``batch_dim + 1`` axis must scale with ``s_max``."""
+        a = self.decode_cache_env(1, page_size)
+        b = self.decode_cache_env(1, 2 * page_size)
+        layout = self.decode_cache_layout()
+        for key, sa in a.items():
+            bd = layout[key][0]
+            want = list(sa.shape)
+            want[bd + 1] *= 2
+            if sa.shape[bd + 1] != page_size \
+                    or tuple(want) != tuple(b[key].shape):
+                from ..serve.kv_cache import UnpageableCache
+                raise UnpageableCache(
+                    f"decode cache {key!r} has no s_max-proportional "
+                    f"sequence axis at dim {bd + 1} "
+                    f"(shape {tuple(sa.shape)} at s_max={page_size} vs "
+                    f"{tuple(b[key].shape)} at s_max={2 * page_size}); "
+                    "serve this model with DenseCache")
+        return self.decode_cache_env(num_pages, page_size)
+
     # params -------------------------------------------------------------------
     def init_params(self, seed: int = 0, device=None,
                     phase: str = "prefill") -> dict:

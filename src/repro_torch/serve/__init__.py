@@ -1,6 +1,6 @@
-"""Serving: the tiered greedy engine over a dense KV cache, with chunked
-prefill and the request lifecycle (admission, faults, preemption,
-drain)."""
+"""Serving: the tiered engine over a dense or paged KV cache, with greedy
+or sampled decode on the device, chunked prefill and the request
+lifecycle (admission, faults, preemption, drain)."""
 from .admission import (  # noqa: F401
     AdmissionContext,
     AdmissionPolicy,
@@ -24,4 +24,19 @@ from .admission import (  # noqa: F401
 )
 from .engine import Request, ServeConfig, ServeEngine, pow2_tiers  # noqa: F401
 from .faults import FaultInjector, InjectedFault, PoisonedRequest  # noqa: F401
-from .kv_cache import CacheRowError, DenseCache, KVCacheManager  # noqa: F401
+from .kv_cache import (  # noqa: F401
+    CacheBackend,
+    CacheRowError,
+    DenseCache,
+    KVCacheManager,
+    PagedCache,
+    PagedKVCacheManager,
+    UnpageableCache,
+    resolve_cache_backend,
+)
+from .sampling import (  # noqa: F401
+    GREEDY,
+    SamplingConfig,
+    resolve_sampling,
+    sampling_salt,
+)

@@ -1,8 +1,9 @@
-"""Tiered greedy serving engine: batched bucketed prefill, chunked
-prefill through the decode graph, power-of-two decode tiers with row
-compaction, a double-buffered host loop with one host sync per decode
-iteration, and a request lifecycle (admission control, deadlines,
-preempt-and-requeue, fault isolation, drain).
+"""Tiered serving engine: batched bucketed prefill, chunked prefill
+through the decode graph, power-of-two decode tiers with row compaction,
+a dense or paged KV cache, greedy or sampled decode on the device, a
+double-buffered host loop with one host sync per decode iteration (or a
+synchronous one), and a request lifecycle (admission control,
+deadlines, preempt-and-requeue, fault isolation, drain).
 
   * **Decode batch tiers.**  Decode steps are built at power-of-two batch
     tiers (1, 2, 4, …, ``max_batch``); each iteration runs the smallest
@@ -33,31 +34,55 @@ preempt-and-requeue, fault isolation, drain).
     chunks a decode step writes one
     garbage K/V at the chunking row's frontier (the host length mirror
     stays at ``offset + chunk``); the next chunk overwrites it.
-  * **Async host loop.**  Greedy argmax and the eos/length masks run on
-    the device; sampled tokens chain into the next step through a device
+  * **Paged KV cache** (``ServeConfig.cache``, ``serve/kv_cache.py``).
+    With ``PagedCache`` the caches are a shared pool of pages and each
+    row a page table: admission reserves the effective prompt's pages
+    plus one (a shortfall keeps the request waiting and counts
+    ``page_denied``), each decode dispatch first reserves every active
+    row's next page (``_ensure_decode_pages``: on exhaustion the
+    lowest-priority row is preempted, or the rows that cannot be served
+    fail), and compaction hands page-table rows over with no device
+    copy.  A step gathers its rows' pages into the dense ``(b, s_max,
+    ...)`` view, runs the unchanged forward, and writes back only the
+    pages it wrote: the frontier page per row after decode, each slot's
+    bucket (prefill) or chunk pages.  The page table reaches the graphs
+    through the staged buffers on every dispatch.  Models with
+    recurrent decode state raise ``UnpageableCache``.
+  * **Sampling** (``ServeConfig.sampling``, ``serve/sampling.py``).
+    Greedy (``None`` or ``SamplingConfig()``) is an argmax; temperature,
+    top-k and top-p draw with Gumbel-max from Philox bits keyed by
+    ``(seed, rid, position)``, inside the same captured steps, the row
+    seeds and rids staged beside the flags (``Request.seed`` over
+    ``ServeConfig.seed``).  The policy salts the graphs' keys; seeds
+    never do.
+  * **Async host loop.**  Sampling and the eos/length masks run on the
+    device; sampled tokens chain into the next step through a device
     ``last_ids`` vector.  Each step's small token/done vector is copied to
     pinned host memory as soon as it is enqueued, behind an event; the
     loop dispatches step k+1 before it waits on step k's event — one host
-    sync per decode iteration.
+    sync per decode iteration.  ``async_host=False`` harvests each step
+    right after its dispatch, as the JAX engine's synchronous loop does.
   * **One CUDA Graph per decode tier, prefill group and chunk group**
     (``ServeConfig.lowered``, the default).  A tier's whole step — the
-    forward over the lowered slot IR, the cache updates, argmax, the
+    forward over the lowered slot IR, the cache updates, sampling, the
     masks and the write of the next ids — is captured once
     (``core/capture.py``) over buffers the engine owns and never
-    reassigns: ``_last_ids``, the tier views of the caches, and
-    ``_step_in``, whose rows are the (active, will_end, eos) flags and
-    the cache lengths.  A step's host work is then one copy of flags and
-    lengths from pinned staging, ``replay()``, and the fetch of tok/done.
-    A prefill group of one ``(bp, bucket)`` is captured the same way: its
-    ids, rows, full flags and last tokens are staged into one fixed
-    device buffer, and the graph writes the cache rows and ``_last_ids``
-    with ``index_copy_`` one slot at a time, in reversed slot order, so
-    that slot 0's write lands last, as the JAX engine's does.  A chunk
-    group of one ``(bc, chunk)`` reads its ids, offsets, rows and
-    sentinel tokens from a fixed buffer likewise: it gathers its rows of
-    every cache, runs the decode forward at ``(bc, chunk)``, and writes
-    the rows (and, on a final chunk, the row's ``_last_ids``) back in
-    reversed slot order.  A graph is built on its first use, or ahead of
+    reassigns: ``_last_ids``, the caches, and ``_step_in``, whose rows
+    are the (active, will_end, eos) flags, the cache lengths and the row
+    seeds and rids (and, paged, the page table ``_step_pages`` after
+    them).  A step's host work is then one copy of that buffer from
+    pinned staging, ``replay()``, and the fetch of tok/done.  A prefill
+    group of one ``(bp, bucket)`` is captured the same way: its ids,
+    rows, full flags, last tokens, seeds, rids and page rows are staged
+    into one fixed device buffer, and the graph writes the cache rows
+    (pages) and ``_last_ids`` with ``index_copy_`` one slot at a time,
+    in reversed slot order, so that slot 0's write lands last, as the
+    JAX engine's does.  A chunk group of one ``(bc, chunk)`` reads its
+    ids, offsets, rows, sentinel tokens and page rows from a fixed
+    buffer likewise: it gathers its rows of every cache, runs the decode
+    forward at ``(bc, chunk)``, and writes the rows (pages) and, on a
+    final chunk, the row's ``_last_ids`` back in reversed slot order.
+    A graph is built on its first use, or ahead of
     traffic by ``warmup()``.  On the CPU the slot IR runs eagerly and
     nothing is captured; ``lowered=False`` runs the interpreter eagerly
     on either device.
@@ -94,8 +119,7 @@ preempt-and-requeue, fault isolation, drain).
     ``Shed`` / ``Failed`` (``Request.result``), mirrored by the
     lifecycle counters in ``stats``.
 
-The paged cache, speculative and sampled decode arrive with later
-slices.
+Speculative decode is not ported yet (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -129,7 +153,8 @@ from .admission import (
     admission_chain,
 )
 from .faults import INJECTED, InjectedFault, PoisonedRequest
-from .kv_cache import DenseCache
+from .kv_cache import cache_backend_salt, resolve_cache_backend
+from .sampling import resolve_sampling, sample_tokens, sampling_salt
 
 
 def pow2_tiers(n: int) -> tuple:
@@ -151,6 +176,7 @@ class Request:
     priority: int = 0                  # higher preempts lower under load
     deadline_s: Optional[float] = None     # wall-clock budget from submit
     ttft_budget_s: Optional[float] = None  # budget to the first token
+    seed: Optional[int] = None             # sampling seed (None: engine's)
     # filled by the engine:
     output: list = dataclasses.field(default_factory=list)
     row: int = -1
@@ -200,6 +226,19 @@ class ServeConfig:
     # Chaos harness: a serve.faults.FaultInjector threaded through
     # allocation, dispatch, harvest, pacing and capacity.
     faults: object = None
+    # On-device sampling policy (serve/sampling.py): a SamplingConfig, or
+    # None for greedy argmax.  The policy salts the graphs' keys; seeds
+    # never do.
+    sampling: object = None
+    # Engine-wide sampling seed; Request(seed=) overrides it per request.
+    seed: int = 0
+    # KV storage backend (serve/kv_cache.py): a CacheBackend, the names
+    # "dense" / "paged", or None for DenseCache.  Its identity salts
+    # every PlanStore key.
+    cache: object = None
+    # Double-buffered host loop: dispatch step k+1 before fetching step
+    # k's tokens.  False harvests every step synchronously.
+    async_host: bool = True
     # Realize steps through the lowered slot IR and, on CUDA, replay each
     # decode tier's, prefill group's and chunk group's step as one CUDA
     # Graph; False runs the interpreter eagerly (the yardstick).
@@ -303,8 +342,8 @@ class ServeEngine:
         if leaf is not None and leaf.device.type != self.device.type:
             raise ValueError(f"params live on {leaf.device}, the engine on "
                              f"{self.device}")
-        backend = DenseCache()
-        self.cache = backend.build(model, cfg, self.device)
+        self.backend = resolve_cache_backend(cfg.cache)
+        self.cache = self.backend.build(model, cfg, self.device)
         budgets = dict(plan_capacity=cfg.plan_capacity,
                        plan_budget_bytes=cfg.plan_budget_bytes,
                        exec_capacity=cfg.exec_capacity,
@@ -330,9 +369,14 @@ class ServeEngine:
         else:
             self.store = PlanStore(**budgets)
         # the cache backend changes what the steps close over, so its
-        # identity salts the store's outer keys
+        # identity salts the store's outer keys, and a digest of it the
+        # steps' and graphs' keys; the sampling policy is baked into a
+        # graph, so its salt enters the decode and prefill graphs' keys
         self._op_config = model.op_closure_config() + (
-            ("cache_backend", backend.identity()),)
+            ("cache_backend", self.backend.identity()),)
+        self._cache_tag = cache_backend_salt(self.backend)
+        self.sampling = resolve_sampling(cfg.sampling)
+        self._samp_salt = sampling_salt(self.sampling)
         # the engine's name in its graphs' executable keys; its graphs
         # bind its buffers, so they go from the store when it does
         self._serial = next(_SERIAL)
@@ -354,18 +398,22 @@ class ServeEngine:
         # fixed buffers the graphs read and write: never rebound
         B = cfg.max_batch
         big = cfg.prefill_buckets[-1]
+        # page-table entries a row (0: the dense cache has no table)
+        self._bpr = self.cache.blocks_per_row if self.cache.paged else 0
         self._last_ids = torch.zeros((B, 1), dtype=torch.int32,
                                      device=self.device)
-        # decode: (active, will_end, eos) flags and cache lengths, (4, B)
-        self._step_stage = _Staged(4 * B, self.device)
-        self._step_in = self._step_stage.dev.view(4, B)
-        # prefill: ids, rows, full flags, last tokens of one group; chunk:
-        # ids, offsets, rows, sentinel tokens of one chunk group; laid out
-        # per (bp, bucket) / (bc, chunk) by _group_views
-        self._prefill_stage = _Staged(self.prefill_tiers[-1] * (big + 3),
-                                      self.device)
-        self._chunk_stage = _Staged(self.prefill_tiers[-1] * (big + 3),
-                                    self.device)
+        # decode: (active, will_end, eos) flags, cache lengths, row seeds
+        # and rids, (6, B); paged, then the page table (B, blocks a row)
+        self._step_stage = _Staged(B * (6 + self._bpr), self.device)
+        self._step_in = self._step_stage.dev[:6 * B].view(6, B)
+        self._step_pages = self._step_stage.dev[6 * B:].view(B, self._bpr)
+        # prefill: ids, rows, full flags, last tokens, seeds, rids and
+        # page rows of one group; chunk: ids, offsets, rows, sentinel
+        # tokens (seeds, rids unused) and page rows of one chunk group;
+        # laid out per (bp, bucket) / (bc, chunk) by _group_views
+        group = self.prefill_tiers[-1] * (big + 5 + self._bpr)
+        self._prefill_stage = _Staged(group, self.device)
+        self._chunk_stage = _Staged(group, self.device)
         cuda = self.device.type == "cuda"
         self._graphed = cfg.lowered and cuda
         self._capture_stream = torch.cuda.Stream(self.device) \
@@ -375,6 +423,9 @@ class ServeEngine:
         self._pool = torch.cuda.graph_pool_handle() if self._graphed \
             else None
         self._gen = np.zeros((cfg.max_batch,), np.int32)   # tokens sampled
+        # per-row sampling identity, moved by _compact with _gen
+        self._row_seed = np.zeros((cfg.max_batch,), np.uint32)
+        self._row_rid = np.zeros((cfg.max_batch,), np.int32)
         self._pending = None               # in-flight decode step handle
         self._pending_prefill: list = []   # [(_Fetch, [(slot, req), ...])]
         self._seq = 0                      # submission order tiebreaker
@@ -390,7 +441,8 @@ class ServeEngine:
                        "submitted": 0, "admitted": 0, "finished": 0,
                        "shed": 0, "failed": 0, "preempted": 0,
                        "resumed": 0, "deadline_missed": 0,
-                       "alloc_denied": 0, "peak_active": 0,
+                       "alloc_denied": 0, "page_denied": 0,
+                       "peak_active": 0,
                        "stranded": 0, "drains": 0,
                        "graph_captures": 0, "graph_replays": 0,
                        "capture_s": 0.0, "prefill_graph_captures": 0,
@@ -421,6 +473,12 @@ class ServeEngine:
             raise PromptOverflow(
                 f"prompt length {n} cannot fit s_max={self.cfg.s_max} "
                 "(need at least one decode slot)")
+        if self.cache.paged and (self.cache.pages_needed(n + 1)
+                                 > self.cache.num_pages):
+            raise PromptOverflow(
+                f"prompt length {n} needs "
+                f"{self.cache.pages_needed(n + 1)} KV pages but the pool "
+                f"holds only {self.cache.num_pages} in total")
         if n > self.cfg.prefill_buckets[-1]:
             if not self.cfg.chunked_prefill:
                 raise ChunkingDisabled(
@@ -448,9 +506,14 @@ class ServeEngine:
         if self.faults is not None:
             self.faults.on_iter(it)        # injected straggler
         self._admit()
-        # double-buffered: step k+1 is in flight before step k's harvest
-        prev, self._pending = self._pending, self._dispatch_decode()
-        self._harvest(prev)
+        handle = self._dispatch_decode()
+        if self.cfg.async_host:
+            # double-buffered: step k+1 is in flight before step k's
+            # harvest
+            prev, self._pending = self._pending, handle
+            self._harvest(prev)
+        else:
+            self._harvest(handle)
         return self._busy()
 
     def warmup(self, tiers: Optional[tuple] = None, prefill=(), chunks=()):
@@ -712,8 +775,22 @@ class ServeEngine:
         if self.faults is not None and self.faults.deny_alloc():
             self._stats["alloc_denied"] += 1
             return None
-        # a dense row holds s_max tokens: nothing more to reserve
-        return self.cache.allocate(req.rid)
+        row = self.cache.allocate(req.rid)
+        if row is None:
+            return None
+        # a paged row reserves the whole (effective) prompt's pages up
+        # front, so a chunked prefill never runs out mid prompt; the +1
+        # is the first decode write, at position len(prompt).  A
+        # shortfall keeps the request waiting (a dense row always fits)
+        if not self.cache.reserve(row, len(req.effective_prompt) + 1):
+            self.cache.release(row)
+            self._stats["page_denied"] += 1
+            return None
+        return row
+
+    def _req_seed(self, req: Request) -> np.uint32:
+        return np.uint32(req.seed if req.seed is not None
+                         else self.cfg.seed)
 
     def _shed_expired(self, now: float):
         """Re-check deadlines over the queue: a request admissible at
@@ -842,20 +919,32 @@ class ServeEngine:
         prompts = [np.asarray(r.effective_prompt, np.int32) for r in group]
         bucket = self._bucket(max(len(p) for p in prompts))
         full = [len(pr) == bucket for pr in prompts]
+        for req in group:
+            self._row_seed[req.row] = self._req_seed(req)
+            self._row_rid[req.row] = req.rid
+        if self.cache.paged:
+            self.cache.check_unaliased(
+                self.cache.page_table[[r.row for r in group]])
 
         def fill(a):
-            ids, rows, fl, last = self._group_views(a, bp, bucket)
+            ids, rows, fl, last, seeds, rids, pages = \
+                self._group_views(a, bp, bucket)
             ids[:] = 0
-            rows[:] = group[0].row          # padded slots alias rows[0]
             fl[:] = 0
             last[:] = 0
-            for j, (req, pr) in enumerate(zip(group, prompts)):
-                n = len(pr)
-                ids[j, :n] = pr
+            # padded slots alias slot 0 (its row, seed, rid and pages)
+            for j in range(bp):
+                req = group[j if j < len(group) else 0]
                 rows[j] = req.row
-                fl[j] = full[j]
-                last[j] = pr[n - 1]
-        self._prefill_stage.put(fill, bp * (bucket + 3))
+                seeds[j] = self._row_seed.view(np.int32)[req.row]
+                rids[j] = req.rid
+                if self._bpr:
+                    pages[j] = self.cache.page_table[req.row]
+                if j < len(group):
+                    ids[j, :len(prompts[j])] = prompts[j]
+                    fl[j] = full[j]
+                    last[j] = prompts[j][-1]
+        self._prefill_stage.put(fill, self._group_len(bp, bucket))
         if self._graphed:
             tok = self._group_graph("prefill", bp, bucket).replay()
             self._stats["prefill_graph_replays"] += 1
@@ -885,38 +974,54 @@ class ServeEngine:
         if slots:
             self._pending_prefill.append((_Fetch(tok), slots))
 
-    @staticmethod
-    def _group_views(buf, b: int, width: int):
-        """Four views of a flat staging buffer, host (numpy) or device
-        (torch): a ``(b, width)`` id block and three ``(b,)`` vectors —
-        prefill: rows, full flags, last tokens; chunk: offsets, rows,
-        sentinel tokens (-1 on a chunk that is not a prompt's last)."""
+    def _group_len(self, b: int, width: int) -> int:
+        return b * (width + 5 + self._bpr)
+
+    def _group_views(self, buf, b: int, width: int):
+        """Views of a flat staging buffer, host (numpy) or device (torch):
+        a ``(b, width)`` id block, five ``(b,)`` vectors — prefill: rows,
+        full flags, last tokens; chunk: offsets, rows, sentinel tokens
+        (-1 on a chunk that is not a prompt's last); then seeds and rids
+        — and the slots' page-table rows ``(b, blocks a row)`` (empty on
+        the dense cache)."""
         n = b * width
-        return (buf[:n].reshape(b, width), buf[n:n + b],
-                buf[n + b:n + 2 * b], buf[n + 2 * b:n + 3 * b])
+        vec = [buf[n + i * b:n + (i + 1) * b] for i in range(5)]
+        pages = buf[n + 5 * b:self._group_len(b, width)]
+        return (buf[:n].reshape(b, width), *vec,
+                pages.reshape(b, self._bpr))
 
     def _prefill_run(self, bp: int, bucket: int, inp, last_ids, caches):
         """One prefill group at ``(bp, bucket)`` over the given buffers,
-        all in place: the forward, argmax, each slot's KV into its cache
-        row and each slot's first token into ``last_ids``.  Slots are
-        written one at a time in reversed order: padded slots alias
-        ``rows[0]``, so slot 0's write lands last and wins
+        all in place: the forward, sampling, each slot's KV into its
+        cache row (paged: its pages; the bucket's blocks past the pages
+        reserved go to the trash page) and each slot's first token into
+        ``last_ids``.  Slots are written one at a time in reversed order:
+        padded slots alias slot 0, so slot 0's write lands last and wins
         (``index_copy_`` with repeated indices in one call is not
-        ordered).  Returns the (bp,) argmax tokens.  This is what a
-        prefill group's CUDA Graph captures."""
+        ordered).  A full bucket emits position ``bucket``; the tokens of
+        the other slots are not used.  Returns the (bp,) tokens.  This is
+        what a prefill group's CUDA Graph captures."""
         fwd = self._forward("prefill", bp, bucket)
-        ids, rows, full, sent_last = self._group_views(inp, bp, bucket)
+        ids, rows, full, sent_last, seeds, rids, pages = \
+            self._group_views(inp, bp, bucket)
         rows = rows.long()
         pos = torch.arange(bucket, dtype=torch.int32,
                            device=ids.device).expand(bp, bucket)
         out = fwd(self.params, {"ids": ids, "positions": pos})
-        tok = out["logits"][:, -1, :].argmax(-1).to(torch.int32)
-        bds = self.cache.batch_dims
+        tok = sample_tokens(out["logits"][:, -1, :], self.sampling,
+                            seeds=seeds, rids=rids, positions=bucket)
+        cache = self.cache
+        bds = cache.batch_dims
         for j in reversed(range(bp)):
             r = rows[j:j + 1]
             for pk, pv, dk, dv in self._ck:
                 for src, dst in ((pk, dk), (pv, dv)):
                     d = 1 if bds[dst] else 0    # (L, B, S, ...) or (B, S, ...)
+                    if cache.paged:
+                        cache.scatter_row_pages(
+                            {dst: caches[dst]}, {dst: out[src]}, pages[j],
+                            0, bucket // cache.page_size, row=j)
+                        continue
                     c = caches[dst].narrow(d + 1, 0, bucket)
                     c.index_copy_(d, r, out[src].narrow(d, j, 1).to(c.dtype))
         first = torch.where(full.bool(), tok, sent_last)
@@ -944,7 +1049,9 @@ class ServeEngine:
             self._stats[f"{kind}_graph_captures"] += 1
             self._stats[f"{kind}_capture_s"] += g.capture_s
             return g
-        return self._graph_step((kind, b, width), build)
+        salts = ((self._cache_tag, self._samp_salt) if kind == "prefill"
+                 else (self._cache_tag,))
+        return self._graph_step((kind, *salts, b, width), build)
 
     # -- chunked prefill --------------------------------------------------
     def _chunk_plan(self, n: int) -> list:
@@ -990,6 +1097,8 @@ class ServeEngine:
             return
         if req._resume is not None:
             self._stats["resumed"] += 1
+        self._row_seed[row] = self._req_seed(req)
+        self._row_rid[row] = req.rid
         # the chunks cover [0, n-1) and may fall one token short of the
         # prompt, so the staging copy is the longer of the two
         padded = np.zeros(max(n, chunks[-1][0] + chunks[-1][1]), np.int32)
@@ -1030,18 +1139,23 @@ class ServeEngine:
         bc = self._tier_for(len(batch), self.prefill_tiers)
         offs = [st["chunks"][st["next"]][0] for st in batch]
         final = [st["next"] + 1 == len(st["chunks"]) for st in batch]
+        if self.cache.paged:
+            self.cache.check_unaliased(
+                self.cache.page_table[[st["req"].row for st in batch]])
 
         def fill(a):
-            ids, off, rows, last = self._group_views(a, bc, c)
-            for j, st in enumerate(batch):
-                ids[j] = st["padded"][offs[j]:offs[j] + c]
-                off[j] = offs[j]
+            ids, off, rows, last, _, _, pages = self._group_views(a, bc, c)
+            # padded slots duplicate slot 0: identical writes
+            for j in range(bc):
+                i = j if j < len(batch) else 0
+                st, o = batch[i], offs[i]
+                ids[j] = st["padded"][o:o + c]
+                off[j] = o
                 rows[j] = st["req"].row
-                last[j] = st["prompt"][-1] if final[j] else -1
-            for j in range(len(batch), bc):
-                ids[j], off[j], rows[j], last[j] = \
-                    ids[0], off[0], rows[0], last[0]
-        self._chunk_stage.put(fill, bc * (c + 3))
+                last[j] = st["prompt"][-1] if final[i] else -1
+                if self._bpr:
+                    pages[j] = self.cache.page_table[st["req"].row]
+        self._chunk_stage.put(fill, self._group_len(bc, c))
         if self._graphed:
             self._group_graph("chunk", bc, c).replay()
             self._stats["chunk_graph_replays"] += 1
@@ -1076,19 +1190,33 @@ class ServeEngine:
         final chunk, its sentinel token into ``last_ids``.  This is what
         a chunk group's CUDA Graph captures."""
         fwd = self._forward("chunk", bc, chunk)
-        ids, offs, rows, last = self._group_views(inp, bc, chunk)
+        ids, offs, rows, last, _, _, pages = self._group_views(inp, bc, chunk)
         rows = rows.long()
         pos = offs[:, None] + torch.arange(chunk, dtype=torch.int32,
                                            device=ids.device)
-        bds = self.cache.batch_dims
-        rcaches = {k: v.index_select(bds[k], rows) for k, v in caches.items()}
+        cache = self.cache
+        bds = cache.batch_dims
+        if cache.paged:
+            rcaches = cache.gather_row_batch(caches, pages)
+        else:
+            rcaches = {k: v.index_select(bds[k], rows)
+                       for k, v in caches.items()}
         out = fwd(self.params, {"ids": ids, "positions": pos,
                                 "cache_len": offs, **rcaches})
         for j in reversed(range(bc)):
             r = rows[j:j + 1]
-            for k, c in caches.items():
-                c.index_copy_(bds[k], r, out[k].narrow(bds[k], j, 1)
-                              .to(c.dtype))
+            if cache.paged:
+                # chunk offsets are bucket sums and buckets whole pages
+                # (checked at the backend's build): each slot writes
+                # chunk / page whole blocks from its offset
+                ps = cache.page_size
+                cache.scatter_row_pages(caches, out, pages[j],
+                                        offs[j:j + 1].long() // ps,
+                                        chunk // ps, row=j)
+            else:
+                for k, c in caches.items():
+                    c.index_copy_(bds[k], r, out[k].narrow(bds[k], j, 1)
+                                  .to(c.dtype))
             sent = last[j:j + 1, None]
             last_ids.index_copy_(0, r, torch.where(
                 sent >= 0, sent, last_ids.index_select(0, r)))
@@ -1096,7 +1224,10 @@ class ServeEngine:
     # -- steps --------------------------------------------------------------
     def _forward(self, phase: str, batch: int, seq: int):
         """The step of ``phase`` ("prefill", "decode" or "chunk" — the
-        decode structure at query width ``seq``) at ``batch``."""
+        decode structure at query width ``seq``) at ``batch``.  Engines
+        of one program share it whatever their cache backend or sampling
+        policy: a step reads the dense ``(b, s_max, ...)`` views either
+        way, and sampling follows it."""
         key = (phase, batch, seq, self.cfg.lowered, self._graphed)
         fwd = self._steps.get(key)
         if fwd is None:
@@ -1122,8 +1253,9 @@ class ServeEngine:
 
     def _graph_step(self, key: tuple, build) -> GraphStep:
         """The graph under ``key`` in the store's executable level (keys
-        name this engine: ``(kind, ("engine", serial), ...)``), captured
-        by ``build()`` on a miss."""
+        name this engine: ``(kind, ("engine", serial), ...)``, then the
+        JAX engine's salts: the cache tag, and the sampling salt of a
+        prefill or decode graph), captured by ``build()`` on a miss."""
         return self.store.get_or_build(
             (key[0], ("engine", self._serial)) + key[1:], build)
 
@@ -1140,6 +1272,8 @@ class ServeEngine:
             self.cache.move_row(src, dst)
             self._last_ids[dst] = self._last_ids[src]
             self._gen[dst] = self._gen[src]
+            self._row_seed[dst] = self._row_seed[src]
+            self._row_rid[dst] = self._row_rid[src]
             if src in self.active:
                 req = self.active.pop(src)
                 req.row = dst
@@ -1148,23 +1282,35 @@ class ServeEngine:
                 chunk_rows[src]["req"].row = dst
             self._stats["row_moves"] += 1
 
-    def _decode_run(self, tier: int, last_ids, step_in, caches):
+    def _decode_run(self, tier: int, last_ids, step_in, caches, pages):
         """One decode step at ``tier`` over the given buffers, all in
-        place: the forward over the tier's views, the cache updates,
-        argmax, the masks, and the write of the next ids into
-        ``last_ids``.  Returns the (2, max_batch) tok/done tensor.  This
-        is what a tier's CUDA Graph captures."""
+        place: the forward over the tier's views (paged: its rows' pages
+        gathered into them), the cache updates (paged: each row's
+        frontier page), sampling at position ``cache_len + 1``, the
+        masks, and the write of the next ids into ``last_ids``.  Returns
+        the (2, max_batch) tok/done tensor.  This is what a tier's CUDA
+        Graph captures."""
         fwd = self._forward("decode", tier, self.cfg.s_max)
         flags, clen = step_in[:3], step_in[3, :tier]
-        bds = self.cache.batch_dims
-        tcaches = {k: v.narrow(bds[k], 0, tier) for k, v in caches.items()}
+        cache = self.cache
+        bds = cache.batch_dims
+        if cache.paged:
+            tcaches = cache.gather_rows(caches, pages, tier)
+        else:
+            tcaches = {k: v.narrow(bds[k], 0, tier)
+                       for k, v in caches.items()}
         out = fwd(self.params, {"ids": last_ids[:tier],
                                 "positions": clen[:, None],
                                 "cache_len": clen, **tcaches})
-        for k, c in tcaches.items():
-            if out[k].data_ptr() != c.data_ptr():
-                c.copy_(out[k])
-        tok_t = out["logits"][:, -1, :].argmax(-1).to(torch.int32)
+        if cache.paged:
+            cache.scatter_frontier(caches, out, pages, clen, tier)
+        else:
+            for k, c in tcaches.items():
+                if out[k].data_ptr() != c.data_ptr():
+                    c.copy_(out[k])
+        tok_t = sample_tokens(out["logits"][:, -1, :], self.sampling,
+                              seeds=step_in[4, :tier],
+                              rids=step_in[5, :tier], positions=clen + 1)
         prev = last_ids[:, 0]
         tok = prev.clone()
         tok[:tier] = tok_t
@@ -1181,28 +1327,43 @@ class ServeEngine:
             bds = self.cache.batch_dims
 
             def warm():
-                caches = {k: v.narrow(bds[k], 0, tier).clone()
+                # paged: the whole pool, since the tier's pages lie anywhere
+                caches = {k: (v.clone() if self.cache.paged
+                              else v.narrow(bds[k], 0, tier).clone())
                           for k, v in self.cache.caches.items()}
                 self._decode_run(tier, self._last_ids.clone(),
-                                 self._step_in.clone(), caches)
+                                 self._step_in.clone(), caches,
+                                 self._step_pages.clone())
 
             g = GraphStep(
                 lambda: self._decode_run(tier, self._last_ids, self._step_in,
-                                         self.cache.caches),
+                                         self.cache.caches, self._step_pages),
                 warm, stream=self._capture_stream, pool=self._pool)
             self._stats["graph_captures"] += 1
             self._stats["capture_s"] += g.capture_s
             return g
-        return self._graph_step(("decode", tier), build)
+        return self._graph_step(
+            ("decode", self._cache_tag, self._samp_salt, tier), build)
 
-    def _stage_step_in(self, flags: np.ndarray):
-        """Flags and cache lengths into ``_step_in``: one copy from
-        pinned staging on CUDA."""
+    def _stage_step_in(self, flags: np.ndarray, tier: int):
+        """Flags, cache lengths, row seeds and rids into ``_step_in`` and,
+        paged, the page table into ``_step_pages``: one copy from pinned
+        staging on CUDA.  Pages change between steps (``reserve``), so the
+        table is staged on every dispatch; a real page mapped twice among
+        the tier's rows raises first."""
+        B = self.cfg.max_batch
+        if self.cache.paged:
+            self.cache.check_unaliased(self.cache.page_table[:tier])
+
         def fill(a):
-            a = a.reshape(4, -1)
-            a[:3] = flags
-            a[3] = self.cache.lengths
-        self._step_stage.put(fill, self._step_in.numel())
+            s = a[:6 * B].reshape(6, B)
+            s[:3] = flags
+            s[3] = self.cache.lengths
+            s[4] = self._row_seed.view(np.int32)
+            s[5] = self._row_rid
+            if self._bpr:
+                a[6 * B:] = self.cache.page_table.reshape(-1)
+        self._step_stage.put(fill, self._step_stage.dev.numel())
 
     def _dispatch_decode(self):
         """Dispatch one decode step at the smallest tier covering every
@@ -1214,6 +1375,9 @@ class ServeEngine:
         ``InjectedFault`` fails the rows of this dispatch (the batch,
         never the engine).  Any other error propagates."""
         while self.active:
+            self._ensure_decode_pages()
+            if not self.active:
+                return None
             B = self.cfg.max_batch
             occ = len(self.active) + len(self._chunking)
             self._stats["peak_active"] = max(self._stats["peak_active"],
@@ -1243,13 +1407,13 @@ class ServeEngine:
                     self._fail_request(req, f"decode dispatch failed: {e}")
                 return None
             graph = self._graph(tier) if self._graphed else None
-            self._stage_step_in(flags)
+            self._stage_step_in(flags, tier)
             if graph is not None:
                 out = graph.replay()
                 self._stats["graph_replays"] += 1
             else:
                 out = self._decode_run(tier, self._last_ids, self._step_in,
-                                       self.cache.caches)
+                                       self.cache.caches, self._step_pages)
             # host mirrors advance at dispatch, not harvest
             for row, _ in snapshot:
                 self.cache.lengths[row] += 1
@@ -1258,6 +1422,33 @@ class ServeEngine:
             self._stats["tier_steps"][tier] += 1
             return (_Fetch(out), snapshot)
         return None
+
+    def _ensure_decode_pages(self):
+        """Paged only: every active row writes position ``lengths[row]``
+        this step, which needs a fresh page whenever the length crosses a
+        page boundary.  On exhaustion, preempt the lowest-priority
+        decoding row (its release frees pages; it may be one of the short
+        rows itself) and retry; rows that still get no page fail, so the
+        others keep decoding."""
+        if not self.cache.paged:
+            return
+        while True:
+            short = [row for row in sorted(self.active)
+                     if not self.cache.reserve(
+                         row, int(self.cache.lengths[row]) + 1)]
+            if not short:
+                return
+            self._stats["page_denied"] += len(short)
+            if self.cfg.preemption and self._preempt_one():
+                continue
+            for row in short:
+                req = self.active.get(row)
+                if req is not None:
+                    self._fail_request(req, (
+                        "KV page pool exhausted: no page free for the "
+                        f"decode write at position {self.cache.lengths[row]}"
+                        " and no preemptible victim"))
+            return
 
     def _harvest(self, pending):
         """The loop's single host sync: wait for the pending decode step's

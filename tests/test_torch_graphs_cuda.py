@@ -40,6 +40,19 @@ which ends the process with a traceback after ``TIMEOUT_S``.
     — and a mix with prompts longer than the largest bucket serves the
     interpreter's tokens and launch counts with every chunk step one
     replay.
+  * The paged cache (chatglm3-6b and deepseek-moe-16b, cut in depth):
+    the mix, and the long prompts chunked, served with graphs give the
+    interpreter's tokens and launch counts and the dense cache's tokens,
+    every step one replay, no page held after; a prefill group, the
+    decode steps after it and a chunk group replayed as graphs write
+    bitwise the pages, next ids and tokens of the same steps run eagerly
+    through the slot IR (the trash page aside, whose repeated writes
+    have no defined winner).
+  * Sampling: Philox's bits on the card equal the CPU's over a grid of
+    ``(seed, rid, position)``, as does the filter's mask on the same f32
+    logits; a sampled engine's graphs (decode and prefill) write
+    bitwise the ids, caches and tokens of the same steps run eagerly,
+    and serve the interpreter's tokens.
 """
 import gc
 import weakref
@@ -510,3 +523,182 @@ def test_chunked_serving_with_graphs_matches_the_interpreter(cuda, served):
     assert st["graph_replays"] == st["decode_steps"]
     assert st["prefill_graph_replays"] == st["prefill_steps"]
     assert g.dispatch_log == e.dispatch_log
+
+
+
+# ---------------------------------------------------------------------------
+# the paged cache and sampling as graphs
+# ---------------------------------------------------------------------------
+
+PAGED = [("chatglm3-6b", 2), ("deepseek-moe-16b", 2)]
+
+
+def _paged_cfg(**kw):
+    from repro_torch.serve import PagedCache
+    return _engine_cfg(cache=PagedCache(page_size=16), **kw)
+
+
+@pytest.fixture(scope="module", params=PAGED, ids=[a for a, _ in PAGED])
+def paged(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    faulthandler.dump_traceback_later(TIMEOUT_S, exit=True)
+    from repro_torch.api import compile as tcompile
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Request
+    arch, layers = request.param
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    prog = tcompile(cfg, policy="sequential")
+    params = prog.init_params(0)
+    runs = {}
+    for name, mk in (("graphs", lambda: _paged_cfg()),
+                     ("interpreter", lambda: _paged_cfg(lowered=False)),
+                     ("dense", lambda: _engine_cfg())):
+        engine = prog.serve(params, mk())
+        engine.warmup()
+        _submit_mix(engine, prog.model.cfg.vocab)
+        rng = np.random.default_rng(9)
+        for i, n in enumerate(LONG_PROMPTS, start=len(PROMPTS)):
+            engine.submit(Request(i, rng.integers(0, prog.model.cfg.vocab, n)
+                                  .astype(np.int32), max_new_tokens=5))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        done = engine.run()
+        torch.cuda.synchronize()
+        runs[name] = (engine, {r.rid: list(r.output) for r in done},
+                      launch_counts())
+    faulthandler.cancel_dump_traceback_later()
+    yield prog, params, runs
+    del params
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_paged_serving_with_graphs_matches_interpreter_and_dense(cuda,
+                                                                 paged):
+    _, _, runs = paged
+    (g, got, got_n), (e, want, want_n) = runs["graphs"], runs["interpreter"]
+    assert got == want and got_n == want_n
+    assert got == runs["dense"][1]
+    assert all(r.ok for r in g.finished)
+    st = g.stats
+    assert st["graph_replays"] == st["decode_steps"] > 0
+    assert st["prefill_graph_replays"] == st["prefill_steps"] > 0
+    assert st["chunk_graph_replays"] == st["chunk_steps"] >= len(LONG_PROMPTS)
+    assert g.dispatch_log == e.dispatch_log == runs["dense"][0].dispatch_log
+    for engine in (g, e):
+        assert engine.cache.pages_used() == 0
+        assert engine.cache.row_owner == {}
+        assert engine.stats["kv"]["peak_pages_used"] > 0
+
+
+def _pool_state(engine):
+    """Every cache's real pages (the trash page 0 aside) and next ids."""
+    bds = engine.cache.batch_dims
+    return ({k: v.narrow(bds[k], 1, v.shape[bds[k]] - 1).clone()
+             for k, v in engine.cache.caches.items()},
+            engine._last_ids.clone())
+
+
+def _same_state(a, b):
+    (ca, ia), (cb, ib) = a, b
+    assert torch.equal(ia, ib)
+    for k in ca:
+        assert torch.equal(ca[k], cb[k]), k
+
+
+@pytest.mark.cuda
+def test_paged_steps_replay_the_eager_slot_ir_bitwise(cuda, paged):
+    """A paged prefill group (a padded slot), the decode steps after it,
+    then a paged chunk group and a final chunk: each replayed as a graph
+    writes bitwise what the same step writes run eagerly."""
+    prog, params, _ = paged
+    graphed = prog.serve(params, _paged_cfg())
+    eager = prog.serve(params, _paged_cfg())
+    eager._graphed = False              # the same lowered steps, eagerly
+    lens = (100, 256, 37)
+    for e in (graphed, eager):
+        _group_state(e, 4, 256, lens, seed=3)
+    _same_state(_pool_state(graphed), _pool_state(eager))
+    for _ in range(5):
+        for e in (graphed, eager):
+            e.step()
+        torch.cuda.synchronize()
+        _same_state(_pool_state(graphed), _pool_state(eager))
+    assert graphed.stats["graph_replays"] == graphed.stats["decode_steps"] > 0
+    for e in (graphed, eager):
+        e.run()
+    assert {r.rid: r.output for r in graphed.finished} \
+        == {r.rid: r.output for r in eager.finished}
+    graphed = prog.serve(params, _paged_cfg())
+    eager = prog.serve(params, _paged_cfg())
+    eager._graphed = False
+    got = _chunk_states(graphed, seed=4)
+    want = _chunk_states(eager, seed=4)
+    assert graphed.stats["chunk_graph_replays"] == 2
+    for a, b in zip(got, want):
+        _same_state(({k: v.narrow(graphed.cache.batch_dims[k], 1,
+                                  v.shape[graphed.cache.batch_dims[k]] - 1)
+                      for k, v in a[0].items()}, a[1]),
+                    ({k: v.narrow(eager.cache.batch_dims[k], 1,
+                                  v.shape[eager.cache.batch_dims[k]] - 1)
+                      for k, v in b[0].items()}, b[1]))
+    for e in (graphed, eager):
+        e.run()
+        assert e.cache.pages_used() == 0
+
+
+@pytest.mark.cuda
+def test_sampler_bits_and_mask_on_the_card_equal_the_cpus(cuda):
+    from repro_torch.serve import SamplingConfig
+    from repro_torch.serve import sampling as tsamp
+    rng = np.random.default_rng(0)
+    seeds = torch.from_numpy(rng.integers(0, 1 << 32, 64, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    rids = torch.from_numpy(rng.integers(0, 1 << 31, 64))
+    pos = torch.from_numpy(rng.integers(0, 1 << 20, 64))
+    cpu = tsamp.random_bits(seeds, rids, pos, 1031)
+    gpu = tsamp.random_bits(seeds.to(cuda), rids.to(cuda), pos.to(cuda),
+                            1031)
+    assert torch.equal(gpu.cpu(), cpu)
+    assert torch.equal(tsamp.uniform(gpu).cpu(), tsamp.uniform(cpu))
+    logits = torch.from_numpy(rng.standard_normal((8, 4096))
+                              .astype(np.float32) * 3)
+    for cfg in (SamplingConfig(0.8, 50, 0.95), SamplingConfig(1.0, 0, 0.9),
+                SamplingConfig(0.7, 20, 1.0)):
+        a = tsamp._filter_logits(logits, cfg)
+        b = tsamp._filter_logits(logits.to(cuda), cfg).cpu()
+        assert torch.equal(torch.isneginf(a), torch.isneginf(b))
+
+
+@pytest.mark.cuda
+def test_sampled_graphs_replay_the_eager_steps_bitwise(cuda, served):
+    """A sampled engine's prefill group and decode steps replayed as
+    graphs write bitwise the ids, caches and tokens of the same steps run
+    eagerly, and serve the interpreter's sampled tokens."""
+    from repro_torch.serve import SamplingConfig
+    prog, params, _, _ = served
+    sampling = SamplingConfig(temperature=0.8, top_k=50, top_p=0.95)
+    graphed = prog.serve(params, _engine_cfg(sampling=sampling, seed=7))
+    eager = prog.serve(params, _engine_cfg(sampling=sampling, seed=7))
+    eager._graphed = False
+    for e in (graphed, eager):
+        _submit_mix(e, prog.model.cfg.vocab)
+    for _ in range(6):
+        for e in (graphed, eager):
+            e.step()
+        torch.cuda.synchronize()
+        assert torch.equal(graphed._last_ids, eager._last_ids)
+        for k, v in graphed.cache.caches.items():
+            assert torch.equal(v, eager.cache.caches[k]), k
+    assert graphed.stats["graph_replays"] == graphed.stats["decode_steps"] > 0
+    for e in (graphed, eager):
+        e.run()
+    got = {r.rid: list(r.output) for r in graphed.finished}
+    assert got == {r.rid: list(r.output) for r in eager.finished}
+    interp = prog.serve(params, _engine_cfg(sampling=sampling, seed=7,
+                                            lowered=False))
+    _submit_mix(interp, prog.model.cfg.vocab)
+    assert got == {r.rid: list(r.output) for r in interp.run()}
+    vocab = prog.model.cfg.vocab
+    assert all(0 <= t < vocab for out in got.values() for t in out)

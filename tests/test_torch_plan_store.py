@@ -934,7 +934,7 @@ def test_program_closes_into_its_store_and_refuses_bad_bundles(tmp_path):
     for field, bad in (("magic", "other"), ("format_version", 99),
                        ("fingerprint_version", 99),
                        ("plan_format_version", 99),
-                       ("cache_backend", ["paged"])):
+                       ("cache_backend", ["bogus"])):
         hdr = json.loads(head)
         hdr[field] = bad
         wrong = tmp_path / f"{field}.dfpb"
