@@ -83,6 +83,30 @@ Phases, each printing one JSON line:
             engine, Philox's bits on the card against the CPU's, tokens
             of fixed logits on both devices, and the steady tier-4 step
             sampled and greedy in turns
+  spec      chatglm3-6b's mix with speculative decode at tier 4: ``ngram``
+            k=4, ``self`` k=4 and ``k="auto"`` (a fresh ``policy="auto"``
+            program a run), dense and paged, each with graphs and with
+            the interpreter (tokens, spec counters and launch counts equal
+            where the draft lengths picked are; every spec step one
+            verify replay, and one draft replay for ``self``; nothing
+            lowered after warm-up); spec tokens against plain greedy's
+            up to the first position whose plain top-2 logit margin is
+            below ``NEAR_TIE``; an oracle proposer drafting plain greedy's
+            own tokens (acceptance, tokens/s against plain, k=4 and 8, in
+            turns); the tier-4 verify graph at k=2, 4, 8 against the plain
+            tier-4 graph, replayed alone in turns; a profiled verify step
+            (plain W > 1 attention, GEMMs, the rest); ``k="auto"``'s picks
+            under the oracle; then a ``moe_spec`` line: deepseek-moe-16b
+            with ``ngram`` k=4 (``self`` refuses its two stacks)
+  autotune  chatglm3-6b, then deepseek-moe-16b: ``compile(arch,
+            policy=AutoPolicy(measure_top_k=3, measurer=
+            realizer_measurer(...)))`` builds the (4, 2048) prefill group
+            and tier-4 decode, each context's top 3 timed on the card;
+            ``Program.explain()``, the model's seconds against the card's
+            for each refined candidate and where their orders disagree;
+            the mix served under the autotuner against a fixed policy of
+            its winners (same tokens), and from a saved and loaded bundle
+            (same tokens, no re-tune)
   moe_reference
             deepseek-moe-16b cut to 2 layers (the dense first layer and
             one MoE layer) at full width, B=2 S=128, GPU against CPU
@@ -116,8 +140,9 @@ the phases that ran (null when none did), and every kernel must have
 launched on some path.
 
 Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,
-            serve,lifecycle,paged,sampling,moe_reference,moe_transparency,
-            moe_serve,ssm_reference,ssm_transparency,ssm_serve]
+            serve,lifecycle,paged,sampling,spec,autotune,moe_reference,
+            moe_transparency,moe_serve,ssm_reference,ssm_transparency,
+            ssm_serve]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
         torch.profiler breakdown of a warm prefill, eager and replayed
         as the engine's graph, of a window of decode steps, with graphs
@@ -531,8 +556,8 @@ def phase_kernels(dev, build_log=None):
                    [decode(f"{glm} decode", 32, 2),
                     decode(f"{z2} shared block decode", 32, 32),
                     decode("deepseek-moe-16b decode", 16, 16)]),
-        # rows: the prefill of B x 2048 tokens, the tier-4 decode step and
-        # the chunk steps
+        # rows: the prefill of B x 2048 tokens, the tier-4 decode step, the
+        # verify steps and the chunk steps
         kernel_row("rmsnorm", "cuda",
                    "src/repro_torch/kernels/csrc/rmsnorm.cu",
                    "src/repro/kernels/rmsnorm.py:76",
@@ -541,6 +566,9 @@ def phase_kernels(dev, build_log=None):
                     norm(f"{z2} Mamba layers B=4", 8192, 2048),
                     norm(f"{z2} shared block B=4", 8192, 4096),
                     norm(f"{glm} decode tier 4", 4, 4096),
+                    # the speculative verify step at tier 4, W = k + 1
+                    *[norm(f"{glm} verify tier 4, k={k}", 4 * (k + 1), 4096)
+                      for k in (2, 4, 8)],
                     # the prefill group and the first chunk group (4,
                     # 2048); the 2500-token prompt's final chunk (1, 512)
                     norm(f"{glm} (4, 2048) group", 8192, 4096),
@@ -1888,6 +1916,660 @@ def phase_sampling(dev, params, gpu, totals, arch="chatglm3-6b"):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: spec — speculative decode inside the served graphs
+# ---------------------------------------------------------------------------
+
+SPEC_COUNTERS = ("spec_steps", "spec_drafted", "spec_accepted",
+                 "spec_rollbacks", "spec_fallbacks", "page_denied",
+                 "decode_steps", "tier_steps")
+SPEC_KS = (2, 4, 8)
+# Plain decode's top-1 minus top-2 logit below which the card may choose
+# the other token in a verify step: the verify step runs other GEMM row
+# counts (tier x W rows, not tier) and the W > 1 attention's plain path
+# in place of the decode kernel, so its logits round differently.  Spec
+# tokens are held to plain greedy's up to the first position whose
+# margin is below this, and not past it.
+NEAR_TIE = 0.05
+
+
+def spec_config(proposer, k):
+    from repro_torch.serve import SpecConfig
+    return SpecConfig(proposer=proposer, k=k)
+
+
+def logged_picks(engine):
+    """Record the draft length the engine picks at each speculative
+    dispatch (a fallback to plain decode included)."""
+    picks = []
+    pick = engine._pick_k
+
+    def logged():
+        picks.append(pick())
+        return picks[-1]
+    engine._pick_k = logged
+    return picks
+
+
+def spec_run(prog, params, spec, lowered=True, into=None, new_tokens=16,
+             **cfg):
+    """The mix served with ``spec`` on a warmed engine (decode tiers,
+    every verify and draft graph and the prefill group captured first):
+    tokens, wall, launch counts (added to ``into``), spec counters, the
+    draft length of each step and the lowerings after the warm-up."""
+    engine = serve_engine(prog, params, new_tokens, lowered, spec=spec,
+                          **cfg)
+    misses = engine.store.stats["misses"]
+    picks = logged_picks(engine)
+    reqs, wall, counts = served(engine, into)
+    st = engine.stats
+    return {"engine": engine, "tokens": tokens_of(reqs), "wall_s": wall,
+            "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
+            "launches": counts, "picks": picks,
+            "counters": {k: st[k] for k in SPEC_COUNTERS},
+            "new_lowers": engine.store.stats["misses"] - misses,
+            "ok": all(r.ok for r in reqs)}
+
+
+@contextlib.contextmanager
+def plain_margins():
+    """Top-1 minus top-2 of every logits row the engine samples while the
+    block runs, by (rid, position) (a later sample of a key wins)."""
+    import torch
+
+    from repro_torch.serve import engine as eng_mod
+    orig = eng_mod.sample_tokens
+    margins: dict = {}
+
+    def sample(logits, cfg, *, seeds, rids, positions):
+        tok = orig(logits, cfg, seeds=seeds, rids=rids, positions=positions)
+        top = logits.float().topk(2, dim=-1).values
+        lead = top.shape[:-1]
+        m = (top[..., 0] - top[..., 1]).reshape(-1).tolist()
+        r = torch.as_tensor(rids, device=top.device).expand(lead)
+        p = torch.as_tensor(positions, device=top.device).expand(lead)
+        for key, v in zip(zip(r.reshape(-1).tolist(),
+                              p.reshape(-1).tolist()), m):
+            margins[key] = v
+        return tok
+    eng_mod.sample_tokens = sample
+    try:
+        yield margins
+    finally:
+        eng_mod.sample_tokens = orig
+
+
+def near_tie_check(prompts, plain, spec, margins):
+    """Spec tokens against plain greedy's: equal up to the first position
+    whose plain margin is below ``NEAR_TIE``, not compared past it."""
+    rows = []
+    for rid, (p, a, b) in enumerate(zip(prompts, spec, plain)):
+        n = len(p)
+        cut = next((j for j in range(len(b))
+                    if margins.get((rid, n + j), float("inf")) < NEAR_TIE),
+                   len(b))
+        first = next((j for j in range(min(len(a), len(b)))
+                      if a[j] != b[j]), None)
+        rows.append({"rid": rid, "full_match": a == b,
+                     "near_tie_at": cut if cut < len(b) else None,
+                     "diverges_at": first,
+                     "margin_at_divergence": None if first is None
+                     else margins.get((rid, n + first)),
+                     "ok": a == b or (first is not None and first >= cut)})
+    return {"full_matches": sum(r["full_match"] for r in rows),
+            "divergence_positions": [r["diverges_at"] for r in rows],
+            "near_tie_positions": [r["near_tie_at"] for r in rows],
+            "min_margin": min(margins.values()) if margins else None,
+            "rows": rows, "ok": all(r["ok"] for r in rows)}
+
+
+def oracle_proposer(seqs):
+    """A host proposer, through the public ``Proposer`` protocol, that
+    drafts the plain greedy run's own continuation of each stream (the
+    verify step's best case): ``seqs`` are prompt + plain tokens."""
+    import numpy as np
+
+    from repro_torch.serve import Proposer
+
+    class Oracle(Proposer):
+        name = "oracle"
+
+        def draft(self, streams, k):
+            out = np.zeros((len(streams), k), np.int32)
+            for i, s in enumerate(streams):
+                s = np.asarray(s, np.int32)
+                seq = next((q for q in seqs if len(q) > len(s)
+                            and np.array_equal(q[:len(s)], s)), None)
+                cont = (seq[len(s):len(s) + k] if seq is not None
+                        else s[-1:])
+                out[i, :len(cont)] = cont
+                out[i, len(cont):] = cont[-1]
+            return out
+
+    return Oracle()
+
+
+def spec_step_ms(engine, ks, tier=4):
+    """The tier's verify graph at each k and its plain decode graph,
+    each replayed alone, in turns, twice (CUDA events over 5 replays;
+    the replays rewrite the engine's state, thrown away after)."""
+    graphs = {}
+    for k in ks:
+        engine._spec_forwards(tier, k)
+        graphs[f"verify_k{k}"] = engine._spec_graph("verify", tier, k)
+    graphs["plain"] = engine._graph(tier)
+    out = {name: [] for name in graphs}
+    for _ in range(2):
+        for name, g in graphs.items():
+            out[name].append(replay_ms(g, 5))
+    return out
+
+
+def verify_profile(engine, k, tier=4, reps=3):
+    """One verify step at (tier, k) run eagerly on copies of the engine's
+    buffers under the profiler, its device time split into the plain
+    W > 1 attention (every kernel under ``DecodeAttentionOp.kernel`` at
+    Sq > 1), the GEMMs outside it (aten mm / addmm / bmm / matmul /
+    linear) and the rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import layers
+    orig = layers.DecodeAttentionOp.kernel
+
+    def kernel(op, p, q, *args):
+        if q.shape[1] > 1:
+            with record_function("plain_attention_w_gt_1"):
+                return orig(op, p, q, *args)
+        return orig(op, p, q, *args)
+
+    bds = engine.cache.batch_dims
+
+    def run():
+        caches = {n: (v.clone() if engine.cache.paged
+                      else v.narrow(bds[n], 0, tier).clone())
+                  for n, v in engine.cache.caches.items()}
+        engine._verify_run(tier, k, engine._last_ids.clone(),
+                           engine._step_in.clone(), engine._drafts.clone(),
+                           caches, engine._step_pages.clone())
+    layers.DecodeAttentionOp.kernel = kernel
+    try:
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+    finally:
+        layers.DecodeAttentionOp.kernel = orig
+    gemm_ops = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul",
+                "aten::linear")
+    # each kernel goes to the bucket of its launching op's outermost
+    # attention annotation or GEMM op, else to the rest
+    buckets = {"attention": {}, "gemm": {}, "rest": {}}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        where, up = "rest", e
+        while up is not None:
+            if up.name == "plain_attention_w_gt_1":
+                where = "attention"
+            elif up.name in gemm_ops and where == "rest":
+                where = "gemm"
+            up = up.cpu_parent
+        for kern in e.kernels:
+            b = buckets[where]
+            b[kern.name[:60]] = b.get(kern.name[:60], 0.0) + kern.duration
+    ms = lambda us: us / 1e3 / reps  # noqa: E731
+    sums = {b: sum(v.values()) for b, v in buckets.items()}
+    # the kernels alone: the annotation's own device-side range would
+    # count its kernels twice
+    total = sum(sums.values())
+    return {"k": k, "tier": tier, "device_ms": ms(total),
+            "plain_w_gt_1_attention_ms": ms(sums["attention"]),
+            "gemm_ms": ms(sums["gemm"]), "rest_ms": ms(sums["rest"]),
+            "attention_share": sums["attention"] / total if total else None,
+            "top_kernels_ms": {b: {n: ms(us) for n, us in sorted(
+                v.items(), key=lambda kv: -kv[1])[:6]}
+                for b, v in buckets.items()},
+            "measured_by": "profiler" if total else "not measured"}
+
+
+def phase_spec(dev, params, gpu, totals, arch="chatglm3-6b"):
+    """chatglm3-6b: speculative decode of the mix at tier 4, with graphs
+    against the interpreter, against plain greedy by the near-tie rule,
+    an oracle proposer's best case, the verify step's cost against the
+    plain step, its profile, and ``k="auto"``'s pick."""
+    import numpy as np
+
+    from repro_torch.api import compile
+    prog = compile(arch)                       # policy: dynamic
+    prompts = serve_prompts(prog)
+    # plain greedy: graphs, then the interpreter with its logits' margins
+    plain = spec_run(prog, params, None)
+    with plain_margins() as margins:
+        plain_i = spec_run(prog, params, None, lowered=False)
+    ok = plain["ok"] and plain_i["tokens"] == plain["tokens"]
+    arms, checks = {}, {}
+    for name, spec in {"ngram_k4": spec_config("ngram", 4),
+                       "self_k4": spec_config("self", 4),
+                       "auto_k": spec_config("ngram", "auto")}.items():
+        for cache in ("dense", "paged"):
+            cfg = {} if cache == "dense" else {"cache": paged_cache()}
+            # the graphed ngram arm on the dense cache is the main path's
+            main = name == "ngram_k4" and cache == "dense"
+            # k="auto" asks the policy's spec_draft_k: each of its runs
+            # starts from a fresh autotuner (no observation yet)
+            progs = [prog, prog] if name != "auto_k" else [
+                compile(arch, policy="auto") for _ in range(2)]
+            g = spec_run(progs[0], params, spec,
+                         into=totals if main else None, **cfg)
+            i = spec_run(progs[1], params, spec, lowered=False, **cfg)
+            st = g["engine"].stats
+            same_picks = g["picks"] == i["picks"]
+            c = {"tokens_equal": g["tokens"] == i["tokens"],
+                 "picks_equal": same_picks,
+                 # k="auto" picks from measured step times, which differ
+                 # between graphs and interpreter: counters and launches
+                 # are compared where the picks agree
+                 "counters_equal": g["counters"] == i["counters"],
+                 "launches_equal": g["launches"] == i["launches"],
+                 "verify_replays": st["verify_graph_replays"],
+                 "draft_replays": st["draft_graph_replays"],
+                 "new_lowers_after_warmup": g["new_lowers"],
+                 "spec_builds_misses": sum(
+                     b["misses"] for b in st["spec_builds"].values()),
+                 "near_tie": near_tie_check(prompts, plain["tokens"],
+                                            g["tokens"], margins)}
+            # other draft lengths round differently on the card (other
+            # GEMM row counts): where the picks differ, each arm is held
+            # to plain greedy by the near-tie rule instead
+            c["interpreter_near_tie"] = near_tie_check(
+                prompts, plain["tokens"], i["tokens"], margins)
+            c["ok"] = (g["ok"] and i["ok"]
+                       and (c["interpreter_near_tie"]["ok"] if not same_picks
+                            else (c["tokens_equal"] and c["counters_equal"]
+                                  and c["launches_equal"]))
+                       and st["spec_steps"] > 0
+                       and st["verify_graph_replays"] == st["spec_steps"]
+                       and st["draft_graph_replays"] == (
+                           st["spec_steps"] if name == "self_k4" else 0)
+                       and st["graph_replays"]
+                       == st["decode_steps"] - st["spec_steps"]
+                       and g["new_lowers"] == 0
+                       # under auto a verify width's verdict may differ
+                       # from the decode step's, and its plan lowers anew
+                       and (name == "auto_k"
+                            or c["spec_builds_misses"] == 0)
+                       and c["near_tie"]["ok"])
+            ok = ok and c["ok"]
+            key = f"{name}_{cache}"
+            checks[key] = c
+            arms[key] = {"graphs": {k: g[k] for k in (
+                "wall_s", "tokens_per_s", "counters", "picks", "launches")},
+                "interpreter": {k: i[k] for k in (
+                    "wall_s", "tokens_per_s", "counters", "picks")}}
+            del g, i
+            gc.collect()
+    # the oracle: the plain greedy run's own tokens as drafts (64 of
+    # them, for the runs past the mix's 16)
+    plain64 = spec_run(prog, params, None, new_tokens=64)
+    ok = ok and all(t[:16] == s for t, s in zip(plain64["tokens"],
+                                                 plain["tokens"]))
+    seqs = [np.concatenate([np.asarray(p, np.int32),
+                            np.asarray(t, np.int32)])
+            for p, t in zip(prompts, plain64["tokens"])]
+    del plain64
+    oracle = {}
+    for order in (("plain", 4, 8), (8, 4, "plain")):
+        for k in order:
+            spec = None if k == "plain" else spec_config(
+                oracle_proposer(seqs), k)
+            r = spec_run(prog, params, spec)
+            st = r["counters"]
+            row = oracle.setdefault(str(k), {"tokens_per_s": [],
+                                             "wall_s": []})
+            row["tokens_per_s"].append(r["tokens_per_s"])
+            row["wall_s"].append(r["wall_s"])
+            row["counters"] = st
+            if k != "plain":
+                row["acceptance"] = st["spec_accepted"] / max(
+                    1, st["spec_drafted"])
+                row["tokens_equal_plain"] = r["tokens"] == plain["tokens"]
+            del r
+    # the verify step's cost at k = 2, 4, 8 against the plain tier-4 step,
+    # and its profile, on an oracle engine in its steady decode
+    engine = serve_engine(prog, params, 64,
+                          spec=spec_config(oracle_proposer(seqs), 8))
+    for _ in range(3):
+        engine.step()
+    step_ms = spec_step_ms(engine, SPEC_KS)
+    profile_k4 = verify_profile(engine, 4)
+    del engine
+    gc.collect()
+    # k="auto" under the oracle: explore 2, 4, 8, then exploit
+    auto_prog = compile(arch, policy="auto")
+    pick_engine = serve_engine(auto_prog, params, 64,
+                               spec=spec_config(oracle_proposer(seqs),
+                                                "auto"))
+    picks = logged_picks(pick_engine)
+    served(pick_engine)
+    policy = auto_prog.policy
+    auto_pick = {"picks": picks,
+                 "final_pick": policy.spec_draft_k(
+                     arch=prog.model.cfg.name,
+                     candidates=pick_engine._k_candidates),
+                 "observations": {str(k): rec for (a, k), rec
+                                  in policy._spec_obs.items()}}
+    del pick_engine
+    gc.collect()
+    log({"phase": "spec", "arch": arch, "gpu": gpu,
+         "prompt_lens": list(SERVE_LENS), "new_tokens": 16,
+         "near_tie_tolerance": NEAR_TIE,
+         "plain": {"tokens_per_s": plain["tokens_per_s"],
+                   "wall_s": plain["wall_s"],
+                   "decode_steps": plain["counters"]["decode_steps"],
+                   "interpreter_tokens_equal":
+                       plain_i["tokens"] == plain["tokens"]},
+         "arms": arms, "checks": checks, "oracle": oracle,
+         "step_ms": step_ms, "verify_profile_k4": profile_k4,
+         "auto_pick_under_oracle": auto_pick, "ok": ok})
+    return ok
+
+
+@contextlib.contextmanager
+def verify_drops(widths=(2, 3, 4, 5, 6, 7, 8, 9)):
+    """Expert assignments dropped past capacity by the MoE dispatch of
+    steps whose query width is a verify width (eager runs only)."""
+    from repro_torch.models import moe
+    orig = moe.DispatchBuildOp.kernel
+    out = {"calls": 0, "calls_with_drops": 0, "dropped": 0,
+           "assignments": 0}
+
+    def kernel(op, p, x, ve):
+        buf, slot = orig(op, p, x, ve)
+        if x.device.type != "meta" and x.shape[1] in widths:
+            n = int((slot < 0).sum())
+            out["calls"] += 1
+            out["calls_with_drops"] += n > 0
+            out["dropped"] += n
+            out["assignments"] += slot.numel()
+        return buf, slot
+    moe.DispatchBuildOp.kernel = kernel
+    try:
+        yield out
+    finally:
+        moe.DispatchBuildOp.kernel = orig
+
+
+def phase_moe_spec(dev, params, gpu, totals, arch="deepseek-moe-16b"):
+    """deepseek-moe-16b with ``ngram`` k=4 (``self`` refuses its two
+    stacks): graphs against the interpreter, against plain greedy by the
+    near-tie rule, and the verify step's cost against the plain step."""
+    from repro_torch.api import compile
+    prog = compile(arch)
+    prompts = serve_prompts(prog)
+    plain = spec_run(prog, params, None)
+    with plain_margins() as margins:
+        plain_i = spec_run(prog, params, None, lowered=False)
+    spec = spec_config("ngram", 4)
+    g = spec_run(prog, params, spec, into=totals)
+    with verify_drops() as drops:
+        i = spec_run(prog, params, spec, lowered=False)
+    st = g["engine"].stats
+    tie = near_tie_check(prompts, plain["tokens"], g["tokens"], margins)
+    try:
+        serve_engine(prog, params, 1, submit=False,
+                     spec=spec_config("self", 4))
+        refused = False
+    except ValueError:
+        refused = True
+    engine = g["engine"]
+    for p in prompts:
+        engine.submit(serve_request(len(engine.finished) + 100, p, 64))
+    for _ in range(3):
+        engine.step()
+    step_ms = spec_step_ms(engine, (4,))
+    ok = (g["ok"] and i["ok"] and plain_i["tokens"] == plain["tokens"]
+          and g["tokens"] == i["tokens"] and g["counters"] == i["counters"]
+          and g["launches"] == i["launches"] and g["new_lowers"] == 0
+          and st["spec_steps"] > 0
+          and st["verify_graph_replays"] == st["spec_steps"]
+          # a verify step routes tier x W tokens into the capacity of
+          # that many, where assignments past an expert's capacity are
+          # dropped (plain decode's 4 tokens never fill one): a
+          # divergence there is no rounding, and is reported as such
+          and (tie["ok"] or drops["calls_with_drops"] > 0) and refused)
+    log({"phase": "moe_spec", "arch": arch, "gpu": gpu,
+         "plain_tokens_per_s": plain["tokens_per_s"],
+         "spec_tokens_per_s": g["tokens_per_s"],
+         "interpreter_tokens_per_s": i["tokens_per_s"],
+         "counters": g["counters"], "tokens_equal": g["tokens"] == i["tokens"],
+         "launches_equal": g["launches"] == i["launches"],
+         "near_tie": tie, "verify_capacity_drops": drops,
+         "self_refused": refused, "step_ms": step_ms,
+         "ok": ok})
+    del engine, g, i
+    gc.collect()
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: autotune — the cost-model autotuner, measured on the card
+# ---------------------------------------------------------------------------
+
+
+def segment_feeds(model, params, dev):
+    """``(params_of, inputs_of)`` for ``realizer_measurer``: the params of
+    the segment a (tuning) graph belongs to — the embed, layer 0 of a
+    stack, the head — and random inputs of its input specs (ids in the
+    vocabulary, positions from 0, or from half of ``s_max`` in decode),
+    made once per graph."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    counts = {st[0]: st[2] for st in model.layer_stacks("prefill")}
+    made: dict = {}
+
+    def names(graph):
+        out = set()
+        for n in graph.nodes.values():
+            out.add(n.name)
+            out.update(m.name for m in n.members)
+        return out
+
+    def params_of(info, graph):
+        if "ids" in graph.inputs:
+            return params["embed"]
+        if "positions" not in graph.inputs:
+            return {**params, **params["head"]}
+        stack = ("dense0" if "dense0" in params and not any(
+            "router" in n for n in names(graph)) else "layers")
+        if counts[stack] > 1:           # stacked: layer 0's slice
+            return _layer(params[stack], 0)
+        return {**params, **params[stack]}
+
+    def inputs_of(info, graph):
+        key = id(graph)
+        if key in made:
+            return made[key][1]
+        out = {}
+        specs = {name: graph.tensors[tid]
+                 for name, tid in graph.inputs.items()}
+        # decode: the rows half full (a k_cache input is (B, s_max, ...))
+        start = next((t.shape[1] // 2 for name, t in specs.items()
+                      if name.endswith("k_cache")), 0)
+        for name, t in specs.items():
+            shape = tuple(t.shape)
+            if name == "ids":
+                out[name] = torch.randint(0, model.cfg.vocab, shape,
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32)
+            elif name == "positions":
+                out[name] = (start + torch.arange(
+                    shape[1], dtype=torch.int32, device=dev)
+                ).expand(shape).contiguous()
+            elif name == "cache_len":
+                out[name] = torch.full(shape, start, dtype=torch.int32,
+                                       device=dev)
+            elif t.dtype.is_floating_point:
+                out[name] = torch.randn(shape, generator=gen, device=dev
+                                        ).to(t.dtype)
+            else:
+                out[name] = torch.zeros(shape, dtype=t.dtype, device=dev)
+        made[key] = (graph, out)        # keeps the graph alive: ids unique
+        return out
+
+    return params_of, inputs_of
+
+
+def winners_policy(auto):
+    """A ``StrategyPolicy`` that schedules every context the autotuner
+    ``auto`` holds a verdict for with that verdict's winner."""
+    from repro_torch.core.autotune import context_fingerprint
+    from repro_torch.core.policy import StrategyPolicy
+
+    class Winners(StrategyPolicy):
+        name = "winners"
+
+        def __init__(self):
+            self.table = {fp: (v.winner, v.params)
+                          for fp, v in auto._verdicts.items()}
+            self._rules = auto.partition_rules()
+
+        def __call__(self, ctx):
+            graph = ctx.extra["graph"]
+            win, prm = self.table[context_fingerprint(ctx, graph)]
+            return auto._instantiate(win, dict(prm), auto.tp)
+
+        def identity(self):
+            return ("winners",) + tuple(sorted(
+                (fp, w, tuple(p)) for fp, (w, p) in self.table.items()))
+
+        def partition_rules(self):
+            return self._rules
+
+    return Winners()
+
+
+def phase_autotune(dev, params, gpu, totals, arch="chatglm3-6b"):
+    """``compile(arch, policy=AutoPolicy(measure_top_k=3, measurer=
+    realizer_measurer(...)))`` at the (4, 2048) prefill group and tier-4
+    decode: the verdicts (winner, modeled against measured seconds of
+    each refined candidate, the sequential baseline), where the model's
+    ranking and the card's disagree; the mix served under the autotuner
+    against a fixed policy of its winners; a bundle saved and loaded
+    serves with no re-tune."""
+    import tempfile
+
+    from repro_torch.api import Program, compile
+    from repro_torch.core.autotune import AutoPolicy, realizer_measurer
+    from repro_torch.core.plan import graph_fingerprint
+    from repro_torch.models.registry import build_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import MeshInfo
+    model = build_model(get_config(arch), MeshInfo(tp=1, dp=1))
+    params_of, inputs_of = segment_feeds(model, params, dev)
+    measure = realizer_measurer(params_of, inputs_of, repeats=3)
+    rows: list = []
+
+    def measurer(info, graph, plan):
+        t = measure(info, graph, plan)
+        rep, _ = auto._score(graph, plan, auto.tp)
+        rows.append({"context": f"{info.phase} b={info.local_batch} "
+                                f"s={info.seq_len}",
+                     "graph": graph_fingerprint(graph)[:12],
+                     "num_mb": plan.num_mb, "steps": len(plan.steps),
+                     "t_model_us": rep.t_overlapped * 1e6,
+                     "measured_us": None if t is None else t * 1e6})
+        return t
+    auto = AutoPolicy(measure_top_k=3, measurer=measurer)
+    prog = compile(model, policy=auto)
+    t0 = time.perf_counter()
+    prog.prefill(*PREFILL_GROUP, s_max=4096)
+    prog.decode_tiers(4, 4096, tiers=(4,))
+    build_s = time.perf_counter() - t0
+    explain = prog.explain()
+    # each context's refined candidates: the model's order against the
+    # card's (labels from the verdict's scores, whose refined entries
+    # hold the measured seconds)
+    by_ctx: dict = {}
+    for r in rows:
+        by_ctx.setdefault((r["context"], r["graph"]), []).append(r)
+    for v in explain:
+        for (ctx, _g), rs in by_ctx.items():
+            if ctx != f"{v['phase']} b={v['local_batch']} s={v['seq_len']}":
+                continue
+            for r in rs:
+                r.setdefault("label", next(
+                    (lab for lab, t, _m in v["scores"]
+                     if r["measured_us"] is not None
+                     and abs(t * 1e6 - r["measured_us"]) < 1e-9), None))
+    # a pair of refined candidates the model orders strictly (a tie
+    # orders nothing) and the card the other way round
+    disagreements, ordered_pairs = [], 0
+    for (ctx, g), rs in by_ctx.items():
+        for a in range(len(rs)):
+            for b in range(len(rs)):
+                ra, rb = rs[a], rs[b]
+                if ra["t_model_us"] >= rb["t_model_us"]:
+                    continue
+                ordered_pairs += 1
+                if (ra["measured_us"] or 0.0) > (rb["measured_us"] or 0.0):
+                    disagreements.append({
+                        "context": ctx, "graph": g,
+                        "model_faster": ra.get("label") or a,
+                        "card_faster": rb.get("label") or b,
+                        "t_model_us": [ra["t_model_us"], rb["t_model_us"]],
+                        "measured_us": [ra["measured_us"],
+                                        rb["measured_us"]]})
+    # serve the mix under the autotuner, then under its winners fixed
+    engine = serve_engine(prog, params, 16)
+    reqs, wall, counts = served(engine, totals)
+    tokens = tokens_of(reqs)
+    retunes_serving = auto.retunes
+    del engine
+    fixed = compile(model, policy=winners_policy(auto))
+    f_engine = serve_engine(fixed, params, 16)
+    f_reqs, f_wall, _ = served(f_engine)
+    del f_engine, fixed
+    gc.collect()
+    with tempfile.TemporaryDirectory() as d:
+        bundle = os.path.join(d, "prog.dfpb")
+        prog.save(bundle)
+        loaded = Program.load(bundle)
+        l_engine = serve_engine(loaded, params, 16)
+        l_reqs, l_wall, _ = served(l_engine)
+        loaded_retunes = loaded.policy.retunes
+        loaded_spec = loaded.policy_spec
+        del l_engine, loaded
+    gc.collect()
+    measured_ok = bool(rows) and all(r["measured_us"] is not None
+                                     for r in rows)
+    ok = (measured_ok and all(r.ok for r in reqs)
+          and tokens == tokens_of(f_reqs) and tokens == tokens_of(l_reqs)
+          and loaded_retunes == 0)
+    log({"phase": PREFIX[model.cfg.family] + "autotune", "arch": arch,
+         "gpu": gpu, "build_s": build_s,
+         "explain": [{k: r[k] for k in (
+             "context", "winner", "params", "t_model_us", "t_sequential_us",
+             "speedup", "provenance", "measured_us", "scores", "pruned")}
+             for r in explain],
+         "measured": rows, "model_ordered_pairs": ordered_pairs,
+         "model_vs_card_disagreements": disagreements,
+         "retunes": retunes_serving,
+         "served": {"auto_tokens_per_s": sum(map(len, tokens)) / wall,
+                    "winners_tokens_per_s":
+                        sum(map(len, tokens_of(f_reqs))) / f_wall,
+                    "winners_tokens_equal": tokens == tokens_of(f_reqs),
+                    "loaded_tokens_equal": tokens == tokens_of(l_reqs),
+                    "loaded_policy_spec": loaded_spec,
+                    "loaded_retunes": loaded_retunes},
+         "launches": counts, "ok": ok})
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # phase 5 (optional): where the time goes
 # ---------------------------------------------------------------------------
 
@@ -1998,7 +2680,7 @@ def run_dense(phases, dev, gpu, totals):
     if "reference" in phases:
         ok = phase_reference(dev, totals) and ok
     if phases & {"transparency", "serve", "profile", "lifecycle", "paged",
-                 "sampling"}:
+                 "sampling", "spec", "autotune"}:
         params = init_params("chatglm3-6b")
         if "transparency" in phases:
             ok = phase_transparency(dev, params, totals) and ok
@@ -2012,6 +2694,10 @@ def run_dense(phases, dev, gpu, totals):
             ok = phase_paged(dev, params, gpu, totals) and ok
         if "sampling" in phases:
             ok = phase_sampling(dev, params, gpu, totals) and ok
+        if "spec" in phases:
+            ok = phase_spec(dev, params, gpu, totals) and ok
+        if "autotune" in phases:
+            ok = phase_autotune(dev, params, gpu, totals) and ok
     return ok
 
 
@@ -2019,7 +2705,8 @@ def run_moe(phases, dev, gpu, totals):
     ok = True
     if "moe_reference" in phases:
         ok = phase_reference(dev, totals, "deepseek-moe-16b") and ok
-    if phases & {"moe_transparency", "moe_serve", "moe_profile"}:
+    if phases & {"moe_transparency", "moe_serve", "moe_profile", "spec",
+                 "autotune"}:
         params = init_params("deepseek-moe-16b")
         if "moe_transparency" in phases:
             ok = phase_moe_transparency(dev, params, totals) and ok
@@ -2030,6 +2717,11 @@ def run_moe(phases, dev, gpu, totals):
                              "deepseek-moe-16b") and ok
             ok = phase_moe_chunked(dev, params, totals) and ok
             ok = phase_moe_paged(dev, params, totals) and ok
+        if "spec" in phases:
+            ok = phase_moe_spec(dev, params, gpu, totals) and ok
+        if "autotune" in phases:
+            ok = phase_autotune(dev, params, gpu, totals,
+                                "deepseek-moe-16b") and ok
     return ok
 
 
@@ -2060,8 +2752,8 @@ def run_ssm(phases, dev, gpu, totals):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,reference,transparency,"
-                    "serve,lifecycle,paged,sampling,moe_reference,"
-                    "moe_transparency,moe_serve,ssm_reference,"
+                    "serve,lifecycle,paged,sampling,spec,autotune,"
+                    "moe_reference,moe_transparency,moe_serve,ssm_reference,"
                     "ssm_transparency,ssm_serve")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")

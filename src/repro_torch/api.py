@@ -14,7 +14,10 @@ prefill buckets, decode tiers, serve engines — so a known structure is
 specialized or restored, not re-lowered; a ``plan_store_path``
 warm-starts the store at compile time and the program checkpoints it
 after every build.  ``Program.save`` / ``Program.load`` bundle the model
-config, the policy, the KV cache backend and the store in one file.  Entry points run on
+config, the policy, the KV cache backend and the store in one file.
+``policy="auto"`` is the cost-model autotuner (``core/autotune.py``): its
+verdicts persist in the store, so a loaded program re-tunes nothing, and
+``Program.explain()`` shows them.  Entry points run on
 ``"cuda"`` unless the caller asks for another device (the CPU tests pass
 ``device="cpu"``); on a machine without a GPU they raise instead of
 silently running on the CPU.  Every plan a step builder records is
@@ -78,7 +81,9 @@ def compile(model, policy=None, smoke: bool = False, device=None,
     ``model``  — an arch name (``"chatglm3-6b"``), an ``ArchConfig``, or a
                  built LM.
     ``policy`` — a ``StrategyPolicy``, a bare ``OpSchedulerBase``, or a
-                 registry name; default: the built-in dynamic policy.
+                 registry name (``"auto"`` for the cost-model autotuner,
+                 whose verdicts persist in the plan store); default: the
+                 built-in dynamic policy.
     ``smoke``  — with an arch name: the reduced same-family config.
     ``device`` — default device of ``init_params`` and ``serve``
                  (``None``: the GPU).
@@ -109,9 +114,18 @@ def compile(model, policy=None, smoke: bool = False, device=None,
         from .core.strategies.dynamic import dynamic_policy
         policy = dynamic_policy()
     policy = as_policy(policy)
+    if policy_spec is None and _is_default_auto(policy):
+        # an AutoPolicy that differs from policy="auto" only in its
+        # measurement knobs shares its identity: the bundle can name it
+        policy_spec = "auto"
     store = resolve_plan_store(plan_store, plan_store_path)
     if store is None:
         store = PlanStore()
+    # store-aware policies (AutoPolicy) persist tuning verdicts beside
+    # the plans they decided: bind before any step builds
+    bind = getattr(policy, "bind_store", None)
+    if callable(bind):
+        bind(store)
     if isinstance(model, str):
         from .configs import get_config, get_smoke_config
         model = get_smoke_config(model) if smoke else get_config(model)
@@ -120,6 +134,12 @@ def compile(model, policy=None, smoke: bool = False, device=None,
         model = build_model(model, MeshInfo(tp=1, dp=1))
     return Program(model, policy, device=device, store=store,
                    policy_spec=policy_spec, verify=verify, cache=cache)
+
+
+def _is_default_auto(policy) -> bool:
+    from .core.autotune import AutoPolicy
+    return isinstance(policy, AutoPolicy) \
+        and strategy_salt(policy) == strategy_salt(AutoPolicy())
 
 
 class Program:
@@ -167,6 +187,20 @@ class Program:
     def stats(self) -> dict:
         """The store's ``snapshot()``."""
         return self.store.snapshot()
+
+    def explain(self) -> list:
+        """The policy's decision table: one dict per scheduling decision.
+
+        Policies that keep per-context verdicts (``policy="auto"``)
+        report them in full — winner, parameters, modeled against
+        sequential time, memory, measurement provenance; every other
+        policy reports one identity row (what it is and the salt its
+        plans persist under)."""
+        table = getattr(self.policy, "explain", None)
+        if callable(table):
+            return table()
+        return [{"policy": self.policy_spec or self.policy.name,
+                 "salt": strategy_salt(self.policy)}]
 
     def verify(self):
         """Aggregated :class:`~repro_torch.core.verify.VerifyReport` over

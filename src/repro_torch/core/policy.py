@@ -10,8 +10,9 @@ A **policy** maps a :class:`ScheduleContext` to a scheduler::
 
     policy(ctx: ScheduleContext) -> OpSchedulerBase
 
-and carries a stable ``identity()`` (the key the JAX package's PlanStore
-salts its plans with; the port's PlanStore is still to come).
+and carries a stable ``identity()`` that enters the PlanStore outer key
+(via ``core.plan.strategy_salt``), so two policies never alias cached or
+persisted plans.
 Combinators compose policies from schedulers:
 
     by_phase(prefill=NanoFlow(), decode=Sequential())
@@ -93,9 +94,11 @@ def as_policy(obj) -> StrategyPolicy:
 
     Names resolve through the strategy registry
     (``core.strategies.registry``): scheduler entries become a
-    ``FixedPolicy``; policy entries (``"dynamic"``) resolve to the policy
-    itself.  Unknown names raise ``UnknownStrategyError`` listing the
-    registered choices."""
+    ``FixedPolicy``; policy entries (``"dynamic"``, ``"auto"``) resolve
+    to the policy itself, so ``policy="auto"`` reaches ``api.compile``
+    as a live :class:`~repro_torch.core.autotune.AutoPolicy`.  Unknown
+    names raise ``UnknownStrategyError`` listing the registered
+    choices."""
     if isinstance(obj, StrategyPolicy):
         return obj
     if isinstance(obj, OpSchedulerBase):

@@ -2,7 +2,7 @@
 
 Each takes the ``FusedCallInfo`` the backend hands to ``replace_func``
 plus the group's external inputs, and returns the group's external
-outputs.  ``flux_fused`` arrives with the slice that ports it.
+outputs.
 """
 from __future__ import annotations
 
@@ -56,4 +56,25 @@ def comet_fused(info, *vals, axis: str = "model", n_chunks: int = 4):
         y_i = col.all_to_all(x_i, axis, split_dim=0, concat_dim=1)
         z_i = kops.grouped_ffn(y_i, w1, w3, w2)
         outs.append(col.all_to_all(z_i, axis, split_dim=1, concat_dim=0))
+    return torch.cat(outs, dim=1) if G > 1 else outs[0]
+
+
+def flux_fused(info, *vals, axis: str = "model", n_chunks: int = 4):
+    """Replace [linear, psum] with a row-chunked GEMM + all-reduce
+    pipeline — the paper's §5.3.5 negative result: the chunked
+    all-reduces multiply the per-collective latency term, which the
+    roofline model surfaces.  At tp=1 each all-reduce is the identity."""
+    x = vals[0]
+    p = info.params_of(0)
+    w = p["w"] if p else vals[1]        # FSDP variant: weight is an input
+    B, S, _ = x.shape
+    G = n_chunks
+    while S % G:
+        G //= 2
+    G = max(G, 1)
+    Sc = S // G
+    outs = []
+    for i in range(G):
+        y_i = torch.matmul(x.narrow(1, i * Sc, Sc), w)
+        outs.append(col.psum(y_i, axis))
     return torch.cat(outs, dim=1) if G > 1 else outs[0]

@@ -39,7 +39,9 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
                      k_cache.float()) / math.sqrt(hd)
     ki = torch.arange(S, device=q.device)[None, None, None, :]
     vl = torch.as_tensor(cache_len, device=q.device)
-    if vl.ndim:
+    if vl.ndim == 2:            # (B, Sq): a length per query position
+        vl = vl[:, None, :, None]
+    elif vl.ndim:
         vl = vl.reshape(-1, 1, 1, 1)
     s = torch.where(ki < vl, s, torch.full((), -1e30, device=q.device))
     w = torch.softmax(s, dim=-1)

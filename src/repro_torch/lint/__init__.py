@@ -11,9 +11,10 @@ code is 1 when any plan carries an error-severity diagnostic::
 
 Family aliases map to smoke configs (``transformer`` -> smollm-135m,
 ``moe`` -> deepseek-moe-16b, ``mamba2`` -> mamba2-2.7b); any registered
-arch name works directly.  The default strategy set is every registry
-entry that is a scheduler, not a policy (``dynamic`` picks among the
-others; pass ``--strategy dynamic`` to lint its per-context choice).
+arch name works directly.  The default strategy set is every tunable
+registry entry and ``sequential``, as in the JAX package's linter
+(``dynamic`` and ``auto`` pick among the others; pass ``--strategy
+dynamic`` to lint its per-context choice).
 The port has no train step, so the phases are prefill and decode.  A
 strategy that crashes while recording is reported as a diagnostic row
 (code = the exception class), never a CLI crash.  Everything here runs
@@ -66,11 +67,12 @@ def lint_arch(arch: str, strategies: Optional[Sequence[str]] = None,
     arch = resolve_arch(arch)
     cfg = get_smoke_config(arch)
     model = build_model(cfg, MeshInfo(tp=1, dp=1))
-    # default: every registered scheduler (a policy entry such as
-    # ``dynamic`` chooses among them)
+    # default: every tunable scheduler (policy entries such as
+    # ``dynamic`` and ``auto`` choose among them; ``spec_decode`` carries
+    # a serve knob)
     names = list(strategies) if strategies else [
         n for n in registry.strategy_names()
-        if registry.get_entry(n).policy_factory is None]
+        if registry.get_entry(n).tunable or n == "sequential"]
     rows = []
     for phase in phases:
         B, S, s_max = _phase_shapes(phase, batch, seq)

@@ -83,7 +83,13 @@ class Forward:
     realizers: dict                # key -> Realizer
     strategies: dict = dataclasses.field(default_factory=dict)  # key -> name
 
-    def __call__(self, params, batch: dict) -> dict:
+    def __call__(self, params, batch: dict,
+                 depth: Optional[int] = None) -> dict:
+        """Run the segments on ``batch``.  ``depth`` runs only the first
+        ``depth`` layers of each layer stack, over the same per-layer
+        plan (the self-speculative draft's truncated stack): the
+        counterpart of the JAX package's slicing of the stacked params
+        and caches, whose layer scan takes its length from them."""
         env = dict(batch)
         collected = {}
         for seg in self.segments:
@@ -113,15 +119,15 @@ class Forward:
             stacked_params = params.get(seg.name)
             carry = {k: _env(k) for k in seg.carry}
             ys: dict = {}
-            for i in range(seg.count):
+            count = seg.count if depth is None else min(seg.count, depth)
+            for i in range(count):
                 ins = dict(static_ins)
                 ins.update(carry)
                 ins.update({k: v[i] for k, v in stacked_in.items()})
                 out = rz(_layer_slice(stacked_params, i), ins)
                 carry = {k: out[k] for k in seg.carry}
                 for k in seg.scan_outputs:
-                    _collect(ys, k, i, out[k], seg.count,
-                             stacked_in.get(k))
+                    _collect(ys, k, i, out[k], count, stacked_in.get(k))
             env.update({seg.output_map.get(k, k): v for k, v in carry.items()})
             for k, v in ys.items():
                 collected[seg.collect_key(k)] = v

@@ -432,8 +432,14 @@ class DecodeAttentionOp(Op):
     place* at each row's ``cache_len`` (this op is the caches' only
     reader), and the same tensors are returned as the updated caches.
     Sq == 1 reads the cache through the flash-decode kernel; Sq > 1
-    (chunked prefill through the decode graph) through ``_sdpa`` with
-    per-position lengths.
+    (chunked prefill through the decode graph, the speculative verify
+    step) through plain attention with a length per query position: on
+    the CPU the decode kernel's plain version, which a width-1 step runs
+    there too, so each position rounds as a width-1 step does (a verify
+    step's greedy tokens are bitwise a plain decode step's); on the card,
+    where a width-1 step runs the kernel and no plain formula rounds as
+    it does, the JAX package's ``_sdpa`` (bf16 probabilities for the PV
+    product: half the bytes of an f32 one).
     """
 
     resource = "memory"
@@ -458,9 +464,16 @@ class DecodeAttentionOp(Op):
         else:
             vl = clen[:, None] + 1 + torch.arange(Sq, dtype=clen.dtype,
                                                   device=clen.device)
-            out = _sdpa(q, k_cache.index_select(2, slot.long()),
-                        v_cache.index_select(2, slot.long()), causal=False,
-                        valid_len=vl)
+            if q.device.type == "cpu":
+                # the decode kernel's plain version, which a width-1 step
+                # runs here: each position rounds as it would there
+                from ..kernels.decode_attention import decode_attention_plain
+                out = decode_attention_plain(q, k_cache, v_cache, vl,
+                                             kv_head=slot)
+            else:
+                out = _sdpa(q, k_cache.index_select(2, slot.long()),
+                            v_cache.index_select(2, slot.long()),
+                            causal=False, valid_len=vl)
         if valid is not None:
             out = out * valid[None, None, :, None].to(out.dtype)
         return out, k_cache, v_cache

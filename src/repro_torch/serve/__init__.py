@@ -1,6 +1,6 @@
 """Serving: the tiered engine over a dense or paged KV cache, with greedy
-or sampled decode on the device, chunked prefill and the request
-lifecycle (admission, faults, preemption, drain)."""
+or sampled decode on the device, speculative decode, chunked prefill and
+the request lifecycle (admission, faults, preemption, drain)."""
 from .admission import (  # noqa: F401
     AdmissionContext,
     AdmissionPolicy,
@@ -39,4 +39,12 @@ from .sampling import (  # noqa: F401
     SamplingConfig,
     resolve_sampling,
     sampling_salt,
+)
+from .speculative import (  # noqa: F401
+    DRAFT_K_CANDIDATES,
+    NGramProposer,
+    Proposer,
+    SelfSpecProposer,
+    SpecConfig,
+    resolve_proposer,
 )

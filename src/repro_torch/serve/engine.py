@@ -118,8 +118,24 @@ deadlines, preempt-and-requeue, fault isolation, drain).
     Every submitted request terminates in exactly one of ``Finished`` /
     ``Shed`` / ``Failed`` (``Request.result``), mirrored by the
     lifecycle counters in ``stats``.
-
-Speculative decode is not ported yet (ROADMAP queue 1, item 3).
+  * **Speculative decode** (``ServeConfig.spec``, ``serve/speculative.py``).
+    A proposer drafts k tokens a row — ``ngram`` on the host, staged with
+    the flags in the step's one copy; ``self`` on the device, as k
+    width-1 passes through the first layers of the model, captured as
+    one draft graph per ``(tier, k)`` whose output buffer the verify
+    graph reads — and one verify step runs the decode forward at query
+    width ``W = k + 1`` (the chunk step's structure), samples every
+    position with the key plain decode would use, and accepts the
+    longest matching draft prefix plus one token, cut at eos, the token
+    budget and ``s_max``, all inside its graph.  Spec steps harvest at
+    once (how far a row moved is the data-dependent accepted count):
+    one copy of ``(u, n_emit, done)`` a step.  A rejected tail is rolled
+    back as length bookkeeping (paged: its pages go back to the pool).
+    A step that cannot speculate — no headroom of W positions, no pages
+    for them, an injected allocation denial — falls back to plain decode
+    (``spec_fallbacks``).  ``k="auto"`` asks the policy's
+    ``spec_draft_k`` (``core/autotune.py``), which the engine feeds
+    with each step's acceptance and time.
 """
 from __future__ import annotations
 
@@ -155,6 +171,7 @@ from .admission import (
 from .faults import INJECTED, InjectedFault, PoisonedRequest
 from .kv_cache import cache_backend_salt, resolve_cache_backend
 from .sampling import resolve_sampling, sample_tokens, sampling_salt
+from .speculative import DRAFT_K_CANDIDATES, SpecConfig, resolve_proposer
 
 
 def pow2_tiers(n: int) -> tuple:
@@ -232,6 +249,11 @@ class ServeConfig:
     sampling: object = None
     # Engine-wide sampling seed; Request(seed=) overrides it per request.
     seed: int = 0
+    # Speculative multi-token decode (serve/speculative.py): a SpecConfig,
+    # or None for plain one-token decode.  The verify step is the decode
+    # forward at query width k+1 — another shape bucket of the decode
+    # lowering, so it specializes with no new lowering.
+    spec: object = None
     # KV storage backend (serve/kv_cache.py): a CacheBackend, the names
     # "dense" / "paged", or None for DenseCache.  Its identity salts
     # every PlanStore key.
@@ -324,6 +346,11 @@ class ServeEngine:
                  plan_store: Optional[PlanStore] = None):
         self.model = model
         self.params = params
+        if isinstance(scheduler, str):
+            # one policy object for every step: a stateful policy (auto)
+            # must keep its verdicts and observations across builds
+            from ..core.policy import as_policy
+            scheduler = as_policy(scheduler)
         self.scheduler = scheduler
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -377,6 +404,16 @@ class ServeEngine:
         self._cache_tag = cache_backend_salt(self.backend)
         self.sampling = resolve_sampling(cfg.sampling)
         self._samp_salt = sampling_salt(self.sampling)
+        # store-aware policies (AutoPolicy, or a PolicyScheduler over one)
+        # persist their verdicts in this engine's store and take live
+        # step timings
+        target = getattr(scheduler, "policy", scheduler)
+        bind = getattr(target, "bind_store", None)
+        if callable(bind):
+            bind(self.store)
+        self._observer = getattr(target, "observe", None)
+        self._obs_prev = None      # (tier, perf_counter) of the last dispatch
+        self._init_spec(cfg, target)
         # the engine's name in its graphs' executable keys; its graphs
         # bind its buffers, so they go from the store when it does
         self._serial = next(_SERIAL)
@@ -403,10 +440,21 @@ class ServeEngine:
         self._last_ids = torch.zeros((B, 1), dtype=torch.int32,
                                      device=self.device)
         # decode: (active, will_end, eos) flags, cache lengths, row seeds
-        # and rids, (6, B); paged, then the page table (B, blocks a row)
-        self._step_stage = _Staged(B * (6 + self._bpr), self.device)
+        # and rids, (6, B) — a verify step reads its rows' token budgets
+        # where plain decode reads will_end; paged, then the page table
+        # (B, blocks a row); with a host proposer, then the drafts (B, k)
+        kd = self._kmax if self._spec is not None \
+            and not self._proposer.device else 0
+        self._step_stage = _Staged(B * (6 + self._bpr + kd), self.device)
         self._step_in = self._step_stage.dev[:6 * B].view(6, B)
-        self._step_pages = self._step_stage.dev[6 * B:].view(B, self._bpr)
+        self._step_pages = self._step_stage.dev[
+            6 * B:B * (6 + self._bpr)].view(B, self._bpr)
+        # the drafts the verify graph reads: staged from the host, or
+        # written by the draft graph and never leaving the card
+        self._drafts = (self._step_stage.dev[B * (6 + self._bpr):]
+                        .view(B, kd) if kd else
+                        torch.zeros((B, self._kmax), dtype=torch.int32,
+                                    device=self.device))
         # prefill: ids, rows, full flags, last tokens, seeds, rids and
         # page rows of one group; chunk: ids, offsets, rows, sentinel
         # tokens (seeds, rids unused) and page rows of one chunk group;
@@ -449,6 +497,12 @@ class ServeEngine:
                        "prefill_graph_replays": 0, "prefill_capture_s": 0.0,
                        "chunk_graph_captures": 0, "chunk_graph_replays": 0,
                        "chunk_capture_s": 0.0,
+                       "spec_steps": 0, "spec_drafted": 0,
+                       "spec_accepted": 0, "spec_rollbacks": 0,
+                       "spec_fallbacks": 0, "spec_builds": {},
+                       "spec_graph_captures": 0, "spec_capture_s": 0.0,
+                       "verify_graph_replays": 0,
+                       "draft_graph_replays": 0,
                        "tier_steps": {t: 0 for t in self.tiers},
                        "tier_builds": {}}
         self._ck = self._cache_keys()
@@ -507,7 +561,12 @@ class ServeEngine:
             self.faults.on_iter(it)        # injected straggler
         self._admit()
         handle = self._dispatch_decode()
-        if self.cfg.async_host:
+        if self._spec is not None:
+            # speculative steps harvest at once: how far each row moved
+            # (the accepted count) is data-dependent, so the host mirrors
+            # cannot advance at dispatch.  Still one sync an iteration.
+            self._harvest(handle)
+        elif self.cfg.async_host:
             # double-buffered: step k+1 is in flight before step k's
             # harvest
             prev, self._pending = self._pending, handle
@@ -518,7 +577,9 @@ class ServeEngine:
 
     def warmup(self, tiers: Optional[tuple] = None, prefill=(), chunks=()):
         """Build decode tiers' steps (every tier when ``tiers`` is None or
-        empty), the prefill steps of the given ``(group tier, bucket)``
+        empty) with, under ``ServeConfig.spec``, each tier's verify step
+        at every draft length it may run (and the draft step of a device
+        proposer), the prefill steps of the given ``(group tier, bucket)``
         pairs and the chunk steps of the given ``(group tier, chunk)``
         pairs ahead of traffic — and, when graphed, capture them — so
         that neither a tier switch nor a new bucket under load hits a
@@ -532,6 +593,17 @@ class ServeEngine:
                 self._graph(t)
             else:
                 self._forward("decode", t, self.cfg.s_max)
+            if self._spec is not None:
+                # after the decode step: the canonical decode lowering
+                # exists, so verify widths purely specialize
+                ks = ([self._spec.k] if isinstance(self._spec.k, int)
+                      else list(self._k_candidates))
+                for k in ks:
+                    self._spec_forwards(t, k)
+                    if self._graphed:
+                        self._spec_graph("verify", t, k)
+                        if self._proposer.device:
+                            self._spec_graph("draft", t, k)
         for kind, pairs in (("prefill", prefill), ("chunk", chunks)):
             for bp, bucket in pairs:
                 if bp not in self.prefill_tiers \
@@ -620,6 +692,7 @@ class ServeEngine:
         out = dict(self._stats)
         out["tier_steps"] = dict(self._stats["tier_steps"])
         out["tier_builds"] = dict(self._stats["tier_builds"])
+        out["spec_builds"] = dict(self._stats["spec_builds"])
         out["plan_store"] = self.store.snapshot()
         out["kv"] = self.cache.kv_stats()
         if self.faults is not None:
@@ -1282,6 +1355,14 @@ class ServeEngine:
                 chunk_rows[src]["req"].row = dst
             self._stats["row_moves"] += 1
 
+    def _tier_caches(self, tier: int, caches: dict, pages) -> dict:
+        """The tier's rows of every cache: views of the dense caches, or
+        the paged rows gathered into a fresh dense view."""
+        if self.cache.paged:
+            return self.cache.gather_rows(caches, pages, tier)
+        bds = self.cache.batch_dims
+        return {key: v.narrow(bds[key], 0, tier) for key, v in caches.items()}
+
     def _decode_run(self, tier: int, last_ids, step_in, caches, pages):
         """One decode step at ``tier`` over the given buffers, all in
         place: the forward over the tier's views (paged: its rows' pages
@@ -1293,12 +1374,7 @@ class ServeEngine:
         fwd = self._forward("decode", tier, self.cfg.s_max)
         flags, clen = step_in[:3], step_in[3, :tier]
         cache = self.cache
-        bds = cache.batch_dims
-        if cache.paged:
-            tcaches = cache.gather_rows(caches, pages, tier)
-        else:
-            tcaches = {k: v.narrow(bds[k], 0, tier)
-                       for k, v in caches.items()}
+        tcaches = self._tier_caches(tier, caches, pages)
         out = fwd(self.params, {"ids": last_ids[:tier],
                                 "positions": clen[:, None],
                                 "cache_len": clen, **tcaches})
@@ -1345,12 +1421,14 @@ class ServeEngine:
         return self._graph_step(
             ("decode", self._cache_tag, self._samp_salt, tier), build)
 
-    def _stage_step_in(self, flags: np.ndarray, tier: int):
-        """Flags, cache lengths, row seeds and rids into ``_step_in`` and,
-        paged, the page table into ``_step_pages``: one copy from pinned
-        staging on CUDA.  Pages change between steps (``reserve``), so the
-        table is staged on every dispatch; a real page mapped twice among
-        the tier's rows raises first."""
+    def _stage_step_in(self, flags: np.ndarray, tier: int,
+                       drafts: Optional[np.ndarray] = None):
+        """Flags, cache lengths, row seeds and rids into ``_step_in``,
+        paged, the page table into ``_step_pages`` and, for a host
+        proposer's verify step, the drafts into ``_drafts``: one copy from
+        pinned staging on CUDA.  Pages change between steps (``reserve``),
+        so the table is staged on every dispatch; a real page mapped twice
+        among the tier's rows raises first."""
         B = self.cfg.max_batch
         if self.cache.paged:
             self.cache.check_unaliased(self.cache.page_table[:tier])
@@ -1362,7 +1440,9 @@ class ServeEngine:
             s[4] = self._row_seed.view(np.int32)
             s[5] = self._row_rid
             if self._bpr:
-                a[6 * B:] = self.cache.page_table.reshape(-1)
+                a[6 * B:B * (6 + self._bpr)] = self.cache.page_table.reshape(-1)
+            if drafts is not None:
+                a[B * (6 + self._bpr):] = drafts.reshape(-1)
         self._step_stage.put(fill, self._step_stage.dev.numel())
 
     def _dispatch_decode(self):
@@ -1384,6 +1464,14 @@ class ServeEngine:
                                              occ)
             tier = self._tier_for(occ, self.tiers)
             self._compact(tier)
+            if self._spec is not None:
+                k = self._spec_k_for_dispatch()
+                if k:
+                    result = self._dispatch_spec(tier, k)
+                    if result == "retry":
+                        continue
+                    return result
+                self._stats["spec_fallbacks"] += 1
             flags = np.zeros((3, B), np.int32)     # active, will_end, eos
             flags[2] = -1
             snapshot = []
@@ -1420,8 +1508,28 @@ class ServeEngine:
                 self._gen[row] += 1
             self._stats["decode_steps"] += 1
             self._stats["tier_steps"][tier] += 1
+            if self._observer is not None:
+                self._feed_observer(tier)
             return (_Fetch(out), snapshot)
         return None
+
+    def _feed_observer(self, tier: int):
+        """Feed the policy live step timings: the wall clock between two
+        successive same-tier decode dispatches bounds one device step
+        (the loop is double-buffered, so dispatch N+1 waits on step N)
+        and needs no extra sync."""
+        t_now = time.perf_counter()
+        prev = self._obs_prev
+        self._obs_prev = (tier, t_now)
+        if prev is None or prev[0] != tier:
+            return
+        self._observer(
+            phase="decode", arch=self.model.cfg.name,
+            local_batch=tier, seq_len=self.cfg.s_max,
+            seconds=t_now - prev[1],
+            stats={"decode_steps": self._stats["decode_steps"],
+                   "active": len(self.active),
+                   "shed": self._stats["shed"]})
 
     def _ensure_decode_pages(self):
         """Paged only: every active row writes position ``lengths[row]``
@@ -1458,8 +1566,10 @@ class ServeEngine:
         prefills, self._pending_prefill = self._pending_prefill, []
         if pending is None and not prefills:
             return
+        spec = pending is not None and isinstance(pending[0], str)
         got = [f.wait() for f, _ in prefills]
-        vals = pending[0].wait() if pending is not None else None
+        vals = (pending[1] if spec else pending[0]).wait() \
+            if pending is not None else None
         self._stats["host_syncs"] += 1
         now = time.perf_counter()
         for (_, slots), toks in zip(prefills, got):
@@ -1480,6 +1590,9 @@ class ServeEngine:
                 except INJECTED as e:
                     self._fail_request(req, f"harvest failed: {e}")
         if pending is None:
+            return
+        if spec:
+            self._harvest_spec(vals, pending, now)
             return
         tok, done = vals[0], vals[1]
         for row, req in pending[1]:
@@ -1502,6 +1615,364 @@ class ServeEngine:
                     self._fail_deadline(req, now)
             except INJECTED as e:
                 self._fail_request(req, f"harvest failed: {e}")
+
+    # -- speculative decode -----------------------------------------------
+    def _init_spec(self, cfg: ServeConfig, target):
+        """Validate ``cfg.spec`` and resolve its proposer, sampling and
+        draft lengths (``target``: the policy, for ``k="auto"``)."""
+        if cfg.spec is not None and not isinstance(cfg.spec, SpecConfig):
+            raise ValueError(
+                "ServeConfig.spec must be a serve.SpecConfig or None")
+        self._spec = cfg.spec
+        self._spec_t0 = 0.0        # perf_counter of the last spec dispatch
+        if self._spec is None:
+            self._proposer = None
+            self._spec_sampling = self.sampling
+            self._spec_salt = self._samp_salt
+            self._k_candidates = DRAFT_K_CANDIDATES
+            self._k_picker = None
+            self._kmax = 0
+            return
+        self._proposer = resolve_proposer(self._spec.proposer)
+        self._spec_sampling = resolve_sampling(
+            self._spec.sampling if self._spec.sampling is not None
+            else cfg.sampling)
+        self._spec_salt = sampling_salt(self._spec_sampling)
+        from ..core.strategies import registry
+        space = dict(registry.get_entry("spec_decode").param_space)
+        self._k_candidates = tuple(int(v) for v in space["draft_k"])
+        self._k_picker = getattr(target, "spec_draft_k", None)
+        self._kmax = (self._spec.k if isinstance(self._spec.k, int)
+                      else max(self._k_candidates))
+        # verify width k+1 must not exceed the smallest chunk length: a
+        # chunking row's frontier garbage is overwritten only when the
+        # next chunk's slab covers it
+        if self._kmax + 1 > cfg.prefill_buckets[0]:
+            raise ValueError(
+                f"speculative draft k={self._kmax} needs verify width "
+                f"{self._kmax + 1} <= the smallest prefill bucket "
+                f"{cfg.prefill_buckets[0]}")
+        # rollback is length bookkeeping, which only works for positional
+        # (attention) caches: a recurrent state advances irreversibly
+        bad = [key for key in self.model.decode_cache_layout()
+               if not (key.endswith("k_cache") or key.endswith("v_cache"))]
+        if bad:
+            raise ValueError(
+                "speculative decode needs positional decode caches "
+                f"(rollback = length decrement); {self.model.cfg.name} "
+                f"has non-positional state {bad}")
+        self._draft_layers = 0
+        if self._proposer.device:
+            stacks = self.model.layer_stacks("decode")
+            if len(stacks) != 1 or stacks[0][2] < 2:
+                raise ValueError(
+                    "SelfSpecProposer needs a model whose decode phase "
+                    "is a single layer stack; "
+                    f"{self.model.cfg.name} has "
+                    f"{[st[0] for st in stacks]} — use the 'ngram' "
+                    "proposer instead")
+            total = stacks[0][2]
+            n = self._proposer.n_layers or max(1, total // 2)
+            self._draft_layers = min(n, total)
+
+    def _pick_k(self) -> int:
+        """Draft length for this iteration: the static ``SpecConfig.k``,
+        or under ``k="auto"`` the policy's pick from measured acceptance
+        (``AutoPolicy.spec_draft_k``), else 4."""
+        if isinstance(self._spec.k, int):
+            return self._spec.k
+        if self._k_picker is not None:
+            k = int(self._k_picker(arch=self.model.cfg.name,
+                                   candidates=self._k_candidates))
+            if k >= 1:
+                return k
+        return 4 if 4 in self._k_candidates else self._k_candidates[0]
+
+    def _spec_k_for_dispatch(self) -> int:
+        """Whether this iteration can speculate, and at what k (0: plain
+        decode).  A verify step writes ``W = k + 1`` cache positions per
+        allocated row (active rows at their frontier; chunking rows
+        garbage that their next chunk overwrites), so every row needs W
+        positions of headroom and, paged, W positions of reserved pages.
+        A page shortfall or an injected allocation denial falls back
+        rather than failing rows: plain decode needs only the +1 already
+        reserved."""
+        k = self._pick_k()
+        W = k + 1
+        for row in self.active:
+            if int(self.cache.lengths[row]) + W > self.cfg.s_max:
+                return 0
+        for st in self._chunking:
+            _, c = st["chunks"][st["next"]]
+            if c < W or int(self.cache.lengths[st["req"].row]) + W \
+                    > self.cfg.s_max:
+                return 0
+        if self.cache.paged:
+            for row in sorted(self.active):
+                need = self.cache.pages_needed(
+                    int(self.cache.lengths[row]) + W)
+                if need > int(self.cache.blocks_used[row]):
+                    if self.faults is not None \
+                            and self.faults.deny_alloc():
+                        self._stats["alloc_denied"] += 1
+                        return 0
+                if not self.cache.reserve(
+                        row, int(self.cache.lengths[row]) + W):
+                    self._stats["page_denied"] += 1
+                    return 0
+        return k
+
+    def _dispatch_spec(self, tier: int, k: int):
+        """Dispatch one speculative step: the drafts (staged from the
+        host, or the draft graph's replay), then the verify step.  Host
+        mirrors do not advance here: how far each row moved is the
+        accepted count, applied at harvest.  Returns ``"retry"`` after
+        excising a poisoned request."""
+        B = self.cfg.max_batch
+        flags = np.zeros((3, B), np.int32)     # active, gen_left, eos
+        flags[1] = 1
+        flags[2] = -1
+        snapshot = []
+        for row, req in self.active.items():
+            flags[0, row] = 1
+            flags[1, row] = max(1, req.max_new_tokens - self._gen[row])
+            flags[2, row] = req.eos_id
+            snapshot.append((row, req))
+        try:
+            if self.faults is not None:
+                self.faults.check_dispatch(
+                    "decode", [r.rid for _, r in snapshot])
+        except PoisonedRequest as e:
+            bad = next(r for _, r in snapshot if r.rid == e.rid)
+            self._fail_request(bad, e)
+            return "retry"
+        except InjectedFault as e:
+            for _, req in snapshot:
+                self._fail_request(req, f"decode dispatch failed: {e}")
+            return None
+        self._spec_forwards(tier, k)
+        device = self._proposer.device
+        if self._graphed:
+            draft = self._spec_graph("draft", tier, k) if device else None
+            verify = self._spec_graph("verify", tier, k)
+        drafts = None if device else self._host_drafts(k, snapshot)
+        self._stage_step_in(flags, tier, drafts)
+        if device:
+            if self._graphed:
+                draft.replay()
+                self._stats["draft_graph_replays"] += 1
+            else:
+                self._draft_run(tier, k, self._last_ids, self._step_in,
+                                self._drafts, self.cache.caches,
+                                self._step_pages)
+        if self._graphed:
+            out = verify.replay()
+            self._stats["verify_graph_replays"] += 1
+        else:
+            out = self._verify_run(tier, k, self._last_ids, self._step_in,
+                                   self._drafts, self.cache.caches,
+                                   self._step_pages)
+        self._stats["decode_steps"] += 1
+        self._stats["spec_steps"] += 1
+        self._stats["spec_drafted"] += k * len(snapshot)
+        self._stats["tier_steps"][tier] += 1
+        self._spec_t0 = time.perf_counter()
+        return ("spec", _Fetch(out), snapshot, k, tier)
+
+    def _host_drafts(self, k: int, snapshot: list) -> np.ndarray:
+        """(max_batch, kmax) int32 drafts of a host proposer, each row's
+        from its token stream so far (a trailing ``-100`` sentinel is a
+        placeholder, not a token: dropped before drafting)."""
+        drafts = np.zeros((self.cfg.max_batch, self._kmax), np.int32)
+        streams, rows = [], []
+        for row, req in snapshot:
+            st = list(req.prompt) + list(req.output)
+            if st and st[-1] == -100:
+                st.pop()
+            streams.append(st)
+            rows.append(row)
+        if streams:
+            got = np.asarray(self._proposer.draft(streams, k), np.int32)
+            for i, row in enumerate(rows):
+                drafts[row, :k] = got[i]
+        return drafts
+
+    def _spec_forwards(self, tier: int, k: int):
+        """Build (or find) the forwards of the ``(tier, k)`` spec steps —
+        the verify step is the decode structure at query width ``k + 1``
+        (the chunk step's), the draft step the plain decode step run
+        through its first layers — and record what building them cost
+        the store in ``stats["spec_builds"][(tier, k)]``: after the
+        decode step of the tier exists, no misses."""
+        if (tier, k) in self._stats["spec_builds"]:
+            return
+        before = dict(self.store.stats)
+        self._forward("chunk", tier, k + 1)
+        if self._proposer.device:
+            self._forward("decode", tier, self.cfg.s_max)
+        st = self.store.stats
+        self._stats["spec_builds"][(tier, k)] = {
+            key: st[key] - before[key]
+            for key in ("misses", "shares", "restore_hits")}
+
+    def _verify_run(self, tier: int, k: int, last_ids, step_in, drafts,
+                    caches, pages):
+        """One verify step at ``(tier, k)`` over the given buffers, all in
+        place: the decode forward at query width ``W = k + 1`` over each
+        row's last token and drafts (paged: over its gathered pages, and
+        every block of the W positions scattered back), every position
+        sampled with the ``(seed, rid, position)`` key plain decode would
+        use, and the acceptance: the longest draft prefix matching the
+        target's tokens plus one, cut at the first eos, the token budget
+        and ``s_max`` position by position as plain decode's masks are —
+        which makes greedy speculative decode equal plain greedy decode.
+        Writes the next ids into ``last_ids`` and returns the
+        ``(tier, W + 2)`` int32 tensor ``[u | n_emit | done]``.  This is
+        what a verify graph captures."""
+        W = k + 1
+        fwd = self._forward("chunk", tier, W)
+        act = step_in[0, :tier].bool()
+        gl, eo = step_in[1, :tier], step_in[2, :tier]
+        clen = step_in[3, :tier]
+        dr = drafts[:tier, :k]
+        tcaches = self._tier_caches(tier, caches, pages)
+        steps = torch.arange(W, dtype=torch.int32, device=clen.device)
+        pos = clen[:, None] + steps                              # (tier, W)
+        out = fwd(self.params, {"ids": torch.cat([last_ids[:tier], dr], 1),
+                                "positions": pos, "cache_len": clen,
+                                **tcaches})
+        if self.cache.paged:
+            self.cache.scatter_span(caches, out, pages, clen, tier, W)
+        else:
+            for key, c in tcaches.items():
+                if out[key].data_ptr() != c.data_ptr():
+                    c.copy_(out[key])
+        u = sample_tokens(out["logits"], self._spec_sampling,
+                          seeds=step_in[4, :tier, None],
+                          rids=step_in[5, :tier, None], positions=pos + 1)
+        m = torch.cumprod((dr == u[:, :k]).to(torch.int32), 1).sum(1)
+        n_base = m + 1                     # accepted prefix + correction
+        hit = (u == eo[:, None]) & (eo[:, None] >= 0) \
+            & (steps[None] < n_base[:, None])
+        any_eos = hit.any(1)
+        first_eos = hit.to(torch.int32).argmax(1).to(torch.int32)
+        n_emit = torch.where(any_eos, first_eos + 1, n_base)
+        n_emit = torch.minimum(n_emit, gl)
+        n_emit = torch.minimum(n_emit, self.cfg.s_max - 1 - clen)
+        n_emit = torch.where(act, n_emit.clamp(min=1),
+                             torch.zeros_like(n_emit)).to(torch.int32)
+        new_last = u.gather(1, (n_emit - 1).clamp(min=0)[:, None].long())
+        done = act & ((any_eos & (first_eos < n_emit)) | (n_emit >= gl)
+                      | (clen + n_emit >= self.cfg.s_max - 1))
+        li = last_ids[:tier]
+        li.copy_(torch.where(act[:, None], new_last, li))
+        return torch.cat([u, n_emit[:, None], done[:, None].to(torch.int32)],
+                         1)
+
+    def _draft_run(self, tier: int, k: int, last_ids, step_in, drafts,
+                   caches, pages):
+        """One self-speculative draft step at ``(tier, k)``: k width-1
+        decode passes through the first ``n`` layers of the same model
+        (``Forward(..., depth=n)`` over the decode step's per-layer
+        plan), each token sampled as plain decode samples it, the k
+        tokens written into ``drafts``.  The dense cache takes the
+        draft's K/V in place at positions ``cache_len … cache_len+k-1``
+        of layers ``[:n]``; the verify step that follows writes positions
+        ``cache_len … cache_len+k`` of every layer of every tier row
+        before its attention reads them, so nothing the draft wrote is
+        ever read after it.  Paged, the draft writes only its gathered
+        view and the pool stays untouched.  This is what a draft graph
+        captures."""
+        fwd = self._forward("decode", tier, self.cfg.s_max)
+        clen = step_in[3, :tier]
+        sd, rd = step_in[4, :tier], step_in[5, :tier]
+        tcaches = self._tier_caches(tier, caches, pages)
+        cur, cl = last_ids[:tier], clen
+        for i in range(k):
+            out = fwd(self.params, {"ids": cur, "positions": cl[:, None],
+                                    "cache_len": cl, **tcaches},
+                      depth=self._draft_layers)
+            tok = sample_tokens(out["logits"][:, -1, :], self._spec_sampling,
+                                seeds=sd, rids=rd, positions=cl + 1)
+            drafts[:tier, i].copy_(tok)
+            tcaches = {key: out[key] for key in tcaches}
+            cur, cl = tok[:, None], cl + 1
+
+    def _spec_graph(self, kind: str, tier: int, k: int) -> GraphStep:
+        """The ``(tier, k)`` verify or draft step as one CUDA Graph over
+        the engine's buffers, warmed first on copies of those it
+        writes."""
+        run = self._verify_run if kind == "verify" else self._draft_run
+
+        def build():
+            bds = self.cache.batch_dims
+
+            def warm():
+                caches = {key: (v.clone() if self.cache.paged
+                                else v.narrow(bds[key], 0, tier).clone())
+                          for key, v in self.cache.caches.items()}
+                run(tier, k, self._last_ids.clone(), self._step_in.clone(),
+                    self._drafts.clone(), caches, self._step_pages.clone())
+
+            g = GraphStep(
+                lambda: run(tier, k, self._last_ids, self._step_in,
+                            self._drafts, self.cache.caches,
+                            self._step_pages),
+                warm, stream=self._capture_stream, pool=self._pool)
+            self._stats["spec_graph_captures"] += 1
+            self._stats["spec_capture_s"] += g.capture_s
+            return g
+        key = (f"spec_{kind}", self._cache_tag, self._spec_salt)
+        if kind == "draft":
+            key += (self._proposer.identity(),)
+        return self._graph_step(key + (tier, k), build)
+
+    def _harvest_spec(self, vals, pending, now: float):
+        """Apply one verify step: append each row's accepted tokens and
+        the correction, advance the host mirrors by that count, and roll
+        the cache length — and, paged, the pages reserved past it — back
+        over the rejected tail.  The rejected positions' K/V is garbage
+        the attention mask hides and later writes overwrite."""
+        _, _, snapshot, k, tier = pending
+        W = k + 1
+        u, n_emit, done = vals[:, :W], vals[:, W], vals[:, W + 1]
+        accepted = 0
+        for row, req in snapshot:
+            if req.done_s:
+                continue
+            try:
+                if self.faults is not None:
+                    self.faults.check_harvest(req.rid)
+                n = int(n_emit[row])
+                toks = [int(t) for t in u[row, :n]]
+                if toks and req.output and req.output[-1] == -100:
+                    req.output[-1] = toks[0]       # sentinel: first token
+                    req.output.extend(toks[1:])
+                else:
+                    req.output.extend(toks)
+                if toks and not req.first_token_s:
+                    req.first_token_s = now
+                self._gen[row] += n
+                self.cache.lengths[row] += n
+                if n < W:
+                    self._stats["spec_rollbacks"] += 1
+                    self.cache.rollback(row, int(self.cache.lengths[row]))
+                self._stats["decode_tokens"] += n
+                accepted += max(0, n - 1)
+                if done[row]:
+                    self._finish(req, now)
+                elif self._deadline_blown(req, now):
+                    self._fail_deadline(req, now)
+            except INJECTED as e:
+                self._fail_request(req, f"harvest failed: {e}")
+        self._stats["spec_accepted"] += accepted
+        if self._observer is not None and snapshot:
+            self._observer(
+                phase="spec_decode", arch=self.model.cfg.name,
+                local_batch=tier, seq_len=k, seconds=now - self._spec_t0,
+                stats={"draft_k": k, "accepted": accepted,
+                       "acceptance_rate":
+                           accepted / max(1, k * len(snapshot))})
 
     def _cache_keys(self):
         """[(prefill_k, prefill_v, decode_k_cache, decode_v_cache)]."""

@@ -53,6 +53,14 @@ which ends the process with a traceback after ``TIMEOUT_S``.
     logits; a sampled engine's graphs (decode and prefill) write
     bitwise the ids, caches and tokens of the same steps run eagerly,
     and serve the interpreter's tokens.
+  * Speculative decode (chatglm3-6b cut in depth, dense and paged,
+    ``ngram`` and ``self``): each verify step replayed as a graph (and
+    each draft step of ``self``) writes bitwise the next ids, caches
+    (pages) and ``(u, n_emit, done)`` of the same steps run eagerly
+    through the slot IR; served with graphs, the mix gives the
+    interpreter's tokens, spec counters and launch counts, every spec
+    step one verify replay (and one draft replay), and no verify or
+    draft width lowers anything after ``warmup()``.
 """
 import gc
 import weakref
@@ -702,3 +710,101 @@ def test_sampled_graphs_replay_the_eager_steps_bitwise(cuda, served):
     assert got == {r.rid: list(r.output) for r in interp.run()}
     vocab = prog.model.cfg.vocab
     assert all(0 <= t < vocab for out in got.values() for t in out)
+
+
+# ---------------------------------------------------------------------------
+# speculative decode: the verify and draft steps as graphs
+# ---------------------------------------------------------------------------
+
+SPEC = [(cache, proposer, k) for cache in ("dense", "paged")
+        for proposer, k in (("ngram", 4), ("self", 2))]
+SPEC_COUNTERS = ("spec_steps", "spec_drafted", "spec_accepted",
+                 "spec_rollbacks", "spec_fallbacks", "page_denied",
+                 "decode_steps", "tier_steps")
+
+
+def _spec_cfg(cache, proposer, k, **kw):
+    from repro_torch.serve import SpecConfig
+    if cache == "paged":
+        return _paged_cfg(spec=SpecConfig(proposer=proposer, k=k), **kw)
+    return _engine_cfg(spec=SpecConfig(proposer=proposer, k=k), **kw)
+
+
+@pytest.fixture(scope="module")
+def spec_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    from repro_torch.api import compile as tcompile
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=2)
+    prog = tcompile(cfg, policy="sequential")
+    params = prog.init_params(0)
+    yield prog, params
+    del params
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache,proposer,k", SPEC)
+def test_spec_steps_replay_the_eager_slot_ir_bitwise(cuda, spec_model, cache,
+                                                     proposer, k):
+    prog, params = spec_model
+    graphed = prog.serve(params, _spec_cfg(cache, proposer, k))
+    eager = prog.serve(params, _spec_cfg(cache, proposer, k))
+    eager._graphed = False              # the same lowered steps, eagerly
+    state = _pool_state if cache == "paged" else (
+        lambda e: ({n: v.clone() for n, v in e.cache.caches.items()},
+                   e._last_ids.clone()))
+    for e in (graphed, eager):
+        _submit_mix(e, prog.model.cfg.vocab)
+    for _ in range(6):
+        for e in (graphed, eager):
+            e.step()
+        torch.cuda.synchronize()
+        _same_state(state(graphed), state(eager))
+        assert torch.equal(graphed._drafts, eager._drafts)
+    st = graphed.stats
+    assert st["verify_graph_replays"] == st["spec_steps"] > 0
+    assert st["draft_graph_replays"] == (
+        st["spec_steps"] if proposer == "self" else 0)
+    for e in (graphed, eager):
+        e.run()
+    assert {r.rid: r.output for r in graphed.finished} \
+        == {r.rid: r.output for r in eager.finished}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache,proposer,k", SPEC)
+def test_spec_serving_with_graphs_matches_the_interpreter(cuda, spec_model,
+                                                          cache, proposer, k):
+    prog, params = spec_model
+    runs = {}
+    for name, lowered in (("graphs", True), ("interpreter", False)):
+        engine = prog.serve(params, _spec_cfg(cache, proposer, k,
+                                              lowered=lowered))
+        engine.warmup()
+        misses = engine.store.stats["misses"]
+        _submit_mix(engine, prog.model.cfg.vocab)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        done = engine.run()
+        torch.cuda.synchronize()
+        runs[name] = (engine, {r.rid: list(r.output) for r in done},
+                      launch_counts(), engine.store.stats["misses"] - misses)
+    (g, got, got_n, g_miss), (e, want, want_n, _) = (runs["graphs"],
+                                                     runs["interpreter"])
+    assert got == want and got_n == want_n
+    assert all(len(got[i]) == n for i, n in enumerate(NEW_TOKENS))
+    gs, es = g.stats, e.stats
+    for key in SPEC_COUNTERS:
+        assert gs[key] == es[key], key
+    assert gs["verify_graph_replays"] == gs["spec_steps"] > 0
+    assert gs["draft_graph_replays"] == (
+        gs["spec_steps"] if proposer == "self" else 0)
+    assert gs["graph_replays"] == gs["decode_steps"] - gs["spec_steps"]
+    assert g_miss == 0                  # nothing lowered after warmup
+    assert all(b["misses"] == 0 for b in gs["spec_builds"].values())
+    assert gs["spec_graph_captures"] == len(g.tiers) * (
+        2 if proposer == "self" else 1)
+    if cache == "paged":
+        assert g.cache.pages_used() == 0
