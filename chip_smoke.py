@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Runs four models the repository supports at their full published width,
+Runs four models the repository supports at their full published width
+(and trains a fifth, smollm-135m: 30 layers, d_model 576, 9 q / 3 kv
+heads of 64, d_ff 1536, vocab 49152, tied embeddings; 135 M parameters),
 with random weights drawn from a seeded ``torch.Generator`` on the card:
 chatglm3-6b (28 layers, d_model 4096, 32 q / 2 kv heads, d_ff 13696,
 vocab 65024; ~6.2 B bf16 parameters, 12.5 GB), deepseek-moe-16b (28
@@ -15,7 +17,9 @@ Phases, each printing one JSON line:
 
   kernels   build the CUDA kernels from ``src/repro_torch/kernels/csrc``
             and hold each Hopper kernel against its plain PyTorch version
-            at each shape the main paths give it; time kernel, plain
+            at each shape the main paths give it (the three backward
+            kernels at the train phase's shapes, with SDPA's backward and
+            ``F.rms_norm``'s autograd as yardsticks); time kernel, plain
             version and the one-call PyTorch yardstick where there is one
             over back-to-back calls (``ms``: CUDA events, which measure
             the host where a call costs it more than the card), and
@@ -133,6 +137,18 @@ Phases, each printing one JSON line:
   ssm_serve each SSM model answers the same 4 requests (its decode starts
             from the cache rows as they are: neither package hands the
             recurrent state from prefill to decode)
+  train     smollm-135m cut to 2 layers at full width: ``Program.
+            train_step(2, 512)`` on the card against the CPU (loss, every
+            gradient leaf, one step's metrics); smollm-135m as published
+            (B=8 S=2048): ``dynamic`` (TokenWeave) against ``sequential``
+            on the first step's loss and gradients, 30 steps of
+            ``train_loop`` on one repeated ``SyntheticBackend`` batch
+            (the loss must fall by ``LOOP_MARGIN``), a crash at step 9
+            restored from the step-5 checkpoint repeating the uncrashed
+            losses, and the step's wall and device time, tokens/s, MFU,
+            peak memory and launches; then chatglm3-6b at full width cut
+            to 4 layers (B=2 S=2048, NanoFlow) the same way, without the
+            loop
 
 Each model phase zeroes the launch counts just before the run it checks
 and reads them just after; the ``kernels`` line reports their sum over
@@ -142,7 +158,7 @@ launched on some path.
 Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,
             serve,lifecycle,paged,sampling,spec,autotune,moe_reference,
             moe_transparency,moe_serve,ssm_reference,ssm_transparency,
-            ssm_serve]
+            ssm_serve,train]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
         torch.profiler breakdown of a warm prefill, eager and replayed
         as the engine's graph, of a window of decode steps, with graphs
@@ -197,6 +213,17 @@ TOL = {
     # to bf16, and two f32 values that straddle a rounding boundary land
     # one ulp (<= 2^-7 relative) apart
     "ssd_scan": dict(atol=1e-3, rtol=2 ** -7, l2=1e-2),
+    # dq, dk, dv: P and dS enter the tensor cores as bf16 (2^-9 relative
+    # each) where the plain version keeps f32 to the output, and each
+    # output sums up to S x (q heads a K/V head) such terms in another
+    # order before its one bf16 rounding: every element within
+    # atol_of_max * max|plain| + rtol * |plain|, relative L2 2e-2
+    "flash_attention_bwd": dict(atol_of_max=2e-2, rtol=2e-2, l2=2e-2),
+    # f32 row math in both (rsqrtf against torch.rsqrt, sums in another
+    # order), dx and dg rounded to bf16 once each: 2 ulps, and atol for
+    # the elements of dx where r (dh g) and k x cancel
+    "rmsnorm_bwd": dict(atol_of_max=2e-3, rtol=1.6e-2, l2=4e-3),
+    "fused_add_rmsnorm_bwd": dict(atol_of_max=2e-3, rtol=1.6e-2, l2=4e-3),
 }
 SEED = 0
 # phase-name prefix of each model family
@@ -341,6 +368,22 @@ def compare(name, pairs, pv=None):
     return dict(max_abs_err=err, rel_l2=l2, tolerance=tol, ok=ok)
 
 
+def compare_bwd(name, pairs):
+    """``compare`` for the backward kernels: every element within
+    ``atol_of_max`` times the plain output's largest magnitude plus
+    ``rtol`` of its own, and the relative L2 error within ``l2``."""
+    tol = TOL[name]
+    ok = True
+    for a, b in pairs:
+        a, b = a.float(), b.float()
+        allowed = tol["atol_of_max"] * b.abs().max() + tol["rtol"] * b.abs()
+        ok = ok and bool(((a - b).abs() <= allowed).all()) \
+            and rel_err(a, b) <= tol["l2"]
+    return dict(max_abs_err=max(max_err(a, b) for a, b in pairs),
+                rel_l2=max(rel_err(a, b) for a, b in pairs), tolerance=tol,
+                ok=ok)
+
+
 def kernel_row(name, route, source, replaces, cases):
     """One row of the kernels line from its cases, each a shape that a main
     path gives the kernel: every case is held to ``TOL[name]``, the first
@@ -405,6 +448,96 @@ def phase_kernels(dev, build_log=None):
                                             kv_head=kvh)],
                 [lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)]))
+
+    def flash_bwd(what, B, S, H, Hk, hd):
+        q, k, v = randn(B, S, H, hd), randn(B, S, Hk, hd), randn(B, S, Hk, hd)
+        do = randn(B, S, H, hd)
+        kvh = (torch.arange(H, device=dev) // (H // Hk)).to(torch.int32)
+        o, lse = fa._flash_fwd(q, k, v, True, kvh, lse=True)
+        lse_ref = fa.flash_attention_lse_plain(q, k, True, kvh)
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                     kv_head=kvh)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=True,
+                                           kv_head=kvh)
+        torch.cuda.synchronize()
+        # the yardstick: SDPA's backward alone (its forward graph kept)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        def kernel():
+            return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                          kv_head=kvh)
+        nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
+        return dict(
+            shape=f"{what}: B={B} S={S} H={H} Hkv={Hk} hd={hd} causal bf16",
+            lse_max_abs_err=max_err(lse, lse_ref),
+            **compare_bwd("flash_attention_bwd", list(zip(got, ref))),
+            ms=cuda_ms(kernel, iters=10),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, do, lse, causal=True, kv_head=kvh), iters=3),
+            # 2.5 times the forward's products, causal: half the tiles
+            **bound(10.0 * B * S * S * H * hd * 0.5, nbytes),
+            library_ms=cuda_ms(sdpa_bwd, iters=10),
+            **device_times([kernel], [sdpa_bwd]))
+
+    def norm_bwd(what, n, d):
+        x, gw, dh = randn(n, d), randn(d), randn(n, d)
+        got, ref = rn.rmsnorm_bwd(x, gw, dh), rn.rmsnorm_bwd_plain(x, gw, dh)
+        torch.cuda.synchronize()
+        xr, gr = (t.clone().requires_grad_() for t in (x, gw))
+        out = F.rms_norm(xr, (d,), gr, 1e-5)
+
+        def library():
+            return torch.autograd.grad(out, (xr, gr), dh, retain_graph=True)
+        return dict(
+            shape=f"{what}: n={n} d={d} bf16",
+            **compare_bwd("rmsnorm_bwd", list(zip(got, ref))),
+            ms=cuda_ms(lambda: rn.rmsnorm_bwd(x, gw, dh), iters=50),
+            plain_ms=cuda_ms(lambda: rn.rmsnorm_bwd_plain(x, gw, dh),
+                             iters=20),
+            # x and dh read, dx written; g read and dg written
+            **bound(8.0 * n * d, (3 * n * d + 2 * d) * 2),
+            library_ms=cuda_ms(library, iters=50),
+            **device_times([lambda: rn.rmsnorm_bwd(x, gw, dh)], [library]))
+
+    def fused_bwd(what, n, d):
+        x, y, gw, dh, dso = (randn(n, d), randn(n, d), randn(d), randn(n, d),
+                             randn(n, d))
+        s, _ = rn.fused_add_rmsnorm_plain(x, y, gw)
+        got = rn.fused_add_rmsnorm_bwd(s, gw, dh, dso)
+        ref = rn.fused_add_rmsnorm_bwd_plain(s, gw, dh, dso)
+        torch.cuda.synchronize()
+        xr, yr, gr = (t.clone().requires_grad_() for t in (x, y, gw))
+        s2 = torch.add(xr, yr)
+        h2 = F.rms_norm(s2, (d,), gr, rn.EPS)
+
+        def composition():
+            return torch.autograd.grad((s2, h2), (xr, yr, gr), (dso, dh),
+                                       retain_graph=True)
+        return dict(
+            shape=f"{what}: n={n} d={d} bf16",
+            **compare_bwd("fused_add_rmsnorm_bwd",
+                          [(got[0], ref[0]), (got[2], ref[2])]),
+            ms=cuda_ms(lambda: rn.fused_add_rmsnorm_bwd(s, gw, dh, dso),
+                       iters=50),
+            plain_ms=cuda_ms(lambda: rn.fused_add_rmsnorm_bwd_plain(
+                s, gw, dh, dso), iters=20),
+            # s, dh and ds_out read, ds written; g read and dg written
+            **bound(10.0 * n * d, (4 * n * d + 2 * d) * 2),
+            # no single PyTorch call computes it: the backward of
+            # torch.add then F.rms_norm is timed beside it as a yardstick
+            library_ms=None,
+            composition_ms=cuda_ms(composition, iters=50),
+            **device_times([lambda: rn.fused_add_rmsnorm_bwd(
+                s, gw, dh, dso)], [composition], name="composition"),
+            library_device_ms=None)
 
     def decode(what, H, Hk, B=4, S=4096, hd=128, lens=(4096, 2999, 1500, 17)):
         q = randn(B, 1, H, hd)
@@ -541,6 +674,7 @@ def phase_kernels(dev, build_log=None):
             **device_times([lambda: ssd.ssd_scan(*args)]))
 
     glm, m2, z2 = "chatglm3-6b", "mamba2-2.7b", "zamba2-1.2b"
+    sm = "smollm-135m"
     rows = [
         kernel_row("flash_attention", "cuda",
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -549,7 +683,9 @@ def phase_kernels(dev, build_log=None):
                           2, 2048, 32, 2),
                     flash(f"{z2} shared block prefill", 4, 2048, 32, 32),
                     # DBO runs the MoE layers' attention merged at B=4
-                    flash("deepseek-moe-16b prefill", 4, 2048, 16, 16)]),
+                    flash("deepseek-moe-16b prefill", 4, 2048, 16, 16),
+                    # the train step's forward (it also writes the LSE)
+                    flash(f"{sm} train B=8", 8, 2048, 9, 3, hd=64)]),
         kernel_row("decode_attention", "cuda",
                    "src/repro_torch/kernels/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:56",
@@ -572,7 +708,9 @@ def phase_kernels(dev, build_log=None):
                     # the prefill group and the first chunk group (4,
                     # 2048); the 2500-token prompt's final chunk (1, 512)
                     norm(f"{glm} (4, 2048) group", 8192, 4096),
-                    norm(f"{glm} final chunk (1, 512)", 512, 4096)]),
+                    norm(f"{glm} final chunk (1, 512)", 512, 4096),
+                    # the train step at smollm-135m's B=8 S=2048
+                    norm(f"{sm} train B=8", 16384, 576)]),
         # block_rows=256: the TokenWeave choice for >= 4096 tokens (16 and
         # 32 blocks); block_rows=32 fills the card (256 blocks): what the
         # knob costs on one stream
@@ -582,7 +720,9 @@ def phase_kernels(dev, build_log=None):
                    [fused(f"{glm} seq_parallel=False B=2", 4096, 4096),
                     fused(f"{z2} shared block B=4, TokenWeave", 8192, 4096),
                     fused(f"{z2} shared block B=4, full grid", 8192, 4096,
-                          block_rows=32)]),
+                          block_rows=32),
+                    # TokenWeave in the train step at smollm-135m's B=8
+                    fused(f"{sm} train B=8, TokenWeave", 16384, 576)]),
         # deepseek-moe-16b's 64 experts: the DBO prefill micro-batch
         # (capacity 480 of 4096 tokens), the decode tier (capacity 4),
         # Comet's chunk (a quarter of the 480-row buffer, in place) and
@@ -605,9 +745,27 @@ def phase_kernels(dev, build_log=None):
                    [scan(f"{m2} prefill", 4, 80, 128),
                     scan(f"{m2} NanoFlow half", 2, 80, 128),
                     scan(f"{z2} NanoFlow half", 2, 64, 64)]),
+        # the backward kernels, at the train phase's shapes
+        kernel_row("flash_attention_bwd", "cuda",
+                   "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "src/repro/models/layers.py:563",
+                   [flash_bwd(f"{sm} train", 8, 2048, 9, 3, 64),
+                    flash_bwd(f"{glm} train", 2, 2048, 32, 2, 128)]),
+        kernel_row("rmsnorm_bwd", "cuda",
+                   "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                   "src/repro/models/layers.py:170",
+                   [norm_bwd(f"{sm} train B=8", 16384, 576),
+                    norm_bwd(f"{glm} train B=2", 4096, 4096)]),
+        kernel_row("fused_add_rmsnorm_bwd", "cuda",
+                   "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                   "src/repro/kernels/ops.py:63",
+                   [fused_bwd(f"{sm} train B=8", 16384, 576),
+                    fused_bwd(f"{glm} train B=2", 4096, 4096)]),
     ]
     lib = _build.library()
     builds = ptxas_report(_build.BUILD_LOG, ("flash_fwd_kernel",
+                                             "flash_bwd_dkdv_kernel",
+                                             "flash_bwd_dq_kernel",
                                              "ffn_gemm_kernel",
                                              "ssd_scan_kernel",
                                              # bf16 x and g, each pack count
@@ -617,6 +775,9 @@ def phase_kernels(dev, build_log=None):
             lib.repro_flash_attention_info, 128),
         "flash_attention hd=64": _build.kernel_info(
             lib.repro_flash_attention_info, 64),
+        **{f"flash_attention_bwd {part} hd={hd}": _build.kernel_info(
+            lambda v, *a, w=w: lib.repro_flash_attention_bwd_info(v, w, *a),
+            hd) for hd in (64, 128) for w, part in ((0, "dk/dv"), (1, "dq"))},
         **{f"grouped_ffn {v}": _build.kernel_info(
             lib.repro_grouped_ffn_info, i) for i, v in enumerate(
             ("gate-up N>64", "down N>64", "gate-up N<=64", "down N<=64"))},
@@ -2570,6 +2731,298 @@ def phase_autotune(dev, params, gpu, totals, arch="chatglm3-6b"):
 
 
 # ---------------------------------------------------------------------------
+# phase: training
+# ---------------------------------------------------------------------------
+
+# the kernels every dense train step launches, and TokenWeave's pair
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "rmsnorm_bwd")
+FUSED_PAIR = ("fused_add_rmsnorm", "fused_add_rmsnorm_bwd")
+# the GPU (kernels) against the CPU (plain versions), and dynamic against
+# sequential: bf16 round-off.  The backward kernels round P and dS to
+# bf16 for the tensor cores, the card's LM head takes the bf16-rounded
+# softmax - onehot for its dx and dW products, TokenWeave normalizes the
+# unrounded f32 sum where sequential normalizes its bf16 rounding; each
+# gradient leaf sums such differences over every token
+TRAIN_TOL = dict(loss_rel=2e-3, grad_norm_rel=2e-2, leaf_rel_l2=5e-2)
+LOOP_STEPS, LOOP_LR, LOOP_WARMUP = 30, 1e-3, 3
+# The loss must fall: the mean of the last 5 steps below the first step's
+# loss by LOOP_MARGIN.  A CPU run of the same loop (the plain versions) on
+# smollm-135m cut to 2 layers, B=8 S=2048 under dynamic
+# (tools/train_loop_cpu.py --threads 4) fell from 10.9211 to a last-5
+# mean of 2.6674; the margin is a quarter of that drop, as the
+# full-depth model need not memorize the batch as fast
+LOOP_CPU_FIRST, LOOP_CPU_LAST5 = 10.9211, 2.6674
+LOOP_MARGIN = 0.25 * (LOOP_CPU_FIRST - LOOP_CPU_LAST5)
+CRASH_AT, CKPT_EVERY, CRASH_STEPS = 9, 5, 15
+# (B, S) of the GPU-against-CPU cut, smollm-135m and chatglm3-6b's cut
+CUT_SHAPE, SMOLLM_SHAPE, GLM_SHAPE = (2, 512), (8, 2048), (2, 2048)
+
+
+def train_batch(B, S, vocab, dev, seed=SEED):
+    """One ``SyntheticBackend`` batch (uniform tokens) with its positions."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticBackend
+    b = SyntheticBackend(vocab).batch(
+        DataConfig(seq_len=S, global_batch=B, seed=seed), 0)
+    pos = torch.arange(S, dtype=torch.int32).expand(B, S).contiguous()
+    return {"ids": torch.from_numpy(b["ids"]).to(dev),
+            "labels": torch.from_numpy(b["labels"]).to(dev),
+            "positions": pos.to(dev)}
+
+
+class RepeatedBatch:
+    """A pipeline that hands out one batch every step, with the cursor a
+    checkpoint saves and restores."""
+
+    def __init__(self, batch):
+        self.batch, self.step = batch, 0
+
+    def seek(self, step):
+        self.step = step
+
+    def state_dict(self):
+        return {"step": self.step}
+
+    def load_state_dict(self, st):
+        self.seek(int(st["step"]))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.step += 1
+        return self.batch
+
+
+def _copy_tree(tree, dev=None):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().to(dev or t.device, copy=True),
+                    tree)
+
+
+def grads_agree(got, want):
+    """(checks, ok) of two ``train_step.grads`` results: the loss and each
+    gradient leaf, finite, within ``TRAIN_TOL``."""
+    import torch
+
+    from repro_torch.tree import leaves_with_paths
+    (gg, (ls_g, c_g)), (gw, (ls_w, c_w)) = got, want
+    loss_g = float(ls_g) / max(float(c_g), 1.0)
+    loss_w = float(ls_w) / max(float(c_w), 1.0)
+    leaves_w = dict(leaves_with_paths(gw))
+    worst, finite = {}, True
+    for path, a in leaves_with_paths(gg):
+        b = leaves_w[path]
+        finite = finite and bool(torch.isfinite(a.float()).all())
+        worst["/".join(path)] = rel_err(a.to(b.device), b)
+    checks = {"loss": loss_g, "loss_want": loss_w,
+              "loss_rel_err": abs(loss_g - loss_w) / abs(loss_w),
+              "tokens": float(c_g), "finite": finite,
+              "leaf_rel_l2_max": max(worst.values()),
+              "leaf_rel_l2": worst}
+    ok = (finite and float(c_g) == float(c_w)
+          and checks["loss_rel_err"] < TRAIN_TOL["loss_rel"]
+          and checks["leaf_rel_l2_max"] < TRAIN_TOL["leaf_rel_l2"])
+    return checks, ok
+
+
+def train_flops(cfg, params, B, S):
+    """Model FLOPs of one train step: 6 N per token for the matmul
+    params (every param but an untied embedding table, which is a
+    lookup; a tied table is the head's matmul) plus the causal
+    attention's 2 (B S^2 H hd / 2) per layer forward, three times for the
+    forward and backward.  Recomputation under remat is not counted."""
+    from repro_torch.tree import leaves
+    n = sum(t.numel() for t in leaves(params))
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab * cfg.d_model
+    attn = 3 * 4.0 * B * S * S * cfg.n_heads * cfg.hd * 0.5 * cfg.n_layers
+    return 6.0 * n * B * S + attn, n
+
+
+def step_timings(step, params, opt, batch, cfg, totals, first_step):
+    """Warm timings of ``step``: wall ms a step (CUDA events over 3 steps),
+    the profiler's device ms a step and busy share, tokens/s, MFU, peak
+    memory and the launches of one step.  Trains ``params`` on."""
+    import torch
+    B, S = batch["ids"].shape
+    i = first_step
+    step(params, opt, batch, i)                   # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, m), launches = counted(totals, lambda: step(params, opt, batch,
+                                                       i + 1))
+    peak = torch.cuda.max_memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for j in range(3):
+        step(params, opt, batch, i + 2 + j)
+    end.record()
+    end.synchronize()
+    wall = start.elapsed_time(end) / 3
+    prof = _profile(lambda: step(params, opt, batch, i + 5), 2)
+    flops, n = train_flops(cfg, params, B, S)
+    return {"step_wall_ms": wall,
+            "step_device_ms": prof["device_ms_per_step"],
+            "device_busy_share": prof["device_busy_share"],
+            "kernel_launches_per_step": prof["kernel_launches_per_step"],
+            "top_device_ms_per_step": prof["top_device_ms_per_step"],
+            "tokens_per_s": B * S / (wall / 1e3),
+            "model_flops_per_step": flops, "matmul_params": n,
+            "mfu": flops / (wall / 1e3) / PEAK_BF16_FLOPS,
+            "peak_memory_gb": peak / 1e9,
+            "kernel_launches_one_step": launches,
+            "loss_after": float(m["loss"])}
+
+
+def phase_train_cut(dev, totals):
+    """smollm-135m at full width cut to 2 layers: ``Program.train_step(2,
+    512)`` on the card (kernels) against the same program on the CPU
+    (plain versions): loss, every gradient leaf, and one full step's
+    loss and grad_norm."""
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("smollm-135m"), n_layers=2)
+    prog = compile(cfg)
+    step = prog.train_step(*CUT_SHAPE)
+    params = prog.init_params(SEED, device="cpu", phase="train")
+    gpu_params = _copy_tree(params, dev)
+    batch = train_batch(*CUT_SHAPE, cfg.vocab, "cpu")
+    gpu_batch = {k: v.to(dev) for k, v in batch.items()}
+    want = step.fn.grads(params, batch)
+    got, counts = counted(totals, lambda: step.fn.grads(gpu_params,
+                                                        gpu_batch))
+    checks, ok = grads_agree(got, want)
+    del got, want
+    opt, gpu_opt = step.init_opt(params), step.init_opt(gpu_params)
+    _, _, m_cpu = step(params, opt, batch, 0)
+    _, _, m_gpu = step(gpu_params, gpu_opt, gpu_batch, 0)
+    metrics = {k: (float(m_gpu[k]), float(m_cpu[k])) for k in m_cpu}
+    gn_err = abs(metrics["grad_norm"][0] - metrics["grad_norm"][1]) \
+        / metrics["grad_norm"][1]
+    ok = (ok and gn_err < TRAIN_TOL["grad_norm_rel"]
+          and abs(metrics["loss"][0] - metrics["loss"][1])
+          < TRAIN_TOL["loss_rel"] * metrics["loss"][1]
+          and all(counts.get(k, 0) > 0 for k in TRAIN_KERNELS))
+    log({"phase": "train_cut",
+         "config": "smollm-135m at full width, 2 layers, B=%d S=%d, "
+                   "policy dynamic" % CUT_SHAPE, "strategies": step.strategies,
+         "grads": checks, "step_metrics_gpu_cpu": metrics,
+         "grad_norm_rel_err": gn_err, "kernel_launches": counts,
+         "tolerance": TRAIN_TOL, "ok": ok})
+    return ok
+
+
+def _dyn_seq_train(cfg, B, S, dev, totals, tcfg, want_strategy):
+    """``dynamic`` against ``sequential`` on one batch from the same
+    params: (dynamic step, params, batch, record, ok)."""
+    from repro_torch.api import compile
+    dyn = compile(cfg, policy="dynamic").train_step(B, S, cfg=tcfg)
+    seq = compile(cfg, policy="sequential").train_step(B, S, cfg=tcfg)
+    params = compile(cfg).init_params(SEED, phase="train")
+    batch = train_batch(B, S, cfg.vocab, dev)
+    want = seq.fn.grads(params, batch)
+    got, counts = counted(totals, lambda: dyn.fn.grads(params, batch))
+    checks, ok = grads_agree(got, want)
+    del got, want
+    fused = dyn.strategies.get("layers") == "tokenweave"
+    ok = (ok and dyn.strategies.get("layers") == want_strategy
+          and all(counts.get(k, 0) > 0 for k in TRAIN_KERNELS)
+          # a run that fuses nothing must not pass as having fused
+          and all((counts.get(k, 0) > 0) == fused for k in FUSED_PAIR))
+    rec = {"dynamic_strategies": dyn.strategies,
+           "first_step_dynamic_vs_sequential": checks,
+           "first_step_launches": counts}
+    return dyn, params, batch, rec, ok
+
+
+def phase_train(dev, totals):
+    """smollm-135m as published (B=8, S=2048): dynamic against sequential,
+    the loss falling over a loop on one repeated batch, crash-restart;
+    then chatglm3-6b at full width cut to 4 layers (B=2, S=2048)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.ft import FailureSimulator
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainLoopConfig, TrainStepConfig,
+                                   train_loop)
+    ok = phase_train_cut(dev, totals)
+
+    cfg = get_config("smollm-135m")
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=LOOP_LR),
+                           warmup=LOOP_WARMUP, total_steps=LOOP_STEPS)
+    dyn, params, batch, rec, this_ok = _dyn_seq_train(
+        cfg, *SMOLLM_SHAPE, dev, totals, tcfg, "tokenweave")
+    init = _copy_tree(params)
+    loop_cfg = TrainLoopConfig(steps=LOOP_STEPS, log_every=10 ** 9)
+    t0 = time.perf_counter()
+    p, o, hist = train_loop(dyn.fn, params, dyn.init_opt(params),
+                            RepeatedBatch(batch), loop_cfg)
+    loop_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    last5 = sum(losses[-5:]) / 5
+    falls = last5 < losses[0] - LOOP_MARGIN
+    # crash at CRASH_AT, restored from the checkpoint at step CKPT_EVERY
+    with tempfile.TemporaryDirectory() as ckpt:
+        sim = FailureSimulator(crash_steps=(CRASH_AT,))
+        cp = _copy_tree(init)
+        _, _, chist = train_loop(
+            dyn.fn, cp, dyn.init_opt(cp), RepeatedBatch(batch),
+            TrainLoopConfig(steps=CRASH_STEPS, ckpt_dir=ckpt,
+                            ckpt_every=CKPT_EVERY, log_every=10 ** 9),
+            failure_sim=sim)
+    restart = chist[CRASH_AT:]
+    rerun_steps = [h["step"] for h in restart]
+    crash_err = max(abs(h["loss"] - losses[h["step"]]) / losses[h["step"]]
+                    for h in restart)
+    crash_ok = (sim.injected == [("crash", CRASH_AT)]
+                and rerun_steps == list(range(CKPT_EVERY, CRASH_STEPS))
+                and crash_err < 1e-4)
+    timings = step_timings(dyn.fn, p, o, batch, cfg, totals, LOOP_STEPS)
+    this_ok = this_ok and falls and crash_ok
+    ok = ok and this_ok
+    log({"phase": "train", "config": "smollm-135m as published, B=%d "
+         "S=%d, TrainStepConfig(lr=1e-3, warmup=3, total_steps=30, "
+         "remat)" % SMOLLM_SHAPE, **rec,
+         "loop": {"steps": LOOP_STEPS, "losses": losses,
+                  "first": losses[0], "last5_mean": last5,
+                  "margin": LOOP_MARGIN, "falls": falls, "loop_s": loop_s,
+                  "step_time_s": [h["step_time_s"] for h in hist]},
+         "crash_restart": {"crash_at": CRASH_AT, "ckpt_every": CKPT_EVERY,
+                           "steps_rerun": rerun_steps,
+                           "max_loss_rel_err_vs_uncrashed": crash_err,
+                           "ok": crash_ok},
+         **timings, "tolerance": dict(TRAIN_TOL, crash_loss_rel=1e-4),
+         "ok": this_ok})
+    del dyn, params, p, o, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=4)
+    dyn, params, batch, rec, this_ok = _dyn_seq_train(
+        cfg, *GLM_SHAPE, dev, totals, TrainStepConfig(), "nanoflow")
+    timings = step_timings(dyn.fn, params, dyn.init_opt(params), batch, cfg,
+                           totals, 0)
+    ok = ok and this_ok
+    log({"phase": "train_chatglm3", "config": "chatglm3-6b at full width, "
+         "4 layers, B=%d S=%d, TrainStepConfig() (remat)" % GLM_SHAPE, **rec,
+         **timings, "tolerance": TRAIN_TOL, "ok": this_ok})
+    del dyn, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # phase 5 (optional): where the time goes
 # ---------------------------------------------------------------------------
 
@@ -2754,7 +3207,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="kernels,reference,transparency,"
                     "serve,lifecycle,paged,sampling,spec,autotune,"
                     "moe_reference,moe_transparency,moe_serve,ssm_reference,"
-                    "ssm_transparency,ssm_serve")
+                    "ssm_transparency,ssm_serve,train")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")
     args = ap.parse_args(argv)
@@ -2791,6 +3244,8 @@ def main(argv=None) -> int:
     gc.collect()          # the MoE params go before the SSM models'
     torch.cuda.empty_cache()
     ok = run_ssm(phases, dev, gpu, totals) and ok
+    if "train" in phases:
+        ok = phase_train(dev, totals) and ok
     model_phases = phases - {"kernels"}
     for r in kernel_rows:
         r["launches"] = totals.get(r["name"], 0) if model_phases else None

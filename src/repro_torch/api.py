@@ -5,6 +5,9 @@
     params  = program.init_params(0)                  # on the GPU
     step    = program.prefill(2, 2048)                # step(params, batch)
     engine  = program.serve(params, ServeConfig(max_batch=4))
+    train   = program.train_step(8, 2048)             # training
+    opt     = train.init_opt(params)
+    params, opt, metrics = train(params, opt, batch, 0)   # in place
 
 The :class:`Program` resolves the ``ScheduleContext`` from shapes, so
 callers never build one by hand, and accepts a ``StrategyPolicy``, a bare
@@ -62,6 +65,7 @@ class CompiledStep:
     fn: Callable
     segments: Any = None
     batch_inputs: Any = None
+    init_opt: Optional[Callable] = None    # train steps: the optimizer state
 
     def __call__(self, *args, **kwargs):
         return self.fn(*args, **kwargs)
@@ -357,11 +361,34 @@ class Program:
         return ScheduleContext(local_batch=B, global_batch=B, seq_len=S,
                                phase=phase, arch=self.model.cfg.name)
 
-    def init_params(self, seed: int = 0, device=None) -> dict:
+    def init_params(self, seed: int = 0, device=None,
+                    phase: str = "prefill") -> dict:
         """Random parameter tree from ``seed`` on ``device`` (default: the
-        program's device, else the GPU)."""
+        program's device, else the GPU), drawn for ``phase``'s segments
+        (every phase's tree has the same layout)."""
         dev = resolve_device(device if device is not None else self.device)
-        return self.model.init_params(seed, device=dev)
+        return self.model.init_params(seed, device=dev, phase=phase)
+
+    def train_step(self, global_batch: int, seq_len: int, *, cfg=None,
+                   remat_policy: str = "full") -> CompiledStep:
+        """Build the train step for a (batch, seq) bucket on one device.
+
+        Returns a :class:`CompiledStep` whose ``fn(params, opt, batch,
+        step) -> (params, opt, metrics)`` updates ``params`` and ``opt``
+        in place (``train/step.py``), with ``init_opt``, ``segments`` and
+        ``batch_inputs``.  Its plans lower through the program's PlanStore
+        and are verified under the program's ``verify`` mode, like
+        ``prefill``'s.  ``cfg``: a ``TrainStepConfig`` (default: remat
+        under ``remat_policy``)."""
+        from .train.step import TrainStepConfig, _build_train_step
+        tcfg = cfg or TrainStepConfig(remat=True, remat_policy=remat_policy)
+        fn, segs, binputs, init_opt = _build_train_step(
+            self.model, self.policy, global_batch, seq_len, tcfg,
+            self._context("train", global_batch, seq_len),
+            plan_store=self.store, **self._verify_args())
+        self.checkpoint()
+        return CompiledStep(fn=fn, segments=segs, batch_inputs=binputs,
+                            init_opt=init_opt)
 
     def prefill(self, global_batch: int, seq_len: int, *,
                 s_max: Optional[int] = None) -> CompiledStep:

@@ -202,6 +202,18 @@ class Module:
                 out[name] = sub
         return out
 
+    def param_pspecs(self) -> dict:
+        """Nested dict of partition-spec tuples (the mesh axes each param
+        is sharded over)."""
+        out = {}
+        for name, p in self._params.items():
+            out[name] = p.pspec
+        for name, c in self._children.items():
+            sub = c.param_pspecs()
+            if sub:
+                out[name] = sub
+        return out
+
     # -- execution ----------------------------------------------------------
     def forward(self, *args, **kw):
         raise NotImplementedError(type(self).__name__)

@@ -95,3 +95,26 @@ def all_to_all(x, axis: str, split_dim: int, concat_dim: int):
     outs = [torch.empty_like(p) for p in ins]
     _dist().all_to_all(outs, ins, group=_AXES[axis])
     return torch.cat(outs, dim=concat_dim)
+
+
+def compressed_psum(x, axis: str, err=None):
+    """int8 block-quantized psum with error feedback (the port of
+    ``src/repro/dist/collectives.py:compressed_psum``).
+
+    The quantization residual is carried in ``err`` and re-injected next
+    step, so the *accumulated* compressed sum is unbiased (the standard
+    EF-SGD guarantee).  Scales are pmax'd across the axis so every
+    participant dequantizes identically.  Unbound, ``pmax`` and ``psum``
+    are the identity but the quantization is not: the value still goes
+    through its int8 codes.  Returns ``(reduced, new_err)``; types
+    promote as the JAX package's do (a bf16 ``x`` plus an f32 ``err``
+    sums in f32, and ``new_err`` takes ``x``'s dtype)."""
+    val = x if err is None else x + err
+    f32 = val.float()
+    scale = pmax(f32.abs().max(), axis) / 127.0
+    scale = torch.clamp_min(scale, torch.finfo(torch.float32).tiny)
+    q = torch.clamp(torch.round(f32 / scale), -127, 127).to(torch.int8)
+    deq_local = q.float() * scale
+    new_err = (f32 - deq_local).to(x.dtype)
+    reduced = psum(q.to(torch.int32), axis).float() * scale
+    return reduced.to(x.dtype), new_err

@@ -22,16 +22,27 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "grouped_ffn.cu",
-           "ssd_scan.cu", "rmsnorm.cu", "fused_add_rmsnorm.cu")
+           "ssd_scan.cu", "rmsnorm.cu", "fused_add_rmsnorm.cu",
+           "flash_attention_bwd.cu", "rmsnorm_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "repro_flash_attention_fwd": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_LL),
-         _I, _F, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         ctypes.POINTER(_LL), _I, _F, _P], _I),
     "repro_flash_attention_info": ([_I, _P, _P, _P], _I),
+    "repro_flash_attention_bwd": (
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         ctypes.POINTER(_LL), _I, _F, _P], _I),
+    "repro_flash_attention_bwd_info": ([_I, _I, _P, _P, _P], _I),
+    "repro_norm_bwd_blocks": ([_I], _I),
+    "repro_rmsnorm_bwd": (
+        [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL, _F, _P], _I),
+    "repro_fused_add_rmsnorm_bwd": (
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL, _LL, _F, _P],
+        _I),
     "repro_decode_attention_fwd": (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
          ctypes.POINTER(_LL), _F, _P], _I),

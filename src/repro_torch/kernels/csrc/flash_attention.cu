@@ -36,6 +36,10 @@
 // The epilogue divides by l, writes each warpgroup's 64 rows into its
 // (spent) rows of the Q buffer in the swizzled box layout and stores them
 // by TMA, which clips the rows past Sq; then the Q buffer may refill.
+// When a gradient is to follow, the epilogue also writes each row's
+// log-sum-exp (f32, natural log) into a (B, H, Sq) buffer, from which the
+// backward (flash_attention_bwd.cu) recomputes the probabilities; the
+// serve path passes no buffer and writes nothing more.
 // Q/K/V/O are rank-4 tensor maps (hd, heads, seq, batch) with their real
 // strides, so fused-QKV views are read in place and the boxes are
 // zero-filled past the sequence's end.  An hd=128 row tile is two
@@ -95,7 +99,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap to,
                  const int* __restrict__ kv_head, int* __restrict__ counter,
-                 int BH, int H, int Sq, int Sk, int causal, float scale_log2) {
+                 float* __restrict__ lse, int BH, int H, int Sq, int Sk,
+                 int causal, float scale_log2) {
   using C = FlashCfg<HD>;
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
@@ -296,6 +301,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float inv = l > 0.f ? 1.f / l : 0.f;
       const int r = acc_row(t) + 8 * i;
+      // the row's log-sum-exp of the scaled scores, natural log, for the
+      // backward (only when asked for: a null ``lse`` skips it); a row
+      // with no key gets +inf, so that its probabilities recompute as 0
+      if (lse != nullptr && (t & 3) == 0 && m0 + cw * 64 + r < Sq)
+        lse[((size_t)b * H + h) * Sq + m0 + cw * 64 + r] =
+            l > 0.f ? (m_run[i] * scale_log2 + __log2f(l)) * 0.69314718f
+                    : INFINITY;
 #pragma unroll
       for (int jj = 0; jj < HD / 8; ++jj) {
         const int c = 8 * jj + col0;
@@ -320,8 +332,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int HD>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
-                 const int* kv_head, int* counter, int B, int H, int Hk,
-                 int Sq, int Sk,
+                 const int* kv_head, int* counter, float* lse, int B, int H,
+                 int Hk, int Sq, int Sk,
                  const long long* st, int causal, float scale_log2,
                  cudaStream_t stream) {
   using C = FlashCfg<HD>;
@@ -363,7 +375,8 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
   }
   const int n_total = (Sq + BM - 1) / BM * B * H;
   flash_fwd_kernel<HD><<<min(n_total, n_sm), NTHREADS, C::SMEM, stream>>>(
-      tq, tk, tv, to, kv_head, counter, B * H, H, Sq, Sk, causal, scale_log2);
+      tq, tk, tv, to, kv_head, counter, lse, B * H, H, Sq, Sk, causal,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -384,12 +397,15 @@ extern "C" {
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn;
 // q, k, v need a unit hd stride, 16-byte aligned bases and strides that
-// are multiples of 8 elements.  Returns cudaGetLastError() after the
-// launch, or the error of the tensor-map encoding (0 on success).
+// are multiples of 8 elements.  ``lse`` (may be null): a contiguous f32
+// (B, H, Sq) tensor that receives each row's log-sum-exp, which the
+// backward (flash_attention_bwd.cu) recomputes the probabilities from.
+// Returns cudaGetLastError() after the launch, or the error of the
+// tensor-map encoding (0 on success).
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                               void* o, const void* kv_head, void* counter,
-                              int B, int H, int Hk, int Sq, int Sk, int hd,
-                              const long long* strides, int causal,
+                              void* lse, int B, int H, int Hk, int Sq, int Sk,
+                              int hd, const long long* strides, int causal,
                               float scale_log2, void* stream) {
   if (B < 1 || H < 1 || Hk < 1 || Sq < 1 || Sk < 1 ||
       (long long)B * H * ((Sq + BM - 1) / BM) > 0x7fffffffLL)
@@ -397,12 +413,13 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kvh = static_cast<const int*>(kv_head);
   int* ctr = static_cast<int*>(counter);
+  float* l = static_cast<float*>(lse);
   if (hd == 128)
-    return launch_flash<128>(q, k, v, o, kvh, ctr, B, H, Hk, Sq, Sk, strides,
-                             causal, scale_log2, s);
+    return launch_flash<128>(q, k, v, o, kvh, ctr, l, B, H, Hk, Sq, Sk,
+                             strides, causal, scale_log2, s);
   if (hd == 64)
-    return launch_flash<64>(q, k, v, o, kvh, ctr, B, H, Hk, Sq, Sk, strides,
-                            causal, scale_log2, s);
+    return launch_flash<64>(q, k, v, o, kvh, ctr, l, B, H, Hk, Sq, Sk,
+                            strides, causal, scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,6 +22,19 @@ through a ring of shared-memory stages filled by bulk copies, with up to
 20 consumer warps on several rows at once (``fused_geometry``).  Neither
 kernel is built when this module is imported: the CPU tests import it on
 machines without ``nvcc``.
+
+Both are differentiable.  Where a gradient is to flow, ``rmsnorm`` and
+``fused_add_rmsnorm`` run the autograd Functions ``RMSNorm`` and
+``FusedAddRMSNorm``, whose backwards launch the two entry points of
+``csrc/rmsnorm_bwd.cu`` on a CUDA tensor (``rmsnorm_bwd``,
+``fused_add_rmsnorm_bwd``) and run their plain versions on the CPU:
+
+  rmsnorm_bwd            dx along the unrounded chain, as JAX's autodiff
+                         of ``RMSNormOp.kernel`` has it; dg = sum over
+                         rows of dh * (x * r rounded to x's dtype)
+  fused_add_rmsnorm_bwd  ``src/repro/kernels/ops.py:_farn_bwd``: on the
+                         residual s, ds = ds_out + d(h)/ds, dg = sum of
+                         dh * s * r; returns (ds, ds, dg)
 """
 from __future__ import annotations
 
@@ -45,6 +58,36 @@ def fused_add_rmsnorm_plain(x, y, g, *, eps: float = EPS):
     var = torch.mean(s * s, dim=-1, keepdim=True)
     h = s * torch.rsqrt(var + eps)
     return s.to(x.dtype), h.to(x.dtype) * g
+
+
+def rmsnorm_bwd_plain(x, g, dh, *, eps: float = EPS):
+    """Plain backward of ``rmsnorm``: (dx, dg), f32 row math, dx in x's
+    dtype and dg in g's."""
+    xf, dhg = x.float(), dh.float() * g.float()
+    d = x.shape[-1]
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    dx = r * dhg - (r ** 3 / d) * xf * torch.sum(dhg * xf, -1, keepdim=True)
+    xr = (xf * r).to(x.dtype).float()
+    dg = torch.sum((dh.float() * xr).reshape(-1, d), dim=0)
+    return dx.to(x.dtype), dg.to(g.dtype)
+
+
+def fused_add_rmsnorm_bwd_plain(s, g, dh, ds_out, *, eps: float = EPS):
+    """Plain backward of ``fused_add_rmsnorm`` (the port of
+    ``src/repro/kernels/ops.py:_farn_bwd``): from the forward's residual
+    ``s`` and the cotangents of h (``dh``) and of s (``ds_out``), returns
+    (ds, ds, dg) — the gradient of x and of y is the same — in s's and
+    g's dtypes."""
+    n = s.shape[-1]
+    sf, dhf, gf = s.float(), dh.float(), g.float()
+    var = torch.mean(sf * sf, dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    dg = torch.sum((dhf * sf * r).reshape(-1, n), dim=0).to(g.dtype)
+    dhg = dhf * gf
+    ds_h = r * dhg - (r ** 3 / n) * sf * torch.sum(dhg * sf, -1,
+                                                   keepdim=True)
+    ds = (ds_out.float() + ds_h).to(s.dtype)
+    return ds, ds, dg
 
 
 _FLOATS = (torch.bfloat16, torch.float16, torch.float32)
@@ -133,8 +176,18 @@ def _check(name, x, g, *others):
             raise ValueError(f"{name}: operands must be (n, d) row-major")
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def rmsnorm(x, g, *, eps: float = EPS):
     """RMSNorm over the rows of ``x`` (n, d), one or four warps a row."""
+    if _wants_grad(x, g):
+        return RMSNorm.apply(x, g, eps)
+    return _rmsnorm_fwd(x, g, eps)
+
+
+def _rmsnorm_fwd(x, g, eps):
     if x.device.type != "cuda":
         return rmsnorm_plain(x, g, eps=eps)
     from ._build import check, library
@@ -158,6 +211,12 @@ def rmsnorm(x, g, *, eps: float = EPS):
 def fused_add_rmsnorm(x, y, g, *, eps: float = EPS, block_rows: int = 256):
     """(x + y, rmsnorm(x + y) * g) over the rows of x, y (n, d), in
     ceil(n / block_rows) blocks (TokenWeave's CTA count)."""
+    if _wants_grad(x, y, g):
+        return FusedAddRMSNorm.apply(x, y, g, eps, block_rows)
+    return _fused_fwd(x, y, g, eps, block_rows)
+
+
+def _fused_fwd(x, y, g, eps, block_rows):
     if x.device.type != "cuda":
         return fused_add_rmsnorm_plain(x, y, g, eps=eps)
     from ._build import check, library
@@ -182,3 +241,103 @@ def fused_add_rmsnorm(x, y, g, *, eps: float = EPS, block_rows: int = 256):
     check(rc, "fused_add_rmsnorm")
     LAUNCHES["fused_add_rmsnorm"] += 1
     return s, h
+
+
+def _bwd_operands(name, x, g, *others):
+    """The backward kernels' checks: bf16 (n, d) rows, bf16 g (d,)."""
+    _check(name, x, g, *others)
+    for t in (x, g) + others:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} kernel takes bf16, got {t.dtype}")
+    norm_geometry(x.shape[1])            # the widths the kernels take
+    return [kernel_ready(t) for t in (x, g) + others]
+
+
+def _bwd_out(x, g):
+    from ._build import library
+    n, d = x.shape
+    work = torch.empty((library().repro_norm_bwd_blocks(max(n, 1)), d),
+                       dtype=torch.float32, device=x.device)
+    return (torch.empty((n, d), dtype=x.dtype, device=x.device),
+            torch.empty((d,), dtype=g.dtype, device=x.device), work)
+
+
+def rmsnorm_bwd(x, g, dh, *, eps: float = EPS):
+    """(dx, dg) of ``rmsnorm`` at cotangent ``dh``: the kernel of
+    ``csrc/rmsnorm_bwd.cu`` on CUDA tensors, the plain version on the
+    CPU."""
+    if x.device.type != "cuda":
+        return rmsnorm_bwd_plain(x, g, dh, eps=eps)
+    from ._build import check, library
+    x, g, dh = _bwd_operands("rmsnorm_bwd", x, g, dh)
+    dx, dg, work = _bwd_out(x, g)
+    if x.shape[0] == 0:
+        return dx, dg.zero_()
+    rc = library().repro_rmsnorm_bwd(
+        x.data_ptr(), g.data_ptr(), dh.data_ptr(), dx.data_ptr(),
+        dg.data_ptr(), work.data_ptr(), x.shape[0], x.shape[1], x.stride(0),
+        dh.stride(0), dx.stride(0), eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(rc, "rmsnorm_bwd")
+    LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dg
+
+
+def fused_add_rmsnorm_bwd(s, g, dh, ds_out, *, eps: float = EPS):
+    """(ds, ds, dg) of ``fused_add_rmsnorm`` from its residual ``s``: the
+    kernel of ``csrc/rmsnorm_bwd.cu`` on CUDA tensors (one ds, handed out
+    twice), the plain version on the CPU."""
+    if s.device.type != "cuda":
+        return fused_add_rmsnorm_bwd_plain(s, g, dh, ds_out, eps=eps)
+    from ._build import check, library
+    s, g, dh, ds_out = _bwd_operands("fused_add_rmsnorm_bwd", s, g, dh,
+                                     ds_out)
+    ds, dg, work = _bwd_out(s, g)
+    if s.shape[0] == 0:
+        return ds, ds, dg.zero_()
+    rc = library().repro_fused_add_rmsnorm_bwd(
+        s.data_ptr(), g.data_ptr(), dh.data_ptr(), ds_out.data_ptr(),
+        ds.data_ptr(), dg.data_ptr(), work.data_ptr(), s.shape[0],
+        s.shape[1], s.stride(0), dh.stride(0), ds_out.stride(0), ds.stride(0),
+        eps, torch.cuda.current_stream(s.device).cuda_stream)
+    check(rc, "fused_add_rmsnorm_bwd")
+    LAUNCHES["fused_add_rmsnorm_bwd"] += 1
+    return ds, ds, dg
+
+
+class RMSNorm(torch.autograd.Function):
+    """``rmsnorm`` with its gradient (``rmsnorm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, g, eps):
+        ctx.save_for_backward(x, g)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, g, eps)
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, g = ctx.saved_tensors
+        dx, dg = rmsnorm_bwd(x, g, dh, eps=ctx.eps)
+        return dx, dg, None
+
+
+class FusedAddRMSNorm(torch.autograd.Function):
+    """``fused_add_rmsnorm`` with its gradient: the residual s is what the
+    backward keeps, as ``_farn_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, y, g, eps, block_rows):
+        s, h = _fused_fwd(x, y, g, eps, block_rows)
+        ctx.save_for_backward(s, g)
+        ctx.eps = eps
+        return s, h
+
+    @staticmethod
+    def backward(ctx, ds_out, dh):
+        s, g = ctx.saved_tensors
+        if ds_out is None:
+            ds_out = torch.zeros_like(s)
+        if dh is None:
+            dh = torch.zeros_like(s)
+        dx, dy, dg = fused_add_rmsnorm_bwd(s, g, dh, ds_out, eps=ctx.eps)
+        return dx, dy, dg, None, None

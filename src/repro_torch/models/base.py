@@ -13,10 +13,18 @@ Conventions
     (written in place, so the stacked cache is the collected output).
   * prefill:       extra outputs (k, v) collected into a stacked
     ``(n_layers, B, S, kv, hd)`` buffer.
+  * train:         inputs {ids, labels, positions}; the head's outputs are
+    per-sample (loss_sum, token_count), which the train step
+    differentiates (``train/step.py``).  The layer loop takes each
+    layer's views of the stacked params once a call (``unbind``, whose
+    backward stacks the layers' gradients once) and, under ``remat``,
+    recomputes a layer's forward in the backward
+    (``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 from typing import Optional, Sequence
 
@@ -30,10 +38,11 @@ from ..core.module import Module, TensorSpec, fold_seed
 from ..core.verify import VerifyReport, enforce, verify_lowered
 from ..core.verify import verify as run_verify
 from ..device import resolve_device
+from ..tree import tree_map
 from .layers import (AddOp, AllGatherOp, AttentionOp, DecodeAttentionOp,
-                     EmbedOp, HeadLayout, LmHeadOp, MeshInfo, MLPBlock, OProj,
-                     PsumOp, QKVProj, ReduceScatterOp, RMSNormOp, RopeOp,
-                     TakeLastOp)
+                     EmbedOp, HeadLayout, HeadLossOp, LmHeadOp, MeshInfo,
+                     MLPBlock, OProj, PsumOp, QKVProj, ReduceScatterOp,
+                     RMSNormOp, RopeOp, TakeLastOp)
 
 
 # ---------------------------------------------------------------------------
@@ -70,18 +79,70 @@ class Segment:
 
 
 def _layer_slice(tree, i):
+    """Layer ``i``'s views of a stacked param tree."""
     if isinstance(tree, dict):
         return {k: _layer_slice(v, i) for k, v in tree.items()}
     return None if tree is None else tree[i]
 
 
+def _layer_views(tree, count: int) -> list:
+    """Each of the first ``count`` layers' views of a stacked param tree,
+    taken with one ``unbind`` a tensor: its backward stacks the layers'
+    gradients once, where indexing each layer would build a zero tensor
+    the size of the whole stack for every layer."""
+    if isinstance(tree, dict):
+        subs = {k: _layer_views(v, count) for k, v in tree.items()}
+        return [{k: v[i] for k, v in subs.items()} for i in range(count)]
+    if tree is None:
+        return [None] * count
+    return list(tree.unbind(0)[:count])
+
+
+REMAT_POLICIES = ("full", "dots")
+# the products "dots" keeps for the backward (the JAX package's
+# ``checkpoint_dots``); every other op of a layer is recomputed
+_DOTS = ("mm", "bmm", "addmm", "baddbmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    name = getattr(op, "__name__", "").split(".")[0]
+    return (CheckpointPolicy.MUST_SAVE if name in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_call(fn, policy: str, *args):
+    """``fn(*args)`` whose activations the backward recomputes:
+    ``"full"`` keeps none, ``"dots"`` keeps the matmul outputs."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 @dataclasses.dataclass
 class Forward:
-    """A realized forward pass over segments with per-segment plans."""
+    """A realized forward pass over segments with per-segment plans.
+
+    ``remat`` recomputes each layer of a layer stack in the backward
+    (``torch.utils.checkpoint`` over the layer's realized plan; the JAX
+    package's ``jax.checkpoint`` of its scan body) under
+    ``remat_policy`` "full" (keep nothing) or "dots" (keep the matmul
+    outputs); it acts only where a gradient is being recorded."""
 
     segments: list
     realizers: dict                # key -> Realizer
     strategies: dict = dataclasses.field(default_factory=dict)  # key -> name
+    remat: bool = False
+    remat_policy: str = "full"
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                             f"got {self.remat_policy!r}")
 
     def __call__(self, params, batch: dict,
                  depth: Optional[int] = None) -> dict:
@@ -116,15 +177,18 @@ class Forward:
             static_ins = {k: _env(k) for k in g.inputs
                           if k not in seg.carry and k not in seg.scan_inputs}
             stacked_in = {k: _env(k) for k in seg.scan_inputs}
-            stacked_params = params.get(seg.name)
             carry = {k: _env(k) for k in seg.carry}
             ys: dict = {}
             count = seg.count if depth is None else min(seg.count, depth)
+            layer_params = _layer_views(params.get(seg.name), count)
+            remat = self.remat and torch.is_grad_enabled()
             for i in range(count):
                 ins = dict(static_ins)
                 ins.update(carry)
                 ins.update({k: v[i] for k, v in stacked_in.items()})
-                out = rz(_layer_slice(stacked_params, i), ins)
+                out = (_remat_call(rz, self.remat_policy, layer_params[i],
+                                   ins) if remat
+                       else rz(layer_params[i], ins))
                 carry = {k: out[k] for k in seg.carry}
                 for k in seg.scan_outputs:
                     _collect(ys, k, i, out[k], count, stacked_in.get(k))
@@ -160,7 +224,9 @@ def build_forward(segments: Sequence[Segment],
                   plan_cache=None,
                   op_config=(),
                   capture: bool = False,
-                  verify_sink: Optional[list] = None) -> Forward:
+                  verify_sink: Optional[list] = None,
+                  remat: bool = False,
+                  remat_policy: str = "full") -> Forward:
     """Partition + schedule every segment graph, returning the Forward.
 
     ``scheduler`` may be an ``OpSchedulerBase``, a ``StrategyPolicy``, or
@@ -187,7 +253,8 @@ def build_forward(segments: Sequence[Segment],
     ``op_config`` (``LMBase.op_closure_config()``) enters the store's
     outer key: what the op callables close over that the graph cannot
     show.  ``capture`` marks the plans of a step that is captured as a
-    CUDA Graph (``core.plan_store.bucket_key``).
+    CUDA Graph (``core.plan_store.bucket_key``).  ``remat`` /
+    ``remat_policy``: see ``Forward``.
     """
     from ..core.plan import strategy_salt
     from ..core.policy import as_policy, resolve_strategy
@@ -226,7 +293,8 @@ def build_forward(segments: Sequence[Segment],
                 verify_sink.append((f"{info.phase}/{seg.key}", report))
         strategies[seg.key] = getattr(sched, "name", type(sched).__name__)
         segs.append(seg)
-    return Forward(segs, realizers, strategies)
+    return Forward(segs, realizers, strategies, remat=remat,
+                   remat_policy=remat_policy)
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +402,29 @@ class DenseDecodeLayer(Module):
         return {"x": x, "k_cache": kc, "v_cache": vc}
 
 
+class TrainHead(Module):
+    """Train head: final norm, then the chunked LM head + cross entropy
+    (``HeadLossOp``): per-sample (loss_sum, token_count)."""
+
+    def __init__(self, cfg: ArchConfig, mesh: MeshInfo, sp: bool):
+        super().__init__()
+        d = cfg.d_model
+        self.sp = sp
+        self.ln = RMSNormOp(d, "ln_f")
+        if sp:
+            self.ag = AllGatherOp(mesh, dim=1, name="ag_head")
+        tie = ("embed", "emb") if cfg.tie_embeddings else None
+        self.out = HeadLossOp(d, cfg.vocab, mesh, tie_path=tie)
+        self.named("head")
+
+    def forward(self, *, x, labels):
+        h = self.ln(x)
+        if self.sp:
+            h = self.ag(h)
+        ls, cnt = self.out(h, labels)
+        return {"loss_sum": ls, "token_count": cnt}
+
+
 class LogitsHead(Module):
     """Prefill/decode head: vocab-sharded logits.
 
@@ -415,6 +506,9 @@ class LMBase:
         if self.cfg.rope == "mrope":
             raise NotImplementedError("M-RoPE is not ported yet")
         spec = TensorSpec((B_loc, S), I32)
+        if phase == "train":
+            return {"ids": (spec, 0), "labels": (spec, 0),
+                    "positions": (spec, 0)}
         if phase == "prefill":
             return {"ids": (spec, 0), "positions": (spec, 0)}
         if phase == "decode":
@@ -469,7 +563,11 @@ class LMBase:
                                 scan_inputs=sc_in, scan_outputs=sc_out,
                                 **opts))
         head = self.make_head(phase)
-        g = trace(head, {"x": x_spec}, batch_dims={"x": 0})
+        head_in, hbd = {"x": x_spec}, {"x": 0}
+        if phase == "train":
+            head_in["labels"] = binputs["labels"][0]
+            hbd["labels"] = 0
+        g = trace(head, head_in, batch_dims=hbd)
         segs.append(Segment("head", head, g))
         return segs, binputs
 
@@ -536,6 +634,21 @@ class LMBase:
         return self.decode_cache_env(num_pages, page_size)
 
     # params -------------------------------------------------------------------
+    def param_pspecs(self, segs) -> dict:
+        """Partition-spec tuples of the param tree (stacked layers get a
+        leading ``None``): which mesh axes each leaf is sharded over."""
+        out = {}
+        for seg in segs:
+            if seg.name in out:
+                continue
+            ps = seg.module.param_pspecs()
+            if not ps:
+                continue
+            if seg.count > 1:
+                ps = tree_map(lambda spec: (None,) + tuple(spec), ps)
+            out[seg.name] = ps
+        return out
+
     def init_params(self, seed: int = 0, device=None,
                     phase: str = "prefill") -> dict:
         """Random parameter tree from ``seed``, drawn on ``device`` (default:
@@ -559,7 +672,7 @@ class LMBase:
             for i in range(seg.count):
                 layer = seg.module.init(fold_seed(s, str(i)), device=device)
                 if stacked is None:
-                    stacked = _tree_map(
+                    stacked = tree_map(
                         lambda t: torch.empty((seg.count,) + tuple(t.shape),
                                               dtype=t.dtype, device=t.device),
                         layer)
@@ -569,12 +682,6 @@ class LMBase:
             if stacked:
                 out[seg.name] = stacked
         return out
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _tree_zip(fn, a, b):

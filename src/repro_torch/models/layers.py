@@ -11,8 +11,10 @@ as ``x @ w``; activations are (B, S, d); attention heads (B, S, H, hd).
 Attention, decode attention and RMSNorm go through ``kernels.ops`` — the
 Hopper kernels on a CUDA tensor, their plain versions on the CPU.
 The MoE ops live in ``moe.py``, the Mamba2 ops in ``mamba2.py`` and the
-hybrid's shared block in ``hybrid.py``; FSDP weight gathers and the
-training head arrive with later slices.
+hybrid's shared block in ``hybrid.py``; FSDP weight gathers arrive with a
+later slice.  The training head (``HeadLossOp``) computes its loss and
+its gradient chunk by chunk (``HeadLoss``), so no step holds more than one
+chunk's logits.
 """
 from __future__ import annotations
 
@@ -564,6 +566,181 @@ class LmHeadOp(Op):
     def infer_out(self, in_shapes):
         B, S, d = in_shapes[0].shape
         return TensorSpec((B, S, self.vshard), in_shapes[0].dtype)
+
+    def flops_estimate(self, in_shapes):
+        B, S, d = in_shapes[0].shape
+        return 2.0 * B * S * d * self.vshard
+
+
+class ShardedXentOp(Op):
+    """Cross-entropy over vocab-sharded logits (psum'd logsumexp): the
+    mean over positions of lse - target.  The port of the JAX package's
+    op of that name; no model of the port calls it (``HeadLossOp`` is the
+    training head)."""
+
+    resource = "compute"
+
+    def __init__(self, mesh: MeshInfo, vshard: int, vocab: int = 0,
+                 name="xent"):
+        super().__init__()
+        self.mesh = mesh
+        self.vshard = vshard
+        self.vocab = vocab or vshard * mesh.tp
+        self.named(name)
+        self.out_batch_dim = None  # scalar loss
+
+    def kernel(self, p, logits, labels):
+        lf = _vocab_masked(logits.float(), self.vshard, self.vocab)
+        # the stability max carries no gradient (cancels in lse - tgt)
+        m = col.pmax(lf.amax(-1).detach(), "model")
+        se = col.psum(torch.exp(lf - m[..., None]).sum(-1), "model")
+        lse = torch.log(se) + m
+        tgt, ok = _target_logits(lf, labels, self.vshard)
+        tgt = col.psum(tgt * ok.float(), "model")
+        return torch.mean(lse - tgt)
+
+    def infer_out(self, in_shapes):
+        return TensorSpec((), torch.float32)
+
+
+def _vocab_masked(logits, vshard: int, vocab: int):
+    """f32 logits with the vocab-padding columns of this shard at -1e30."""
+    if vshard * (col.axis_index("model") + 1) <= vocab:
+        return logits
+    gid = col.axis_index("model") * vshard + torch.arange(
+        vshard, device=logits.device)
+    return torch.where(gid < vocab, logits,
+                       torch.full((), -1e30, device=logits.device))
+
+
+def _target_logits(logits, labels, vshard: int):
+    """(logit of each position's label where this shard holds it, whether
+    it does)."""
+    loc = labels.long() - col.axis_index("model") * vshard
+    ok = (loc >= 0) & (loc < vshard)
+    tgt = logits.gather(-1, loc.clamp(0, vshard - 1)[..., None])[..., 0]
+    return tgt, ok
+
+
+def _mm_f32(a, b):
+    """a @ b with f32 sums of exact products: the JAX package's
+    ``preferred_element_type=float32`` product of bf16 operands.  On the
+    card cuBLAS takes the bf16 operands on the tensor cores and writes
+    f32; on the CPU the operands are widened first."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class HeadLoss(torch.autograd.Function):
+    """Seq-chunked LM head + cross entropy with its gradient, one chunk of
+    logits at a time in both directions: the forward keeps only each
+    position's log-sum-exp, and the backward recomputes a chunk's f32
+    logits, turns them into softmax - onehot and takes dx and dW from it.
+    Autograd through the plain ops would keep every chunk's f32 logits
+    for the backward (3.2 GB for smollm-135m at B=8, S=2048).
+
+    x (B,S,d); w (d,V) or, tied, the embedding table (V,d); labels (B,S)
+    int (-100 ignored).  Returns (loss_sum, token_count), (B,) f32 each.
+    On the card dx and dW are products of the bf16-rounded softmax -
+    onehot (the tensor cores' operand type), with f32 sums."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, tied, vshard, vocab, chunk):
+        B, S, d = x.shape
+        wm = w.t() if tied else w                       # (d, V)
+        valid = labels != -100
+        lse = torch.empty((B, S), dtype=torch.float32, device=x.device)
+        tok = torch.empty((B, S), dtype=torch.float32, device=x.device)
+        for c0 in range(0, S, chunk):
+            c = min(chunk, S - c0)
+            xi = x[:, c0:c0 + c].reshape(B * c, d)
+            li = labels[:, c0:c0 + c]
+            logits = _vocab_masked(_mm_f32(xi, wm).reshape(B, c, -1),
+                                   vshard, vocab)
+            m = col.pmax(logits.amax(-1), "model")
+            se = col.psum(torch.exp(logits - m[..., None]).sum(-1), "model")
+            lse_i = torch.log(se) + m
+            tgt, ok = _target_logits(logits, li, vshard)
+            tgt = col.psum(torch.where(ok, tgt, torch.zeros((), device=x.device)),
+                           "model")
+            lse[:, c0:c0 + c] = lse_i
+            tok[:, c0:c0 + c] = torch.where(valid[:, c0:c0 + c], lse_i - tgt,
+                                            torch.zeros((), device=x.device))
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.cfg = (tied, vshard, vocab, chunk)
+        return tok.sum(-1), valid.sum(-1).float()
+
+    @staticmethod
+    def backward(ctx, g_ls, g_cnt):
+        x, w, labels, lse = ctx.saved_tensors
+        tied, vshard, vocab, chunk = ctx.cfg
+        B, S, d = x.shape
+        wm = w.t() if tied else w                       # (d, V)
+        cuda = x.device.type == "cuda"
+        dx = torch.empty_like(x)
+        dw = torch.zeros(wm.shape, dtype=torch.float32, device=x.device)
+        scale = torch.zeros((B, S), dtype=torch.float32, device=x.device) \
+            if g_ls is None else g_ls.float()[:, None].expand(B, S)
+        for c0 in range(0, S, chunk):
+            c = min(chunk, S - c0)
+            xi = x[:, c0:c0 + c].reshape(B * c, d)
+            li = labels[:, c0:c0 + c]
+            logits = _vocab_masked(_mm_f32(xi, wm).reshape(B, c, -1),
+                                   vshard, vocab)
+            p = torch.exp(logits - lse[:, c0:c0 + c, None])
+            del logits
+            loc = li.long() - col.axis_index("model") * vshard
+            ok = (loc >= 0) & (loc < vshard)
+            p.scatter_add_(-1, loc.clamp(0, vshard - 1)[..., None],
+                           -ok.float()[..., None])
+            p *= (scale[:, c0:c0 + c] * (li != -100).float())[..., None]
+            p = p.reshape(B * c, -1)
+            if cuda:
+                pb = p.to(x.dtype)
+                dx[:, c0:c0 + c] = torch.mm(pb, wm.t()).reshape(B, c, d)
+                dw += _mm_f32(xi.t(), pb)
+            else:
+                dx[:, c0:c0 + c] = torch.mm(p, wm.t().float()).reshape(
+                    B, c, d).to(x.dtype)
+                dw += torch.mm(xi.t().float(), p)
+        dw = dw.t() if tied else dw
+        return dx, dw.to(w.dtype), None, None, None, None, None
+
+
+class HeadLossOp(Op):
+    """Fused LM head + cross entropy, seq-chunked so the (B,S,V/tp) logits
+    never fully materialize (``HeadLoss``).
+
+    Inputs x (B,S,d), labels (B,S) int32 (-100 = ignore).
+    Outputs per-sample (loss_sum (B,), token_count (B,)) f32 — summed and
+    normalized by the train step.
+    """
+
+    resource = "compute"
+
+    def __init__(self, d, vocab, mesh: MeshInfo, name="head_loss",
+                 dtype=torch.bfloat16, tie_path: Optional[tuple] = None,
+                 chunk=512):
+        super().__init__()
+        self.vocab = vocab
+        self.vshard = -(-vocab // mesh.tp)
+        self.chunk = chunk
+        self.tied = tie_path is not None
+        if tie_path is None:
+            self.w = make_param((d, self.vshard), dtype, ((), ("model",)), mesh)
+        else:
+            self.share_params(tie_path)
+        self.named(name)
+
+    def kernel(self, p, x, labels):
+        return HeadLoss.apply(x, p["w"], labels, self.tied, self.vshard,
+                              self.vocab, min(self.chunk, x.shape[1]))
+
+    def infer_out(self, in_shapes):
+        B = in_shapes[0].shape[0]
+        return (TensorSpec((B,), torch.float32),
+                TensorSpec((B,), torch.float32))
 
     def flops_estimate(self, in_shapes):
         B, S, d = in_shapes[0].shape

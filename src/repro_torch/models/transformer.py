@@ -7,7 +7,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.module import TensorSpec
 from .base import (DenseDecodeLayer, DenseDecoderLayer, EmbedSegment, LMBase,
-                   LogitsHead)
+                   LogitsHead, TrainHead)
 from .layers import HeadLayout, MeshInfo
 
 
@@ -28,13 +28,18 @@ class DenseLM(LMBase):
             mod = DenseDecodeLayer(cfg, mesh)
             return [("layers", mod, cfg.n_layers,
                      ("k_cache", "v_cache"), ("k_cache", "v_cache"))]
-        if phase != "prefill":
+        if phase not in ("prefill", "train"):
             raise NotImplementedError(f"phase {phase!r} is not ported yet")
-        mod = DenseDecoderLayer(cfg, mesh, cfg.seq_parallel, collect_kv=True)
-        return [("layers", mod, cfg.n_layers, (), ("k", "v"))]
+        prefill = phase == "prefill"
+        mod = DenseDecoderLayer(cfg, mesh, cfg.seq_parallel,
+                                collect_kv=prefill)
+        return [("layers", mod, cfg.n_layers, (),
+                 ("k", "v") if prefill else ())]
 
     def make_head(self, phase):
         sp = self.cfg.seq_parallel and phase != "decode"
+        if phase == "train":
+            return TrainHead(self.cfg, self.mesh, sp)
         return LogitsHead(self.cfg, self.mesh, sp,
                           keep_last=(phase != "decode"))
 
