@@ -340,6 +340,36 @@ def device_times(kernel, library=None, name="library"):
             "host_us": host_us(kernel[0])}
 
 
+def pass_ms(fn, parts, iters=20, windows=5):
+    """Device ms a call of ``fn`` spends in each of its kernels whose name
+    holds one of ``parts`` (the passes of a multi-launch kernel), from
+    ``torch.profiler``'s kernel durations over ``iters`` calls; a window
+    missing one of the passes' events is measured again, up to
+    ``windows`` times (None where none was whole)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        out = {}
+        for part in parts:
+            mine = [e for e in events if part in e.key]
+            out[part] = (sum(_dev_us(e) for e in mine) / 1e3 / iters
+                         if mine and sum(e.count for e in mine) >= iters
+                         else None)
+        if all(v is not None for v in out.values()):
+            return out
+    return out
+
+
 def bound(flops, nbytes):
     """``bound_ms`` and ``bound_by`` of ``flops`` operations on ``nbytes``."""
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -475,17 +505,37 @@ def phase_kernels(dev, build_log=None):
             return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
                                           kv_head=kvh)
         nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
+        # a product of 2 S^2 hd FLOP a (batch, head), causal: half the
+        # tiles; the function needs 5, the kernel's two passes do 7 (S and
+        # dP in both), the dK/dV pass 4 of them and the dQ pass 3
+        product = 2.0 * B * S * S * H * hd * 0.5
+        times = device_times([kernel], [sdpa_bwd])
+        geo = fa.flash_bwd_geometry(B, H, Hk, S, S, hd,
+                                    torch.cuda.get_device_properties(
+                                        dev).multi_processor_count)
+        parts = pass_ms(kernel, ("flash_bwd_delta", "flash_bwd_dkdv",
+                                 "flash_bwd_dq") + (
+            ("flash_bwd_reduce",) if geo["splits"] > 1 else ()))
+
+        def tflops(flop, ms):
+            return None if not ms else flop / ms / 1e9
         return dict(
             shape=f"{what}: B={B} S={S} H={H} Hkv={Hk} hd={hd} causal bf16",
+            geometry=geo,
             lse_max_abs_err=max_err(lse, lse_ref),
             **compare_bwd("flash_attention_bwd", list(zip(got, ref))),
             ms=cuda_ms(kernel, iters=10),
             plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
                 q, k, v, o, do, lse, causal=True, kv_head=kvh), iters=3),
             # 2.5 times the forward's products, causal: half the tiles
-            **bound(10.0 * B * S * S * H * hd * 0.5, nbytes),
+            **bound(5 * product, nbytes),
             library_ms=cuda_ms(sdpa_bwd, iters=10),
-            **device_times([kernel], [sdpa_bwd]))
+            **times,
+            pass_device_ms=parts,
+            tflops_bound_work=tflops(5 * product, times["device_ms"]),
+            tflops_two_pass_work=tflops(7 * product, times["device_ms"]),
+            tflops_dkdv_pass=tflops(4 * product, parts["flash_bwd_dkdv"]),
+            tflops_dq_pass=tflops(3 * product, parts["flash_bwd_dq"]))
 
     def norm_bwd(what, n, d):
         x, gw, dh = randn(n, d), randn(d), randn(n, d)
@@ -766,6 +816,7 @@ def phase_kernels(dev, build_log=None):
     builds = ptxas_report(_build.BUILD_LOG, ("flash_fwd_kernel",
                                              "flash_bwd_dkdv_kernel",
                                              "flash_bwd_dq_kernel",
+                                             "rmsnorm_bwd_kernel",
                                              "ffn_gemm_kernel",
                                              "ssd_scan_kernel",
                                              # bf16 x and g, each pack count

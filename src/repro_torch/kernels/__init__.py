@@ -18,6 +18,7 @@ path went through; a CUDA Graph's replay adds the launches its capture
 recorded (``core/capture.py``).
 """
 import collections
+import functools
 
 import torch
 
@@ -35,6 +36,14 @@ def kernel_ready(t: torch.Tensor) -> torch.Tensor:
           and all(n == 1 or (s > 0 and s * esize % 16 == 0)
                   for s, n in zip(t.stride()[:-1], t.shape[:-1])))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the kernels'
+    geometries (the persistent grids, the flash backward's split) follow
+    it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launch_counts():

@@ -34,12 +34,13 @@ _SIGNATURES = {
          ctypes.POINTER(_LL), _I, _F, _P], _I),
     "repro_flash_attention_info": ([_I, _P, _P, _P], _I),
     "repro_flash_attention_bwd": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-         ctypes.POINTER(_LL), _I, _F, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+         _I, _I, ctypes.POINTER(_LL), _I, _F, _I, _P], _I),
     "repro_flash_attention_bwd_info": ([_I, _I, _P, _P, _P], _I),
     "repro_norm_bwd_blocks": ([_I], _I),
     "repro_rmsnorm_bwd": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL, _F, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL, _F, _I, _I, _I, _P],
+        _I),
     "repro_fused_add_rmsnorm_bwd": (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _LL, _LL, _F, _P],
         _I),

@@ -260,6 +260,17 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // A from registers (4 x 32 bits a thread: the accumulator layout of a
 // 64 x 16 tile, packed bf16x2).  TRANS_B: 0 for a K-major B, 1 for MN-major.
 template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_D32
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : HOPPER_F32(0)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
                                                     uint64_t b,
                                                     int accumulate) {

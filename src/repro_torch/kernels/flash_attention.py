@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, kernel_ready
+from . import LAUNCHES, kernel_ready, sm_count
 
 LOG2E = 1.4426950408889634
 
@@ -182,6 +182,51 @@ def _flash_fwd(q, k, v, causal, kv_head, lse: bool = False):
     return o, lse_t
 
 
+BWD_BLOCK = 128      # keys of a dK/dV unit, q rows of a dQ unit
+
+
+def flash_bwd_geometry(B: int, H: int, Hk: int, Sq: int, Sk: int, hd: int,
+                       sms: int) -> dict:
+    """Work split of the backward kernel (``csrc/flash_attention_bwd.cu``),
+    a pure function of the shapes and the card's SM count ``sms``.
+
+    The dK/dV pass has B * Hk * ceil(Sk / 128) units of 128 keys; where
+    they cannot fill the card, each K/V head's q heads are split over
+    ``splits`` units (doubling while the units are fewer than ``sms``, at
+    most the H / Hk heads of a uniform map), which write f32 partial rows
+    to a ``workspace`` (2, splits, B, Sk, Hk, hd) that a reduce pass sums
+    in split order.  The dQ pass has B * H * ceil(Sq / 128) units.
+    ``aux`` is the f32 scratch of the delta pass: lse * log2(e) and delta
+    rows padded to ``sq_pad``.  ``step_rows``: the rows a step streams."""
+    key_blocks = -(-Sk // BWD_BLOCK)
+    base = B * Hk * key_blocks
+    group = max(1, H // max(1, Hk))
+    splits = 1
+    while base * splits < sms and splits * 2 <= group:
+        splits *= 2
+    sq_pad = -(-Sq // BWD_BLOCK) * BWD_BLOCK
+    return dict(step_rows=64 if hd == 128 else 128, splits=splits,
+                dkdv_units=base * splits,
+                dq_units=B * H * (sq_pad // BWD_BLOCK), sq_pad=sq_pad,
+                aux=(2, B, H, sq_pad),
+                workspace=None if splits == 1 else (2, splits, B, Sk, Hk, hd))
+
+
+def flash_bwd_heads(kv_head, Hk: int, splits: int) -> dict:
+    """The q heads each dK/dV unit walks, as the kernel picks them:
+    {(kv head, split): heads}.  Of the cnt heads that ``kv_head`` maps to
+    a K/V head, in head order, split s takes ranks
+    [s * cnt // splits, (s + 1) * cnt // splits)."""
+    kv_head = [int(h) for h in kv_head]
+    out = {}
+    for kvh in range(Hk):
+        mine = [h for h, k in enumerate(kv_head) if k == kvh]
+        cnt = len(mine)
+        for s in range(splits):
+            out[kvh, s] = mine[s * cnt // splits:(s + 1) * cnt // splits]
+    return out
+
+
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         kv_head: Optional[torch.Tensor] = None):
     """(dq, dk, dv) by the backward kernel (``csrc/flash_attention_bwd.cu``)
@@ -207,15 +252,24 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     dv = torch.empty_like(dk)
     if B == 0 or Sq == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    geo = flash_bwd_geometry(B, H, Hk, Sq, Sk, hd,
+                             sm_count(q.device.index or 0))
+    aux = torch.empty(geo["aux"], dtype=torch.float32, device=q.device)
+    work = (None if geo["workspace"] is None else
+            torch.empty(geo["workspace"], dtype=torch.float32,
+                        device=q.device))
+    # the two passes' persistent blocks take units off these counters
+    counter = torch.zeros(2, dtype=torch.int32, device=q.device)
     st = strides_arg(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                      *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
                      *dk.stride()[:3], *dv.stride()[:3])
     rc = library().repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), kv_head.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, H, Hk, Sq, Sk, hd, st, int(causal),
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), kv_head.data_ptr(), aux.data_ptr(),
+        counter.data_ptr(), None if work is None else work.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Hk, Sq, Sk, hd, st,
+        int(causal), 1.0 / math.sqrt(hd), geo["splits"],
+        torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, kernel_ready
+from . import LAUNCHES, kernel_ready, sm_count
 
 EPS = 1e-5
 
@@ -262,6 +262,30 @@ def _bwd_out(x, g):
             torch.empty((d,), dtype=g.dtype, device=x.device), work)
 
 
+def norm_bwd_geometry(n: int, d: int, sms: int) -> dict:
+    """Launch geometry of the rmsnorm backward kernel for rows (n, d) on a
+    card of ``sms`` SMs: a row on ``warps_per_row`` warps (1 up to d =
+    1024, 4 up to 4096, 8 up to 8192), each lane holding ``packs`` <= 4
+    packs of 8 columns (the least that covers the row), so that a lane's
+    x, dh, g, dg and the next row's x and dh stay in registers; blocks of
+    ``threads`` (4 warps, 8 at 8 warps a row) taking ``rows_at_once``
+    rows at a time, ``blocks`` of them: 4 an SM (2 of 8 warps), fewer
+    where the rows run out.  The workspace holds ``blocks`` f32 partial
+    rows of dg.  Raises ValueError for a width the kernel does not take
+    (d % 8, or d > 8192)."""
+    if d <= 0 or d % 8 or d > 8192:
+        raise ValueError(f"rmsnorm_bwd kernel: width {d} is not a multiple "
+                         f"of 8 in [8, 8192]")
+    warps = 1 if d <= 1024 else 4 if d <= 4096 else 8
+    packs = next(p for p in NORM_PACKS if 256 * warps * p >= d)
+    threads = 256 if warps == 8 else 128
+    at_once = threads // 32 // warps
+    per_sm = 2 if warps == 8 else 4
+    blocks = max(1, min(-(-n // at_once), sms * per_sm))
+    return dict(warps_per_row=warps, packs=packs, threads=threads,
+                rows_at_once=at_once, blocks=blocks)
+
+
 def rmsnorm_bwd(x, g, dh, *, eps: float = EPS):
     """(dx, dg) of ``rmsnorm`` at cotangent ``dh``: the kernel of
     ``csrc/rmsnorm_bwd.cu`` on CUDA tensors, the plain version on the
@@ -270,13 +294,18 @@ def rmsnorm_bwd(x, g, dh, *, eps: float = EPS):
         return rmsnorm_bwd_plain(x, g, dh, eps=eps)
     from ._build import check, library
     x, g, dh = _bwd_operands("rmsnorm_bwd", x, g, dh)
-    dx, dg, work = _bwd_out(x, g)
-    if x.shape[0] == 0:
+    n, d = x.shape
+    geo = norm_bwd_geometry(n, d, sm_count(x.device.index or 0))
+    dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
+    dg = torch.empty((d,), dtype=g.dtype, device=x.device)
+    if n == 0:
         return dx, dg.zero_()
+    work = torch.empty((geo["blocks"], d), dtype=torch.float32,
+                       device=x.device)
     rc = library().repro_rmsnorm_bwd(
         x.data_ptr(), g.data_ptr(), dh.data_ptr(), dx.data_ptr(),
-        dg.data_ptr(), work.data_ptr(), x.shape[0], x.shape[1], x.stride(0),
-        dh.stride(0), dx.stride(0), eps,
+        dg.data_ptr(), work.data_ptr(), n, d, x.stride(0), dh.stride(0),
+        dx.stride(0), eps, geo["warps_per_row"], geo["packs"], geo["blocks"],
         torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "rmsnorm_bwd")
     LAUNCHES["rmsnorm_bwd"] += 1

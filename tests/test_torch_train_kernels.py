@@ -22,9 +22,12 @@ places — JAX's autodiff rounds dh * g and the attention probabilities to
 bf16, the port's plain versions keep f32 to the output), atol scaled by
 the reference's largest magnitude.
 
-The ``cuda``-marked cases hold the kernels to their plain versions on the
-card (skipped here); the JAX package is imported only by the cases that
-compare with it, so those run on a machine without it too.
+The geometry cases hold the backward kernels' work splits
+(``flash_bwd_geometry``, ``flash_bwd_heads``, ``norm_bwd_geometry``),
+pure functions of the shapes, on the CPU.  The ``cuda``-marked cases
+hold the kernels to their plain versions on the card (skipped here);
+the JAX package is imported only by the cases that compare with it, so
+those run on a machine without it too.
 """
 import math
 
@@ -231,6 +234,99 @@ def test_no_gradient_no_function_and_no_lse():
 
 
 # ---------------------------------------------------------------------------
+# the backward kernels' geometry: pure functions of the shapes
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+def _maps(H, Hk):
+    """kv_head maps of H q heads onto Hk K/V heads: contiguous groups,
+    interleaved, and uneven (every head of the last half on one K/V head)."""
+    maps = [[h // (H // Hk) for h in range(H)] if H % Hk == 0 else None,
+            [h % Hk for h in range(H)],
+            [min(h, Hk - 1) if h < H // 2 else Hk - 1 for h in range(H)]]
+    return [m for m in maps if m is not None]
+
+
+@pytest.mark.parametrize("B,H,Hk,S,hd", [
+    (8, 9, 3, 2048, 64), (2, 32, 2, 2048, 128), (1, 32, 2, 300, 128),
+    (1, 6, 2, 200, 64), (2, 4, 4, 48, 64), (1, 7, 3, 1000, 128),
+    (3, 16, 1, 129, 64)])
+def test_flash_bwd_geometry_puts_every_head_in_one_unit(B, H, Hk, S, hd):
+    """Whatever the map, the dK/dV units of a K/V head take each of its q
+    heads exactly once, in head order, and no other head."""
+    geo = fa.flash_bwd_geometry(B, H, Hk, S, S, hd, H100_SMS)
+    splits = geo["splits"]
+    assert geo["dkdv_units"] == B * Hk * -(-S // 128) * splits
+    for kv_head in _maps(H, Hk):
+        heads = fa.flash_bwd_heads(kv_head, Hk, splits)
+        assert sorted(heads) == [(k, s) for k in range(Hk)
+                                 for s in range(splits)]
+        for kvh in range(Hk):
+            walked = [h for s in range(splits) for h in heads[kvh, s]]
+            assert walked == [h for h in range(H) if kv_head[h] == kvh]
+
+
+def test_flash_bwd_geometry_splits_only_where_the_card_is_not_full():
+    """smollm-135m's train shape (B=8, 9/3 heads, S=2048) has 384 dK/dV
+    units: no split, bf16 written directly, no workspace; chatglm3-6b's
+    (B=2, 32/2 heads) has 64, so each K/V head's 16 q heads go to 4 units
+    of 4: 256 units, at least one an SM."""
+    sm = fa.flash_bwd_geometry(8, 9, 3, 2048, 2048, 64, H100_SMS)
+    assert (sm["splits"], sm["dkdv_units"], sm["workspace"]) == (1, 384, None)
+    assert sm["step_rows"] == 128 and sm["dq_units"] == 8 * 9 * 16
+    glm = fa.flash_bwd_geometry(2, 32, 2, 2048, 2048, 128, H100_SMS)
+    assert glm["splits"] == 4 and glm["dkdv_units"] == 256 >= H100_SMS
+    assert glm["step_rows"] == 64
+    heads = fa.flash_bwd_heads([h // 16 for h in range(32)], 2, 4)
+    assert heads[1, 2] == [24, 25, 26, 27]
+
+
+@pytest.mark.parametrize("B,H,Hk,Sq,Sk,hd,sms", [
+    (2, 32, 2, 2048, 2048, 128, 132), (1, 32, 2, 300, 300, 128, 132),
+    (8, 9, 3, 2048, 2048, 64, 132), (1, 8, 1, 100, 260, 64, 16),
+    (4, 32, 8, 513, 513, 128, 132), (1, 3, 3, 1, 7, 64, 132)])
+def test_flash_bwd_workspace_follows_the_split(B, H, Hk, Sq, Sk, hd, sms):
+    """The split doubles while the units are fewer than the SMs, up to the
+    heads of a K/V head; the f32 workspace holds dK and dV of every split
+    where there is more than one; the delta pass's rows pad Sq to 128."""
+    geo = fa.flash_bwd_geometry(B, H, Hk, Sq, Sk, hd, sms)
+    base, s = B * Hk * -(-Sk // 128), geo["splits"]
+    assert s & (s - 1) == 0 and 1 <= s <= max(1, H // Hk)
+    assert base * s >= sms or s * 2 > H // Hk
+    assert s == 1 or base * (s // 2) < sms
+    assert geo["workspace"] == (None if s == 1
+                                else (2, s, B, Sk, Hk, hd))
+    assert geo["sq_pad"] % 128 == 0 and 0 <= geo["sq_pad"] - Sq < 128
+    assert geo["aux"] == (2, B, H, geo["sq_pad"])
+    assert geo["dq_units"] == B * H * geo["sq_pad"] // 128
+
+
+@pytest.mark.parametrize("n", [1, 333, 16384])
+def test_norm_bwd_geometry_covers_every_width(n):
+    """Every width the backward takes, 8 to 8192 in steps of 8: a row on
+    1, 4 or 8 warps whose lanes hold at most 4 packs, the fewest that
+    cover it; whole rows in a block; 4 blocks an SM (2 of 8 warps)."""
+    for d in range(8, 8193, 8):
+        geo = rn.norm_bwd_geometry(n, d, H100_SMS)
+        w, p = geo["warps_per_row"], geo["packs"]
+        assert w == (1 if d <= 1024 else 4 if d <= 4096 else 8)
+        assert 1 <= p <= 4 and 256 * w * p >= d
+        assert p == 1 or 256 * w * (p - 1) < d
+        assert geo["threads"] == (256 if w == 8 else 128)
+        assert geo["rows_at_once"] * w * 32 == geo["threads"]
+        cap = H100_SMS * (2 if w == 8 else 4)
+        assert geo["blocks"] == min(cap, -(-n // geo["rows_at_once"]))
+
+
+@pytest.mark.parametrize("d", [0, 4, 44, 8200, 16384])
+def test_norm_bwd_geometry_refuses_widths_the_kernel_does_not_take(d):
+    with pytest.raises(ValueError):
+        rn.norm_bwd_geometry(64, d, H100_SMS)
+
+
+# ---------------------------------------------------------------------------
 # on the card: the kernels against their plain backwards
 # ---------------------------------------------------------------------------
 
@@ -313,3 +409,69 @@ def test_functions_launch_the_backward_kernels(cuda):
                  "rmsnorm_bwd", "fused_add_rmsnorm", "fused_add_rmsnorm_bwd"):
         assert LAUNCHES[name] == counts.get(name, 0) + 1, name
     assert math.isfinite(float(o.float().sum()))
+
+
+def _flash_case(cuda, seed, B, Sq, Sk, H, Hk, hd, kv_head=None):
+    q, do = arrays(seed, "bfloat16", (B, Sq, H, hd), (B, Sq, H, hd))
+    k, v = arrays(seed + 1, "bfloat16", (B, Sk, Hk, hd), (B, Sk, Hk, hd))
+    if kv_head is None:
+        kv_head = [h // (H // Hk) for h in range(H)]
+    kvh = torch.tensor(kv_head, dtype=torch.int32)
+    return [t.to(cuda) for t in (q, k, v, do, kvh)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd,kv_head", [
+    # the split dK/dV pass at a group of 16 (16 units of one head each)
+    (1, 300, 300, 32, 2, 128, None),
+    # hd 64 at a length no tile divides, a group of 3
+    (1, 200, 200, 6, 2, 64, None),
+    # Sq != Sk, both ways
+    (2, 100, 260, 4, 2, 64, None), (1, 260, 100, 4, 1, 128, None),
+    # a map that is not contiguous groups, split over units
+    (1, 150, 150, 8, 2, 128, [1, 0, 1, 1, 0, 1, 1, 1])])
+def test_flash_bwd_kernel_shapes(cuda, B, Sq, Sk, H, Hk, hd, kv_head, causal):
+    """The kernel against its plain version where the work splits over
+    heads, rows and keys run past every tile, Sq != Sk and kv_head is any
+    map; one launch a call, and the same bits twice."""
+    q, k, v, do, kvh = _flash_case(cuda, 12, B, Sq, Sk, H, Hk, hd, kv_head)
+    o, lse = fa._flash_fwd(q, k, v, causal, kvh, lse=True)
+    before = LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                 kv_head=kvh)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                        kv_head=kvh)
+    # P and dS enter the tensor cores as bf16 (2^-9 relative each)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.isfinite(a).all()
+        assert _rel(a, b) < 2e-2
+    again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                   kv_head=kvh)
+    assert LAUNCHES["flash_attention_bwd"] == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 576), (333, 576), (16384, 576),
+                                 (1001, 2048), (4096, 4096), (77, 4096),
+                                 (130, 8192), (5, 1000)])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, n, d):
+    """Both row geometries (1 warp a row up to 1024, 4 and 8 beyond), row
+    counts that leave a block's run short, and dg the same bits twice."""
+    x, g, dh = (t.to(cuda) for t in arrays(13, "bfloat16", (n, d), (d,),
+                                            (n, d)))
+    before = LAUNCHES["rmsnorm_bwd"]
+    got = rn.rmsnorm_bwd(x, g, dh)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rmsnorm_bwd"] == before + 1
+    want = rn.rmsnorm_bwd_plain(x, g, dh)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel(a, b) < 1e-2
+    again = rn.rmsnorm_bwd(x, g, dh)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
