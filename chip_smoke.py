@@ -537,6 +537,23 @@ def phase_kernels(dev, build_log=None):
             tflops_dkdv_pass=tflops(4 * product, parts["flash_bwd_dkdv"]),
             tflops_dq_pass=tflops(3 * product, parts["flash_bwd_dq"]))
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def with_norm_bwd_parts(row, kernel, n, d, fused):
+        """``row`` with the backward's geometry (and its instantiation's
+        registers and blocks resident an SM), the bound's share, the device
+        ms of each pass (the row pass and the dg pass), and failed unless
+        two calls give the same bits."""
+        geo = rn.norm_bwd_geometry(n, d, sms)
+        first, again = kernel(), kernel()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        return dict(row, ok=row["ok"] and same, same_bits_twice=same,
+                    geometry=dict(geo, **rn.norm_bwd_info(
+                        geo["warps_per_row"], geo["packs"], fused)),
+            bound_share=row["bound_ms"] / row["device_ms"],
+            pass_device_ms=pass_ms(kernel, ("norm_bwd_kernel",
+                                            "norm_bwd_dg_kernel")))
+
     def norm_bwd(what, n, d):
         x, gw, dh = randn(n, d), randn(d), randn(n, d)
         got, ref = rn.rmsnorm_bwd(x, gw, dh), rn.rmsnorm_bwd_plain(x, gw, dh)
@@ -546,7 +563,7 @@ def phase_kernels(dev, build_log=None):
 
         def library():
             return torch.autograd.grad(out, (xr, gr), dh, retain_graph=True)
-        return dict(
+        return with_norm_bwd_parts(dict(
             shape=f"{what}: n={n} d={d} bf16",
             **compare_bwd("rmsnorm_bwd", list(zip(got, ref))),
             ms=cuda_ms(lambda: rn.rmsnorm_bwd(x, gw, dh), iters=50),
@@ -555,7 +572,8 @@ def phase_kernels(dev, build_log=None):
             # x and dh read, dx written; g read and dg written
             **bound(8.0 * n * d, (3 * n * d + 2 * d) * 2),
             library_ms=cuda_ms(library, iters=50),
-            **device_times([lambda: rn.rmsnorm_bwd(x, gw, dh)], [library]))
+            **device_times([lambda: rn.rmsnorm_bwd(x, gw, dh)], [library])),
+            lambda: rn.rmsnorm_bwd(x, gw, dh), n, d, False)
 
     def fused_bwd(what, n, d):
         x, y, gw, dh, dso = (randn(n, d), randn(n, d), randn(d), randn(n, d),
@@ -571,7 +589,7 @@ def phase_kernels(dev, build_log=None):
         def composition():
             return torch.autograd.grad((s2, h2), (xr, yr, gr), (dso, dh),
                                        retain_graph=True)
-        return dict(
+        return with_norm_bwd_parts(dict(
             shape=f"{what}: n={n} d={d} bf16",
             **compare_bwd("fused_add_rmsnorm_bwd",
                           [(got[0], ref[0]), (got[2], ref[2])]),
@@ -587,7 +605,8 @@ def phase_kernels(dev, build_log=None):
             composition_ms=cuda_ms(composition, iters=50),
             **device_times([lambda: rn.fused_add_rmsnorm_bwd(
                 s, gw, dh, dso)], [composition], name="composition"),
-            library_device_ms=None)
+            library_device_ms=None),
+            lambda: rn.fused_add_rmsnorm_bwd(s, gw, dh, dso), n, d, True)
 
     def decode(what, H, Hk, B=4, S=4096, hd=128, lens=(4096, 2999, 1500, 17)):
         q = randn(B, 1, H, hd)
@@ -816,7 +835,9 @@ def phase_kernels(dev, build_log=None):
     builds = ptxas_report(_build.BUILD_LOG, ("flash_fwd_kernel",
                                              "flash_bwd_dkdv_kernel",
                                              "flash_bwd_dq_kernel",
-                                             "rmsnorm_bwd_kernel",
+                                             # both backwards' bodies,
+                                             # <W, NP, FUSED>
+                                             "norm_bwd_kernelI",
                                              "ffn_gemm_kernel",
                                              "ssd_scan_kernel",
                                              # bf16 x and g, each pack count

@@ -34,7 +34,14 @@ Both are differentiable.  Where a gradient is to flow, ``rmsnorm`` and
                          rows of dh * (x * r rounded to x's dtype)
   fused_add_rmsnorm_bwd  ``src/repro/kernels/ops.py:_farn_bwd``: on the
                          residual s, ds = ds_out + d(h)/ds, dg = sum of
-                         dh * s * r; returns (ds, ds, dg)
+                         dh * s * r (unrounded); returns (ds, ds, dg)
+
+Both backwards are one kernel body (``norm_bwd_kernel<W, NP, FUSED>``)
+on the forward's row geometry (``norm_bwd_geometry``): a lane owns the
+same columns of every row of its block's run, so g and dg stay in
+registers, each row is read once and the next row's loads go out before
+this row's sums; each block writes one f32 partial row of dg, which a
+second launch sums in a fixed order (the same bits on every call).
 """
 from __future__ import annotations
 
@@ -253,26 +260,23 @@ def _bwd_operands(name, x, g, *others):
     return [kernel_ready(t) for t in (x, g) + others]
 
 
-def _bwd_out(x, g):
-    from ._build import library
-    n, d = x.shape
-    work = torch.empty((library().repro_norm_bwd_blocks(max(n, 1)), d),
-                       dtype=torch.float32, device=x.device)
-    return (torch.empty((n, d), dtype=x.dtype, device=x.device),
-            torch.empty((d,), dtype=g.dtype, device=x.device), work)
-
-
 def norm_bwd_geometry(n: int, d: int, sms: int) -> dict:
-    """Launch geometry of the rmsnorm backward kernel for rows (n, d) on a
-    card of ``sms`` SMs: a row on ``warps_per_row`` warps (1 up to d =
-    1024, 4 up to 4096, 8 up to 8192), each lane holding ``packs`` <= 4
-    packs of 8 columns (the least that covers the row), so that a lane's
-    x, dh, g, dg and the next row's x and dh stay in registers; blocks of
-    ``threads`` (4 warps, 8 at 8 warps a row) taking ``rows_at_once``
-    rows at a time, ``blocks`` of them: 4 an SM (2 of 8 warps), fewer
-    where the rows run out.  The workspace holds ``blocks`` f32 partial
-    rows of dg.  Raises ValueError for a width the kernel does not take
-    (d % 8, or d > 8192)."""
+    """Launch geometry of the backward kernel (the rmsnorm and the fused
+    add + RMSNorm backward alike) for rows (n, d) on a card of ``sms``
+    SMs: a row on ``warps_per_row`` warps (1 up to d = 1024, 4 up to 4096,
+    8 up to 8192), each lane holding ``packs`` <= 4 packs of 8 columns
+    (the least that covers the row), so that a lane's x, dh, g, dg, the
+    next row's x and dh and (fused) this row's ds_out stay in registers;
+    blocks of ``threads`` (4 warps, 8 at 8 warps a row) taking
+    ``rows_at_once`` rows at a time, ``blocks`` of them: ``blocks_per_sm``
+    an SM, fewer where the rows run out.  Each instantiation is compiled to
+    keep ``blocks_per_sm`` resident: 4 at one warp a row of up to 2 packs,
+    3 at 3 or 4 packs (up to 168 registers), 2 at 4 warps a row (fewer,
+    longer runs: faster at d = 4096 in ``tools/kernel_probes.py --probes
+    norm_bwd``, where a block's partial row of dg is 16 KB), 1 of 8
+    warps.  The workspace holds ``blocks`` f32 partial rows of dg.  Raises
+    ValueError for a width the kernel does not take (d % 8, or d >
+    8192)."""
     if d <= 0 or d % 8 or d > 8192:
         raise ValueError(f"rmsnorm_bwd kernel: width {d} is not a multiple "
                          f"of 8 in [8, 8192]")
@@ -280,10 +284,26 @@ def norm_bwd_geometry(n: int, d: int, sms: int) -> dict:
     packs = next(p for p in NORM_PACKS if 256 * warps * p >= d)
     threads = 256 if warps == 8 else 128
     at_once = threads // 32 // warps
-    per_sm = 2 if warps == 8 else 4
+    per_sm = {8: 1, 4: 2}.get(warps, 3 if packs >= 3 else 4)
     blocks = max(1, min(-(-n // at_once), sms * per_sm))
     return dict(warps_per_row=warps, packs=packs, threads=threads,
-                rows_at_once=at_once, blocks=blocks)
+                rows_at_once=at_once, blocks_per_sm=per_sm, blocks=blocks)
+
+
+def norm_bwd_info(warps: int, packs: int, fused: bool) -> dict:
+    """Of the backward kernel's instantiation (``warps`` a row, ``packs`` a
+    lane, ``fused``), from ``repro_norm_bwd_info``: registers a thread,
+    local (spill) bytes, threads a block, the blocks an SM it is compiled
+    to keep resident and the blocks an SM the card keeps resident."""
+    import ctypes
+
+    from ._build import check, library
+    vals = [ctypes.c_int() for _ in range(5)]
+    check(library().repro_norm_bwd_info(
+        warps, packs, int(fused), *[ctypes.byref(v) for v in vals]),
+        "norm_bwd info")
+    return dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm",
+                     "resident_per_sm"), (v.value for v in vals)))
 
 
 def rmsnorm_bwd(x, g, dh, *, eps: float = EPS):
@@ -321,14 +341,20 @@ def fused_add_rmsnorm_bwd(s, g, dh, ds_out, *, eps: float = EPS):
     from ._build import check, library
     s, g, dh, ds_out = _bwd_operands("fused_add_rmsnorm_bwd", s, g, dh,
                                      ds_out)
-    ds, dg, work = _bwd_out(s, g)
-    if s.shape[0] == 0:
+    n, d = s.shape
+    geo = norm_bwd_geometry(n, d, sm_count(s.device.index or 0))
+    ds = torch.empty((n, d), dtype=s.dtype, device=s.device)
+    dg = torch.empty((d,), dtype=g.dtype, device=s.device)
+    if n == 0:
         return ds, ds, dg.zero_()
+    work = torch.empty((geo["blocks"], d), dtype=torch.float32,
+                       device=s.device)
     rc = library().repro_fused_add_rmsnorm_bwd(
         s.data_ptr(), g.data_ptr(), dh.data_ptr(), ds_out.data_ptr(),
-        ds.data_ptr(), dg.data_ptr(), work.data_ptr(), s.shape[0],
-        s.shape[1], s.stride(0), dh.stride(0), ds_out.stride(0), ds.stride(0),
-        eps, torch.cuda.current_stream(s.device).cuda_stream)
+        ds.data_ptr(), dg.data_ptr(), work.data_ptr(), n, d, s.stride(0),
+        dh.stride(0), ds_out.stride(0), ds.stride(0), eps,
+        geo["warps_per_row"], geo["packs"], geo["blocks"],
+        torch.cuda.current_stream(s.device).cuda_stream)
     check(rc, "fused_add_rmsnorm_bwd")
     LAUNCHES["fused_add_rmsnorm_bwd"] += 1
     return ds, ds, dg

@@ -307,7 +307,8 @@ def test_flash_bwd_workspace_follows_the_split(B, H, Hk, Sq, Sk, hd, sms):
 def test_norm_bwd_geometry_covers_every_width(n):
     """Every width the backward takes, 8 to 8192 in steps of 8: a row on
     1, 4 or 8 warps whose lanes hold at most 4 packs, the fewest that
-    cover it; whole rows in a block; 4 blocks an SM (2 of 8 warps)."""
+    cover it; whole rows in a block; 4 blocks an SM at one warp a row of
+    up to 2 packs, 3 at 3 or 4 packs, 2 from 4 warps a row, 1 of 8."""
     for d in range(8, 8193, 8):
         geo = rn.norm_bwd_geometry(n, d, H100_SMS)
         w, p = geo["warps_per_row"], geo["packs"]
@@ -316,8 +317,21 @@ def test_norm_bwd_geometry_covers_every_width(n):
         assert p == 1 or 256 * w * (p - 1) < d
         assert geo["threads"] == (256 if w == 8 else 128)
         assert geo["rows_at_once"] * w * 32 == geo["threads"]
-        cap = H100_SMS * (2 if w == 8 else 4)
-        assert geo["blocks"] == min(cap, -(-n // geo["rows_at_once"]))
+        per_sm = {8: 1, 4: 2}.get(w, 3 if p >= 3 else 4)
+        assert geo["blocks_per_sm"] == per_sm
+        assert geo["blocks"] == min(H100_SMS * per_sm,
+                                    -(-n // geo["rows_at_once"]))
+
+
+@pytest.mark.parametrize("n,d,blocks", [(16384, 576, 396),
+                                        (4096, 4096, 264), (2, 576, 1),
+                                        (40, 2048, 40), (9, 8192, 9),
+                                        (16384, 512, 528)])
+def test_norm_bwd_geometry_at_the_train_shapes(n, d, blocks):
+    """smollm-135m's train step (16384 x 576: a warp a row of 3 packs)
+    fills 3 blocks an SM, chatglm3-6b's width (4 warps of 4 packs) 2;
+    short runs take a block a row (4 rows a block at one warp a row)."""
+    assert rn.norm_bwd_geometry(n, d, H100_SMS)["blocks"] == blocks
 
 
 @pytest.mark.parametrize("d", [0, 4, 44, 8200, 16384])
@@ -475,3 +489,70 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, n, d):
         assert _rel(a, b) < 1e-2
     again = rn.rmsnorm_bwd(x, g, dh)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,pad", [(1, 576, 0), (333, 576, 0),
+                                     (16384, 576, 0), (1001, 2048, 0),
+                                     (4096, 4096, 0), (77, 4096, 0),
+                                     (130, 8192, 0), (5, 1000, 0),
+                                     (300, 576, 64)])
+def test_fused_add_rmsnorm_bwd_kernel_matches_plain(cuda, n, d, pad):
+    """The fused backward at both row geometries, runs shorter than a
+    block, d = 8192 and d = 1000, and (pad > 0) rows read in place as
+    column views of wider buffers (row stride > d): one launch a call, the
+    same bits twice, ds within the kernel's l2 of chip_smoke's ``TOL``
+    and dg, unrounded as ``_farn_bwd`` has it, within ``DG_L2``.
+
+    ``DG_L2`` = 2e-4: the plain version's dg summed in f32 in other orders
+    (rows reversed, blocks of rows, f64), each rounded to bf16, lies at
+    most 3.7e-5 (relative L2, on the CPU) from its own at these cases,
+    while rounding s * r to bf16 before the product (the rmsnorm
+    backward's dg) moves it by 2.4e-3 to 2.8e-3; the test checks that the
+    rounded variant fails."""
+    DG_L2 = 2e-4
+
+    def operand(seed):
+        (wide,) = arrays(seed, "bfloat16", (n, d + pad))
+        return wide.to(cuda)[:, :d]
+    x, y, dh, ds_out = (operand(20 + i) for i in range(4))
+    (g,) = (t.to(cuda) for t in arrays(24, "bfloat16", (d,)))
+    s, _ = rn.fused_add_rmsnorm_plain(x, y, g)
+    if pad:
+        s = torch.cat([s, s[:, :pad]], 1)[:, :d]
+        assert s.stride(0) == d + pad and dh.stride(0) == d + pad
+    before = LAUNCHES["fused_add_rmsnorm_bwd"]
+    got = rn.fused_add_rmsnorm_bwd(s, g, dh, ds_out)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_add_rmsnorm_bwd"] == before + 1
+    want = rn.fused_add_rmsnorm_bwd_plain(s, g, dh, ds_out)
+    assert got[0] is got[1]
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.isfinite(a).all()
+    assert _rel(got[0], want[0]) < 4e-3
+    assert _rel(got[2], want[2]) < DG_L2
+    sf, dhf = s.float(), dh.float()
+    r = torch.rsqrt(torch.mean(sf * sf, -1, keepdim=True) + rn.EPS)
+    rounded = torch.sum(dhf * (sf * r).to(torch.bfloat16).float(), 0)
+    assert _rel(rounded.to(torch.bfloat16), want[2]) > DG_L2
+    again = rn.fused_add_rmsnorm_bwd(s, g, dh, ds_out)
+    assert LAUNCHES["fused_add_rmsnorm_bwd"] == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[2], again[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_norm_bwd_instantiations_hold_their_blocks(cuda, fused):
+    """Every instantiation of both backwards keeps the geometry's
+    ``blocks_per_sm`` resident, with no spills, so its grid is one
+    wave."""
+    for w, p in ((1, 1), (1, 2), (1, 3), (1, 4), (4, 2), (4, 3), (4, 4),
+                 (8, 3), (8, 4)):
+        info = rn.norm_bwd_info(w, p, fused)
+        geo = rn.norm_bwd_geometry(1 << 20, 256 * w * p, H100_SMS)
+        assert (geo["warps_per_row"], geo["packs"]) == (w, p)
+        assert info["threads"] == geo["threads"]
+        assert info["local_bytes"] == 0, (w, p, info)
+        assert info["blocks_per_sm"] == geo["blocks_per_sm"]
+        assert info["resident_per_sm"] >= geo["blocks_per_sm"], (w, p)

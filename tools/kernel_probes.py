@@ -35,8 +35,16 @@
            SM moves per microsecond; then copies without the kernel's
            stores, its loads or both in turns with it, and each warp's
            ``clock64`` cycles a row per bucket (``FUSED_MARKS``)
+  norm_bwd times the RMSNorm backward and the fused add+RMSNorm backward
+           at the train step's two shapes (16384 x 576, 4096 x 4096) over
+           a sweep of grids, 1 to 6 blocks an SM, and copies of the kernel
+           whose row loads, stores or both carry cache-streaming hints, each
+           held to its plain version, in turns (device time alone, both
+           launches), with each pass's device time at the wrapper's grid
+           and the instantiation's registers and blocks resident an SM
 
-Usage:  python3 tools/kernel_probes.py [--probes decode,rmsnorm,ssd,fused]
+Usage:  python3 tools/kernel_probes.py
+            [--probes decode,rmsnorm,ssd,fused,norm_bwd]
             [--ssd-other NAME=DIR ...] [--fused-other NAME=DIR ...]
 Needs a CUDA device and nvcc; prints one JSON line per case.
 """
@@ -675,9 +683,123 @@ def probe_fused(out, others=()):
         logs["cycles"], ("fused_kernelI13__nv_bfloat16S",))})
 
 
+# copies of csrc/rmsnorm_bwd.cu whose row loads (ld_row) and row stores
+# (st_row), or both, carry the cache-streaming hint (evict first: each row
+# byte is read once and written once)
+CS_LOAD = ("return *reinterpret_cast<const uint4*>(p);",
+           "return __ldcs(reinterpret_cast<const uint4*>(p));")
+CS_STORE = ("*reinterpret_cast<uint4*>(p) = v;",
+            "__stcs(reinterpret_cast<uint4*>(p), v);")
+NORM_BWD_VARIANTS = {"streaming loads and stores": (CS_LOAD, CS_STORE),
+                     "streaming loads": (CS_LOAD,),
+                     "streaming stores": (CS_STORE,)}
+
+
+def norm_bwd_launch(lib, fused, x, gw, dh, dso, dx, dg, geo, blocks):
+    """One call of ``lib``'s norm backward (both launches) on bf16 (n, d)
+    rows at ``geo``'s row geometry and ``blocks`` blocks."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as rn
+    n, d = x.shape
+    work = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    args = (geo["warps_per_row"], geo["packs"], blocks,
+            torch.cuda.current_stream().cuda_stream)
+    if fused:
+        rc = lib.repro_fused_add_rmsnorm_bwd(
+            x.data_ptr(), gw.data_ptr(), dh.data_ptr(), dso.data_ptr(),
+            dx.data_ptr(), dg.data_ptr(), work.data_ptr(), n, d, d, d, d, d,
+            rn.EPS, *args)
+    else:
+        rc = lib.repro_rmsnorm_bwd(
+            x.data_ptr(), gw.data_ptr(), dh.data_ptr(), dx.data_ptr(),
+            dg.data_ptr(), work.data_ptr(), n, d, d, d, d, rn.EPS, *args)
+    _build.check(rc, "norm_bwd probe")
+    return dx, dg
+
+
+def probe_norm_bwd(out):
+    """Both norm backwards over grids of 1-6 blocks an SM at the train
+    shapes, and at the geometry's grid the copies of
+    ``NORM_BWD_VARIANTS``, launched straight through the libraries' entry
+    points, all in turns."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as rn
+    import chip_smoke as cs
+    lib = _build.library()
+    tmp = tempfile.mkdtemp()
+    procs = {}
+    for i, (k, edits) in enumerate(NORM_BWD_VARIANTS.items()):
+        src = (_build.CSRC / "rmsnorm_bwd.cu").read_text()
+        for old, new in edits:
+            if old not in src:
+                raise RuntimeError(f"variant anchor {old!r} not found")
+            src = src.replace(old, new)
+        with open(os.path.join(tmp, f"norm_bwd{i}.cu"), "w") as f:
+            f.write(src)
+        procs[k] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+             os.path.join(tmp, f"norm_bwd{i}.cu"), "-o",
+             os.path.join(tmp, f"norm_bwd{i}.so")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    variants = {}
+    for i, (k, p) in enumerate(procs.items()):
+        log = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed on the {k} copy:\n{log}")
+        variants[k] = _load_lib(os.path.join(tmp, f"norm_bwd{i}.so"))
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    for fused in (False, True):
+        for n, d in ((16384, 576), (4096, 4096)):
+            x, gw, dh, dso = randn(n, d), randn(d), randn(n, d), randn(n, d)
+            want = (rn.fused_add_rmsnorm_bwd_plain(x, gw, dh, dso) if fused
+                    else rn.rmsnorm_bwd_plain(x, gw, dh))
+            geo = rn.norm_bwd_geometry(n, d, sms)
+            dx, dg = torch.empty_like(x), torch.empty_like(gw)
+            points = {}
+            for per_sm in range(1, 7):
+                blocks = min(sms * per_sm, -(-n // geo["rows_at_once"]))
+                points[f"{per_sm} an SM"] = (lib, blocks)
+            for k, other in variants.items():
+                points[f"{k}, the geometry's grid"] = (other, geo["blocks"])
+            res = {}
+            for k, (which, blocks) in points.items():
+                got = norm_bwd_launch(which, fused, x, gw, dh, dso, dx, dg,
+                                      geo, blocks)
+                torch.cuda.synchronize()
+                res[k] = dict(blocks=blocks,
+                              rel_l2=[cs.rel_err(got[0], want[0]),
+                                      cs.rel_err(got[1], want[-1])],
+                              device_ms_turns=[])
+            for k in list(points) + list(points)[::-1]:
+                which, blocks = points[k]
+                res[k]["device_ms_turns"].append(cs.device_ms([
+                    lambda w=which, b=blocks: norm_bwd_launch(
+                        w, fused, x, gw, dh, dso, dx, dg, geo, b)])[0])
+            wrapper = ((lambda: rn.fused_add_rmsnorm_bwd(x, gw, dh, dso))
+                       if fused else (lambda: rn.rmsnorm_bwd(x, gw, dh)))
+            out({"probe": "norm_bwd",
+                 "kernel": "fused_add_rmsnorm_bwd" if fused
+                 else "rmsnorm_bwd",
+                 "case": f"n={n} d={d} bf16", "geometry": geo,
+                 "info": rn.norm_bwd_info(geo["warps_per_row"], geo["packs"],
+                                          fused),
+                 "pass_device_ms": cs.pass_ms(
+                     wrapper, ("norm_bwd_kernel", "norm_bwd_dg_kernel")),
+                 "points": res})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--probes", default="decode,rmsnorm,ssd,fused")
+    ap.add_argument("--probes", default="decode,rmsnorm,ssd,fused,norm_bwd")
     ap.add_argument("--ssd-other", action="append", default=[],
                     help="NAME=DIR: the ssd_scan.cu of another tree's "
                          "kernels/csrc directory, timed beside this one's")
@@ -702,6 +824,8 @@ def main(argv=None) -> int:
         probe_ssd(out, args.ssd_other)
     if "fused" in probes:
         probe_fused(out, args.fused_other)
+    if "norm_bwd" in probes:
+        probe_norm_bwd(out)
     return 0
 
 
