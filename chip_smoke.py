@@ -19,7 +19,9 @@ Phases, each printing one JSON line:
             and hold each Hopper kernel against its plain PyTorch version
             at each shape the main paths give it (the three backward
             kernels at the train phase's shapes, with SDPA's backward and
-            ``F.rms_norm``'s autograd as yardsticks); time kernel, plain
+            ``F.rms_norm``'s autograd as yardsticks; the AdamW kernel bit
+            for bit at the train models' leaf sets and at odd sizes);
+            time kernel, plain
             version and the one-call PyTorch yardstick where there is one
             over back-to-back calls (``ms``: CUDA events, which measure
             the host where a call costs it more than the card), and
@@ -143,12 +145,18 @@ Phases, each printing one JSON line:
             (B=8 S=2048): ``dynamic`` (TokenWeave) against ``sequential``
             on the first step's loss and gradients, 30 steps of
             ``train_loop`` on one repeated ``SyntheticBackend`` batch
-            (the loss must fall by ``LOOP_MARGIN``), a crash at step 9
-            restored from the step-5 checkpoint repeating the uncrashed
-            losses, and the step's wall and device time, tokens/s, MFU,
-            peak memory and launches; then chatglm3-6b at full width cut
-            to 4 layers (B=2 S=2048, NanoFlow) the same way, without the
-            loop
+            (the loss must fall by ``LOOP_MARGIN``) with the step one
+            CUDA Graph (one capture: its seconds, pool bytes and the
+            loop's peak memory), three replays against three steps of
+            ``fn.eager`` bit for bit, a crash at step 9 restored from
+            the step-5 checkpoint repeating the uncrashed losses with no
+            second capture, the replay's wall and device time, busy
+            share, tokens/s, MFU, peak allocated and reserved memory and
+            launches, and the eager step's device time by range
+            (forward+backward, grad reduction and norm, AdamW) with the
+            AdamW chain op by op and as the kernel; then chatglm3-6b at
+            full width cut to 4 layers (B=2 S=2048, NanoFlow) the same
+            way, without the loop
 
 Each model phase zeroes the launch counts just before the run it checks
 and reads them just after; the ``kernels`` line reports their sum over
@@ -182,6 +190,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12      # H100 SXM data sheet, dense bf16
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12        # H100 SXM data sheet, f32 outside the tensor cores
 # Each kernel against its plain version on the same bf16 inputs: every
 # element within atol + rtol*|plain| (+ pv*P|V| for flash), and the
 # relative L2 error within l2.
@@ -370,9 +379,10 @@ def pass_ms(fn, parts, iters=20, windows=5):
     return out
 
 
-def bound(flops, nbytes):
-    """``bound_ms`` and ``bound_by`` of ``flops`` operations on ``nbytes``."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """``bound_ms`` and ``bound_by`` of ``flops`` operations (at ``peak``
+    a second) on ``nbytes``."""
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return (dict(bound_ms=t_ops, bound_by="operations") if t_ops >= t_mem
             else dict(bound_ms=t_mem, bound_by="bytes"))
@@ -434,7 +444,10 @@ def phase_kernels(dev, build_log=None):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES as LAUNCHES_
     from repro_torch.kernels import _build, reset_launch_counts
+    from repro_torch.kernels import adamw as kadamw
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
@@ -742,6 +755,97 @@ def phase_kernels(dev, build_log=None):
             library_ms=None,
             **device_times([lambda: ssd.ssd_scan(*args)]))
 
+    def adamw_state(shapes, dtypes, gdtypes=None):
+        ps = [randn(*sh).to(dt) for sh, dt in zip(shapes, dtypes)]
+        gs = [(randn(*sh).float() * 1e-2).to(dt)
+              for sh, dt in zip(shapes, gdtypes or dtypes)]
+        ms = [randn(*sh).float() * 1e-3 for sh in shapes]
+        vs = [torch.rand(sh, generator=g, device=dev) * 1e-5
+              for sh in shapes]
+        return ps, gs, ms, vs
+
+    def adamw_scalars(count, clip):
+        cf = torch.full((), float(count), device=dev)
+        return dict(lr=torch.full((), 3e-4, device=dev),
+                    scale=torch.full((), 0.37, device=dev) if clip else None,
+                    c1=1.0 - torch.pow(torch.full((), 0.9, device=dev), cf),
+                    c2=1.0 - torch.pow(torch.full((), 0.95, device=dev), cf))
+
+    consts = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+    def adamw_bits(ps, gs, ms, vs, sc):
+        """One kernel update against the plain chain on clones: (max abs
+        error, the same bits)."""
+        want = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+        kadamw.adamw_plain(want[0], gs, want[1], want[2], **sc, **consts)
+        kadamw.adamw(ps, gs, ms, vs, **sc, **consts)
+        torch.cuda.synchronize()
+        pairs = list(zip(ps + ms + vs, want[0] + want[1] + want[2]))
+        return (max(max_err(a, b) for a, b in pairs),
+                all(torch.equal(a, b) for a, b in pairs))
+
+    def adamw_odd():
+        """The odd leaf sizes (not multiples of the vector width), bf16
+        and f32 params, count 1 and 1000, clipping off and on: the same
+        bits as the plain chain in every case."""
+        shapes = [(1,), (577,), (4097, 3), (65024, 4096)]
+        cases = []
+        for dt in (torch.bfloat16, torch.float32):
+            for count in (1, 1000):
+                for clip in (0, 1):
+                    st = adamw_state(shapes, [dt] * len(shapes))
+                    err, same = adamw_bits(*st, adamw_scalars(count, clip))
+                    cases.append({"dtype": str(dt), "count": count,
+                                  "grad_clip": clip, "max_abs_err": err,
+                                  "same_bits": same})
+                    del st
+        return cases
+
+    def adamw_set(what, cfg, odd=None):
+        """The train step's leaf set of ``cfg``: bits against the plain
+        chain, then the kernel's and the chain's times."""
+        from repro_torch.api import compile
+        from repro_torch.tree import leaves
+        tree = compile(cfg).init_params(SEED, phase="train")
+        shapes = [tuple(t.shape) for t in leaves(tree)]
+        dtypes = [t.dtype for t in leaves(tree)]
+        del tree
+        st = adamw_state(shapes, dtypes)
+        sc = adamw_scalars(1000, 1)
+        err, same = adamw_bits(*st, sc)
+        n = sum(p.numel() for p in st[0])
+        nbytes = sum(p.numel() * (2 * p.element_size() + g.element_size()
+                                  + 16) for p, g in zip(st[0], st[1]))
+        before = LAUNCHES_["adamw"]
+        kadamw.adamw(*st, **sc, **consts)
+        launches = LAUNCHES_["adamw"] - before
+        row = dict(
+            shape=f"{what}: {len(shapes)} leaves, {n} params "
+                  f"({', '.join(sorted({str(d) for d in dtypes}))}), "
+                  "count 1000, grad_clip 1",
+            leaves=len(shapes), params=n, launches_per_call=launches,
+            max_abs_err=err, same_bits=same,
+            rel_l2=0.0 if same else 1.0, ok=same and launches == 1
+            and (odd is None or all(c["same_bits"] for c in odd)),
+            tolerance="bitwise",
+            ms=cuda_ms(lambda: kadamw.adamw(*st, **sc, **consts), iters=20),
+            plain_ms=cuda_ms(lambda: kadamw.adamw_plain(*st, **sc, **consts),
+                             iters=3),
+            # ~17 f32 operations an element outside the tensor cores
+            **bound(17.0 * n, nbytes, PEAK_F32_FLOPS),
+            bytes_per_param=nbytes / n,
+            # torch.optim.AdamW's arithmetic differs (optim/adamw.py), so
+            # no single PyTorch call computes this function
+            library_ms=None,
+            info=kadamw.adamw_info(),
+            **device_times([lambda: kadamw.adamw(*st, **sc, **consts)]))
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        if odd is not None:
+            row["odd_sizes"] = odd
+        del st
+        torch.cuda.empty_cache()
+        return row
+
     glm, m2, z2 = "chatglm3-6b", "mamba2-2.7b", "zamba2-1.2b"
     sm = "smollm-135m"
     rows = [
@@ -830,6 +934,14 @@ def phase_kernels(dev, build_log=None):
                    "src/repro/kernels/ops.py:63",
                    [fused_bwd(f"{sm} train B=8", 16384, 576),
                     fused_bwd(f"{glm} train B=2", 4096, 4096)]),
+        # the train step's update over every leaf, one launch: the JAX
+        # package has no Pallas call here (XLA fuses the chain in its
+        # jitted step)
+        kernel_row("adamw", "cuda", "src/repro_torch/kernels/csrc/adamw.cu",
+                   "src/repro/optim/adamw.py:70",
+                   [adamw_set(f"{glm} 4 layers", dataclasses.replace(
+                       get_config(glm), n_layers=4), odd=adamw_odd()),
+                    adamw_set(sm, get_config(sm))]),
     ]
     lib = _build.library()
     builds = ptxas_report(_build.BUILD_LOG, ("flash_fwd_kernel",
@@ -2806,9 +2918,11 @@ def phase_autotune(dev, params, gpu, totals, arch="chatglm3-6b"):
 # phase: training
 # ---------------------------------------------------------------------------
 
-# the kernels every dense train step launches, and TokenWeave's pair
-TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
-                 "rmsnorm_bwd")
+# the kernels of every dense step's gradients, of the whole step (the
+# AdamW pass too), and TokenWeave's pair
+GRAD_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                "rmsnorm_bwd")
+TRAIN_KERNELS = GRAD_KERNELS + ("adamw",)
 FUSED_PAIR = ("fused_add_rmsnorm", "fused_add_rmsnorm_bwd")
 # the GPU (kernels) against the CPU (plain versions), and dynamic against
 # sequential: bf16 round-off.  The backward kernels round P and dS to
@@ -2914,10 +3028,111 @@ def train_flops(cfg, params, B, S):
     return 6.0 * n * B * S + attn, n
 
 
+def _bits_equal(a, b):
+    """(every leaf of ``a`` equal to ``b``'s bit for bit, the names of
+    those that differ)."""
+    import torch
+
+    from repro_torch.tree import leaves_with_paths
+    want = dict(leaves_with_paths(b))
+    bad = ["/".join(p) for p, t in leaves_with_paths(a)
+           if not torch.equal(t, want[p])]
+    return not bad, bad
+
+
+def graph_vs_eager(step, params, opt, batch, first_step, steps=3):
+    """``steps`` replays of the graphed step (captured on ``params`` and
+    ``opt``) against as many steps of ``step.eager`` on copies of the same
+    state and the same batch: params, m, v, count and the four metrics
+    compared bit for bit after every step.  Trains ``params`` on."""
+    import torch
+    ep, eo = _copy_tree(params), _copy_tree(opt)
+    replays = step.stats["graph_replays"]
+    per_step, ok = [], True
+    for j in range(steps):
+        _, _, m = step(params, opt, batch, first_step + j)
+        m = _copy_tree(m)
+        _, _, em = step.eager(ep, eo, batch, first_step + j)
+        torch.cuda.synchronize()
+        checks = {name: _bits_equal(a, b) for name, a, b in (
+            ("metrics", m, em), ("params", params, ep), ("opt", opt, eo))}
+        per_step.append({"loss": float(m["loss"]),
+                         "eager_loss": float(em["loss"]),
+                         **{k: v[0] for k, v in checks.items()},
+                         "differ": [n for v in checks.values()
+                                    for n in v[1]][:8]})
+        ok = ok and all(v[0] for v in checks.values())
+    del ep, eo
+    replayed = step.stats["graph_replays"] - replays
+    return {"steps": per_step, "replays": replayed,
+            "ok": ok and replayed == steps}
+
+
+# the step's parts, as ranges of the profiled eager step
+PARTS = (("adamw", "adamw_update"),
+         ("grad_reduce_norm", "reduce_grads"),
+         ("grad_reduce_norm", "global_grad_norm"))
+
+
+def _elementwise(name):
+    return "elementwise" in name or "reduce_kernel" in name
+
+
+def train_attribution(step, params, opt, batch, first_step, windows=3):
+    """Device time of the eager step by part (``_profile``'s ``ranges``):
+    ``adamw`` (under ``adamw_update``), ``grad_reduce_norm`` (under
+    ``reduce_grads`` and ``global_grad_norm``) and ``forward_backward``
+    (the rest: the forward, the loss and the backward), before the fused
+    pass (the AdamW chain op by op, ``kernels.adamw.adamw_plain``) and
+    after it (the kernel).  The ranges are wrapped around the step
+    module's functions here, not in the package.  Trains ``params``
+    on."""
+    from torch.profiler import record_function
+
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.train import step as step_mod
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    saved = {fn: getattr(step_mod, fn) for _, fn in PARTS}
+    real = kadamw.adamw
+    at = [first_step]
+
+    def one():
+        step.eager(params, opt, batch, at[0])
+        at[0] += 1
+
+    out = {}
+    try:
+        for part, fn in PARTS:
+            setattr(step_mod, fn, ranged(part, saved[fn]))
+        for when, chain in (("before_fused_pass", kadamw.adamw_plain),
+                            ("after_fused_pass", real)):
+            kadamw.adamw = chain
+            one()                                   # warm
+            prof = _profile(one, 1, windows,
+                            ranges={part for part, _ in PARTS})
+            out[when] = {k: prof[k] for k in (
+                "window_kernels", "windows_dropped",
+                "kernel_launches_per_step", "device_ms_per_step", "ranges",
+                "attributed_by_name_ms")}
+    finally:
+        kadamw.adamw = real
+        for fn, orig in saved.items():
+            setattr(step_mod, fn, orig)
+    return out
+
+
 def step_timings(step, params, opt, batch, cfg, totals, first_step):
-    """Warm timings of ``step``: wall ms a step (CUDA events over 3 steps),
-    the profiler's device ms a step and busy share, tokens/s, MFU, peak
-    memory and the launches of one step.  Trains ``params`` on."""
+    """Warm timings of ``step`` (a replay of its graph once it was
+    captured on ``params``): wall ms a step (CUDA events, three windows of
+    3 steps), the profiler's device ms a step and busy share, tokens/s,
+    MFU, peak allocated and reserved memory over one step and the
+    launches of one step.  Trains ``params`` on."""
     import torch
     B, S = batch["ids"].shape
     i = first_step
@@ -2926,28 +3141,47 @@ def step_timings(step, params, opt, batch, cfg, totals, first_step):
     torch.cuda.reset_peak_memory_stats()
     (_, _, m), launches = counted(totals, lambda: step(params, opt, batch,
                                                        i + 1))
+    loss_after = float(m["loss"])     # the next replay rewrites m
     peak = torch.cuda.max_memory_allocated()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for j in range(3):
-        step(params, opt, batch, i + 2 + j)
-    end.record()
-    end.synchronize()
-    wall = start.elapsed_time(end) / 3
-    prof = _profile(lambda: step(params, opt, batch, i + 5), 2)
+    peak_reserved = torch.cuda.max_memory_reserved()
+    walls = []
+    for w in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for j in range(3):
+            step(params, opt, batch, i + 2 + 3 * w + j)
+        end.record()
+        end.synchronize()
+        walls.append(start.elapsed_time(end) / 3)
+    wall = sum(walls) / len(walls)
+    prof = _profile(lambda: step(params, opt, batch, i + 11), 2)
     flops, n = train_flops(cfg, params, B, S)
-    return {"step_wall_ms": wall,
+    return {"step_wall_ms": wall, "step_wall_ms_windows": walls,
             "step_device_ms": prof["device_ms_per_step"],
             "device_busy_share": prof["device_busy_share"],
             "kernel_launches_per_step": prof["kernel_launches_per_step"],
+            "profile_window_kernels": prof["window_kernels"],
+            "profile_windows_dropped": prof["windows_dropped"],
+            "cpu_ops_per_step": prof["cpu_ops_per_step"],
             "top_device_ms_per_step": prof["top_device_ms_per_step"],
             "tokens_per_s": B * S / (wall / 1e3),
             "model_flops_per_step": flops, "matmul_params": n,
             "mfu": flops / (wall / 1e3) / PEAK_BF16_FLOPS,
             "peak_memory_gb": peak / 1e9,
+            "peak_reserved_gb": peak_reserved / 1e9,
             "kernel_launches_one_step": launches,
-            "loss_after": float(m["loss"])}
+            "loss_after": loss_after}
+
+
+def capture_record(step, before):
+    """The graph counters the step moved since ``before`` (a copy of its
+    ``stats``), with its pool's bytes."""
+    return {"graph_captures": step.stats["graph_captures"]
+            - before["graph_captures"],
+            "capture_s": step.stats["capture_s"] - before["capture_s"],
+            "graph_pool_gb": (step.stats["graph_nbytes"]
+                              - before["graph_nbytes"]) / 1e9}
 
 
 def phase_train_cut(dev, totals):
@@ -2973,19 +3207,22 @@ def phase_train_cut(dev, totals):
     del got, want
     opt, gpu_opt = step.init_opt(params), step.init_opt(gpu_params)
     _, _, m_cpu = step(params, opt, batch, 0)
-    _, _, m_gpu = step(gpu_params, gpu_opt, gpu_batch, 0)
+    (_, _, m_gpu), step_counts = counted(
+        totals, lambda: step(gpu_params, gpu_opt, gpu_batch, 0))
     metrics = {k: (float(m_gpu[k]), float(m_cpu[k])) for k in m_cpu}
     gn_err = abs(metrics["grad_norm"][0] - metrics["grad_norm"][1]) \
         / metrics["grad_norm"][1]
     ok = (ok and gn_err < TRAIN_TOL["grad_norm_rel"]
           and abs(metrics["loss"][0] - metrics["loss"][1])
           < TRAIN_TOL["loss_rel"] * metrics["loss"][1]
-          and all(counts.get(k, 0) > 0 for k in TRAIN_KERNELS))
+          and all(counts.get(k, 0) > 0 for k in GRAD_KERNELS)
+          and all(step_counts.get(k, 0) > 0 for k in TRAIN_KERNELS))
     log({"phase": "train_cut",
          "config": "smollm-135m at full width, 2 layers, B=%d S=%d, "
                    "policy dynamic" % CUT_SHAPE, "strategies": step.strategies,
          "grads": checks, "step_metrics_gpu_cpu": metrics,
          "grad_norm_rel_err": gn_err, "kernel_launches": counts,
+         "step_kernel_launches": step_counts,
          "tolerance": TRAIN_TOL, "ok": ok})
     return ok
 
@@ -3004,7 +3241,7 @@ def _dyn_seq_train(cfg, B, S, dev, totals, tcfg, want_strategy):
     del got, want
     fused = dyn.strategies.get("layers") == "tokenweave"
     ok = (ok and dyn.strategies.get("layers") == want_strategy
-          and all(counts.get(k, 0) > 0 for k in TRAIN_KERNELS)
+          and all(counts.get(k, 0) > 0 for k in GRAD_KERNELS)
           # a run that fuses nothing must not pass as having fused
           and all((counts.get(k, 0) > 0) == fused for k in FUSED_PAIR))
     rec = {"dynamic_strategies": dyn.strategies,
@@ -3015,8 +3252,9 @@ def _dyn_seq_train(cfg, B, S, dev, totals, tcfg, want_strategy):
 
 def phase_train(dev, totals):
     """smollm-135m as published (B=8, S=2048): dynamic against sequential,
-    the loss falling over a loop on one repeated batch, crash-restart;
-    then chatglm3-6b at full width cut to 4 layers (B=2, S=2048)."""
+    the loss falling over a loop on one repeated batch, the graphed step
+    against the eager one bit for bit, crash-restart; then chatglm3-6b
+    at full width cut to 4 layers (B=2, S=2048)."""
     import gc
     import tempfile
 
@@ -3036,44 +3274,66 @@ def phase_train(dev, totals):
         cfg, *SMOLLM_SHAPE, dev, totals, tcfg, "tokenweave")
     init = _copy_tree(params)
     loop_cfg = TrainLoopConfig(steps=LOOP_STEPS, log_every=10 ** 9)
+    stats0 = dict(dyn.fn.stats)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     p, o, hist = train_loop(dyn.fn, params, dyn.init_opt(params),
                             RepeatedBatch(batch), loop_cfg)
     loop_s = time.perf_counter() - t0
+    capture = {**capture_record(dyn.fn, stats0),
+               "loop_peak_allocated_gb": torch.cuda.max_memory_allocated()
+               / 1e9,
+               "loop_peak_reserved_gb": torch.cuda.max_memory_reserved()
+               / 1e9}
     losses = [h["loss"] for h in hist]
     last5 = sum(losses[-5:]) / 5
     falls = last5 < losses[0] - LOOP_MARGIN
+    bitwise = graph_vs_eager(dyn.fn, p, o, batch, LOOP_STEPS)
     # crash at CRASH_AT, restored from the checkpoint at step CKPT_EVERY
+    # into the same tensors: one capture (of the fresh copies), none after
     with tempfile.TemporaryDirectory() as ckpt:
         sim = FailureSimulator(crash_steps=(CRASH_AT,))
         cp = _copy_tree(init)
+        stats1 = dict(dyn.fn.stats)
         _, _, chist = train_loop(
             dyn.fn, cp, dyn.init_opt(cp), RepeatedBatch(batch),
             TrainLoopConfig(steps=CRASH_STEPS, ckpt_dir=ckpt,
                             ckpt_every=CKPT_EVERY, log_every=10 ** 9),
             failure_sim=sim)
+        crash_captures = capture_record(dyn.fn, stats1)["graph_captures"]
+    del cp
     restart = chist[CRASH_AT:]
     rerun_steps = [h["step"] for h in restart]
     crash_err = max(abs(h["loss"] - losses[h["step"]]) / losses[h["step"]]
                     for h in restart)
     crash_ok = (sim.injected == [("crash", CRASH_AT)]
                 and rerun_steps == list(range(CKPT_EVERY, CRASH_STEPS))
-                and crash_err < 1e-4)
-    timings = step_timings(dyn.fn, p, o, batch, cfg, totals, LOOP_STEPS)
-    this_ok = this_ok and falls and crash_ok
+                and crash_err < 1e-4 and crash_captures == 1)
+    first = LOOP_STEPS + bitwise["replays"]
+    timings = step_timings(dyn.fn, p, o, batch, cfg, totals, first)
+    attribution = train_attribution(dyn.fn, p, o, batch, first + 20)
+    this_ok = (this_ok and falls and crash_ok and bitwise["ok"]
+               and capture["graph_captures"] == 1
+               and all(timings["kernel_launches_one_step"].get(k, 0) > 0
+                       for k in TRAIN_KERNELS))
     ok = ok and this_ok
     log({"phase": "train", "config": "smollm-135m as published, B=%d "
          "S=%d, TrainStepConfig(lr=1e-3, warmup=3, total_steps=30, "
-         "remat)" % SMOLLM_SHAPE, **rec,
+         "remat), the step one CUDA Graph" % SMOLLM_SHAPE, **rec,
+         "capture": capture,
          "loop": {"steps": LOOP_STEPS, "losses": losses,
                   "first": losses[0], "last5_mean": last5,
                   "margin": LOOP_MARGIN, "falls": falls, "loop_s": loop_s,
                   "step_time_s": [h["step_time_s"] for h in hist]},
+         "graph_vs_eager": bitwise,
          "crash_restart": {"crash_at": CRASH_AT, "ckpt_every": CKPT_EVERY,
                            "steps_rerun": rerun_steps,
                            "max_loss_rel_err_vs_uncrashed": crash_err,
+                           "graph_captures": crash_captures,
                            "ok": crash_ok},
-         **timings, "tolerance": dict(TRAIN_TOL, crash_loss_rel=1e-4),
+         **timings, "attribution": attribution,
+         "tolerance": dict(TRAIN_TOL, crash_loss_rel=1e-4,
+                           graph_vs_eager="bitwise"),
          "ok": this_ok})
     del dyn, params, p, o, init
     gc.collect()
@@ -3082,13 +3342,34 @@ def phase_train(dev, totals):
     cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=4)
     dyn, params, batch, rec, this_ok = _dyn_seq_train(
         cfg, *GLM_SHAPE, dev, totals, TrainStepConfig(), "nanoflow")
-    timings = step_timings(dyn.fn, params, dyn.init_opt(params), batch, cfg,
-                           totals, 0)
+    opt = dyn.init_opt(params)
+    stats0 = dict(dyn.fn.stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dyn.fn(params, opt, batch, 0)             # runs the step, captures it
+    torch.cuda.synchronize()
+    capture = {**capture_record(dyn.fn, stats0),
+               "capture_peak_allocated_gb": torch.cuda.max_memory_allocated()
+               / 1e9,
+               "capture_peak_reserved_gb": torch.cuda.max_memory_reserved()
+               / 1e9}
+    bitwise = graph_vs_eager(dyn.fn, params, opt, batch, 1)
+    gc.collect()
+    torch.cuda.empty_cache()                  # the eager copies' memory
+    timings = step_timings(dyn.fn, params, opt, batch, cfg, totals,
+                           1 + bitwise["replays"])
+    attribution = train_attribution(dyn.fn, params, opt, batch, 30)
+    this_ok = (this_ok and bitwise["ok"] and capture["graph_captures"] == 1
+               and all(timings["kernel_launches_one_step"].get(k, 0) > 0
+                       for k in TRAIN_KERNELS))
     ok = ok and this_ok
     log({"phase": "train_chatglm3", "config": "chatglm3-6b at full width, "
-         "4 layers, B=%d S=%d, TrainStepConfig() (remat)" % GLM_SHAPE, **rec,
-         **timings, "tolerance": TRAIN_TOL, "ok": this_ok})
-    del dyn, params
+         "4 layers, B=%d S=%d, TrainStepConfig() (remat), the step one "
+         "CUDA Graph" % GLM_SHAPE, **rec, "capture": capture,
+         "graph_vs_eager": bitwise, **timings, "attribution": attribution,
+         "tolerance": dict(TRAIN_TOL, graph_vs_eager="bitwise"),
+         "ok": this_ok})
+    del dyn, params, opt
     gc.collect()
     torch.cuda.empty_cache()
     return ok
@@ -3099,40 +3380,120 @@ def phase_train(dev, totals):
 # ---------------------------------------------------------------------------
 
 
-def _profile(fn, steps):
+def _profile(fn, steps, windows=3, ranges=frozenset()):
     """Wall time per step, device busy share and the top ops of ``steps``
-    calls of ``fn`` under ``torch.profiler``."""
+    calls of ``fn`` under ``torch.profiler``, over ``windows`` windows.
+
+    A step (an eager one, or a graph's replay) launches the same kernels
+    every time, and the profiler can lose events but never adds one, so
+    a window that counts fewer kernels than the largest count lost
+    device events (seen on an H100: one window read 100 ms against 131,
+    9307 kernels against 9314-9316; two of three replay windows 8942
+    against 8974).  Such a window is dropped and reported
+    (``windows_dropped``, with every window's ``window_kernels``), not
+    averaged in.
+
+    ``ranges``: names of ``record_function`` ranges that ``fn`` opens.
+    Each kernel then also goes to the outermost range above the CPU op
+    that launched it (``forward_backward`` where none is), and the
+    result has each range's device ms, elementwise ms and top kernels
+    (``ranges``).  A kernel the profiler tied to no CPU op (the AdamW
+    kernel's launch, seen on an H100) goes by its name: to ``adamw`` if
+    it is the AdamW kernel, else to ``forward_backward``
+    (``attributed_by_name_ms``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
+    runs = []
+    for _ in range(windows):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    # device time: the kernels themselves (the CPU ops that launched them
-    # report the same time again)
-    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(_dev_us(e) for e in kernels) / 1e3
-    by_dev = sorted(kernels, key=_dev_us, reverse=True)[:8]
-    cpu = [e for e in ka if e.device_type == DeviceType.CPU]
-    by_cpu = sorted(cpu, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:8]
-    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
-            "device_ms_per_step": dev_ms / steps,
-            "device_busy_share": dev_ms / (wall * 1e3),
-            "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
-            "cpu_ops_per_step": sum(e.count for e in cpu
-                                    if e.key.startswith("aten::")) / steps,
-            "top_device_ms_per_step": {e.key[:60]: _dev_us(e) / 1e3 / steps
-                                       for e in by_dev},
-            "top_cpu_self_ms_per_step": {
-                e.key[:60]: e.self_cpu_time_total / 1e3 / steps
-                for e in by_cpu}}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ka = prof.key_averages()
+        # device time: the kernels themselves (the CPU ops that launched
+        # them report the same time again, the ranges their own span)
+        kernels = [e for e in ka if e.device_type == DeviceType.CUDA
+                   and e.key not in ranges]
+        runs.append((sum(e.count for e in kernels), wall, ka, kernels,
+                     _range_buckets(prof, kernels, ranges)
+                     if ranges else None))
+    counts = [r[0] for r in runs]
+    full = max(counts)
+    kept = [r for r in runs if r[0] == full]
+    dropped = [i for i, r in enumerate(runs) if r[0] < full]
+    n = len(kept) * steps
+    dev_ms = sum(_dev_us(e) for r in kept for e in r[3]) / 1e3
+    wall_ms = sum(r[1] for r in kept) * 1e3
+    by_dev, by_cpu = {}, {}
+    cpu_ops = 0
+    for _, _, ka, kernels, _ in kept:
+        for e in kernels:
+            by_dev[e.key[:60]] = by_dev.get(e.key[:60], 0.0) + _dev_us(e)
+        for e in ka:
+            if e.device_type == DeviceType.CPU:
+                by_cpu[e.key[:60]] = (by_cpu.get(e.key[:60], 0.0)
+                                      + e.self_cpu_time_total)
+                cpu_ops += e.count if e.key.startswith("aten::") else 0
+    top = lambda d, k=8: {name: v / 1e3 / n for name, v in sorted(  # noqa
+        d.items(), key=lambda kv: -kv[1])[:k]}
+    out = {"steps": steps, "windows": windows,
+           "window_kernels": counts, "windows_dropped": dropped,
+           "wall_ms_per_step": wall_ms / n,
+           "device_ms_per_step": dev_ms / n,
+           "device_busy_share": dev_ms / wall_ms,
+           "kernel_launches_per_step": full / steps,
+           "cpu_ops_per_step": cpu_ops / n,
+           "top_device_ms_per_step": top(by_dev),
+           "top_cpu_self_ms_per_step": top(by_cpu)}
+    if ranges:
+        tot = {part: {} for part in ("forward_backward", *sorted(ranges))}
+        loose = {}
+        for *_, (buckets, lo) in kept:
+            for part, b in buckets.items():
+                for k, us in b.items():
+                    tot[part][k] = tot[part].get(k, 0.0) + us
+            for k, us in lo.items():
+                loose[k] = loose.get(k, 0.0) + us / 1e3 / n
+        out["ranges"] = {part: {
+            "device_ms": sum(t.values()) / 1e3 / n,
+            "elementwise_ms": sum(us for k, us in t.items()
+                                  if _elementwise(k)) / 1e3 / n,
+            "top_kernels_ms": top(t, 6)} for part, t in tot.items()}
+        out["attributed_by_name_ms"] = loose
+    return out
+
+
+def _range_buckets(prof, kernels, ranges):
+    """(kernel device us by range and name, the us given by name alone)
+    for one profiled window: see ``_profile``."""
+    from torch.autograd import DeviceType
+    buckets = {"forward_backward": {}, **{r: {} for r in ranges}}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        where, up = "forward_backward", e
+        while up is not None:
+            if up.name in ranges:
+                where = up.name
+            up = up.cpu_parent
+        for k in e.kernels:
+            b = buckets[where]
+            b[k.name[:60]] = b.get(k.name[:60], 0.0) + k.duration
+    whole, loose = {}, {}
+    for e in kernels:
+        whole[e.key[:60]] = whole.get(e.key[:60], 0.0) + _dev_us(e)
+    for k, us in whole.items():
+        left = us - sum(b.get(k, 0.0) for b in buckets.values())
+        if left > 1e-3 * us:
+            part = "adamw" if "adamw_kernel" in k else "forward_backward"
+            buckets[part][k] = buckets[part].get(k, 0.0) + left
+            loose[k] = loose.get(k, 0.0) + left
+    return buckets, loose
 
 
 def phase_profile(dev, params, arch="chatglm3-6b"):

@@ -376,7 +376,11 @@ class Program:
         Returns a :class:`CompiledStep` whose ``fn(params, opt, batch,
         step) -> (params, opt, metrics)`` updates ``params`` and ``opt``
         in place (``train/step.py``), with ``init_opt``, ``segments`` and
-        ``batch_inputs``.  Its plans lower through the program's PlanStore
+        ``batch_inputs``.  On CUDA tensors ``fn`` replays the whole step
+        as one CUDA Graph, captured at its first call for each set of
+        param and optimizer storages (``fn.stats``); its metrics are then
+        the graph's outputs, rewritten by the next call.  ``fn.eager`` is
+        the same step run op by op, the path the CPU takes.  Its plans lower through the program's PlanStore
         and are verified under the program's ``verify`` mode, like
         ``prefill``'s.  ``cfg``: a ``TrainStepConfig`` (default: remat
         under ``remat_policy``)."""

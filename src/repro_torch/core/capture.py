@@ -15,14 +15,17 @@ creates the workspaces and maps that the kernel wrappers cache per
 device and stream.  ``warm()`` is that first call.  It runs once, on the
 capture stream, before the capture, and must run the same step on
 throwaway copies of the state: a step that advances a recurrent state or
-writes a KV slot must not run twice for one token.
+writes a KV slot must not run twice for one token.  Or, with
+``warm_runs_step=True``, ``warm()`` is the step itself, run for real on
+the live state (the train step's first call): the capture after it runs
+nothing, so the step still runs once, and no copy of the state is made.
 
 The kernel wrappers count their launches in ``kernels.LAUNCHES`` when
 they are called, which under capture is when the graph records them.
 ``GraphStep`` takes that count back out of ``LAUNCHES`` after the capture
 and adds it again on every replay, so the counts follow the steps that
 ran; the warm-up's launches, on throwaway copies, are taken back out
-too.
+too (they stay counted where the warm-up ran the step for real).
 
 Graphs given one ``pool`` (``torch.cuda.graph_pool_handle()``) share
 it: a capture reuses what earlier captures freed, so the pool holds the
@@ -45,6 +48,34 @@ import torch
 
 from ..kernels import LAUNCHES
 
+class Staged:
+    """A fixed device buffer of ``n`` values fed from two pinned host
+    buffers in turns, for a graph's inputs: two steps may be in flight,
+    and a host buffer is rewritten only once the copy that last read it
+    has run (its event)."""
+
+    def __init__(self, n: int, device: torch.device,
+                 dtype: torch.dtype = torch.int32):
+        cuda = device.type == "cuda"
+        self.dev = torch.zeros((n,), dtype=dtype, device=device)
+        self._host = [torch.zeros((n,), dtype=dtype, pin_memory=cuda)
+                      for _ in range(2)]
+        self._ev = [torch.cuda.Event() if cuda else None for _ in range(2)]
+        self._i = 0
+
+    def put(self, fill, n: int):
+        """``fill(a)`` writes the first ``n`` values into a host buffer
+        (numpy), which is then copied into ``dev[:n]``."""
+        host, ev = self._host[self._i], self._ev[self._i]
+        self._i ^= 1
+        if ev is not None:
+            ev.synchronize()
+        fill(host.numpy()[:n])
+        self.dev[:n].copy_(host[:n], non_blocking=ev is not None)
+        if ev is not None:
+            ev.record()
+
+
 class GraphStep:
     """``fn()`` captured as one CUDA Graph on ``stream`` into ``pool``
     (None: a pool of its own), after ``warm()`` ran there once.
@@ -53,7 +84,8 @@ class GraphStep:
     reserved bytes across it: 0 where the pool already held enough)."""
 
     def __init__(self, fn: Callable[[], Any], warm: Callable[[], Any], *,
-                 stream: torch.cuda.Stream, pool: Optional[tuple] = None):
+                 stream: torch.cuda.Stream, pool: Optional[tuple] = None,
+                 warm_runs_step: bool = False):
         t0 = time.perf_counter()
         dev = stream.device
         caller = torch.cuda.current_stream(dev)
@@ -73,8 +105,8 @@ class GraphStep:
         with torch.cuda.graph(self.graph, pool=pool, stream=stream):
             self.output = fn()
         self.launches = Counter(LAUNCHES) - warmed
-        LAUNCHES.clear()              # neither ran the step: replays do
-        LAUNCHES.update(before)
+        LAUNCHES.clear()              # the capture ran nothing: replays do
+        LAUNCHES.update(warmed if warm_runs_step else before)
         self.nbytes = max(0, torch.cuda.memory_stats(dev).get(
             "reserved_bytes.all.current", 0) - reserved)
         caller.wait_stream(stream)

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "grouped_ffn.cu",
            "ssd_scan.cu", "rmsnorm.cu", "fused_add_rmsnorm.cu",
-           "flash_attention_bwd.cu", "rmsnorm_bwd.cu")
+           "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "adamw.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,6 +61,11 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
          ctypes.POINTER(_LL), _P, _P], _I),
     "repro_ssd_scan_info": ([_I, _P, _P, _P], _I),
+    "repro_adamw": (
+        [_P, ctypes.POINTER(_P), _I, _LL, _P, _P, _P, _P, _F, _F, _F, _F, _F,
+         _F, _I, _P], _I),
+    "repro_adamw_info": ([_P, _P, _P], _I),
+    "repro_adamw_limits": ([_P, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

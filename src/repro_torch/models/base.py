@@ -120,7 +120,10 @@ def _remat_call(fn, policy: str, *args):
     if policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
-    return checkpoint(fn, *args, use_reentrant=False, **kw)
+    # the forward draws no random numbers, so the generator's state need
+    # not be saved: reading it is refused while a CUDA Graph captures
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 @dataclasses.dataclass

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels import adamw as kadamw
 from ..tree import leaves, tree_map
 
 
@@ -101,38 +102,52 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig,
     """One AdamW step, in place.  Returns (params, opt_state, grad_norm),
     the first two the objects passed in.  Pass a globally reduced
     ``gnorm`` under SPMD so clipping is identical on every rank (see
-    ``train/step.py:global_grad_norm``)."""
+    ``train/step.py:global_grad_norm``).
+
+    Leaves with f32 m and v go through ``kernels.adamw.adamw``: one
+    launch of the multi-tensor kernel on the card, the same chain
+    (``adamw_chain``) leaf by leaf on the CPU.  The int8 second moment
+    runs the chain eagerly around its dequantize and quantize.  Nothing
+    here copies from the host or waits for the device, so a CUDA Graph
+    can capture the update (the constants are filled on the device)."""
     flat_p = leaves(params)
     dev = flat_p[0].device
-    lr = torch.as_tensor(cfg.lr if lr is None else lr,
-                         dtype=torch.float32).to(dev)
+    if isinstance(lr, torch.Tensor):
+        lr = lr.to(dev, torch.float32)
+    else:
+        lr = torch.full((), cfg.lr if lr is None else lr,
+                        dtype=torch.float32, device=dev)
     if gnorm is None:
         gnorm = global_norm(grads)
     scale = (torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
-                             1.0) if cfg.grad_clip else 1.0)
+                             1.0) if cfg.grad_clip else None)
     count = opt_state["count"] + 1
     cf = count.to(torch.float32)
-    c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=dev), cf)
-    c2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=dev), cf)
+    c1 = 1.0 - torch.pow(torch.full((), cfg.b1, dtype=torch.float32,
+                                    device=dev), cf)
+    c2 = 1.0 - torch.pow(torch.full((), cfg.b2, dtype=torch.float32,
+                                    device=dev), cf)
     flat_g = leaves(grads)
     flat_s = _state_leaves(opt_state["state"])
     assert len(flat_p) == len(flat_g) == len(flat_s), \
         (len(flat_p), len(flat_g), len(flat_s))
+    consts = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                  weight_decay=cfg.weight_decay)
+    dense = [(p, g, st) for p, g, st in zip(flat_p, flat_g, flat_s)
+             if not _is_quant(st["v"])]
+    kadamw.adamw([p for p, _, _ in dense], [g for _, g, _ in dense],
+                 [st["m"] for _, _, st in dense],
+                 [st["v"] for _, _, st in dense], lr, scale, c1, c2, **consts)
     for p, g, st in zip(flat_p, flat_g, flat_s):
-        g = g.float() * scale
-        m = cfg.b1 * st["m"] + (1 - cfg.b1) * g
-        quant = _is_quant(st["v"])
-        v_prev = dequantize_state(st["v"], p.shape) if quant else st["v"]
-        v = cfg.b2 * v_prev + (1 - cfg.b2) * g * g
-        step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
-        pf = p.float()
-        p.copy_(pf - lr * (step + cfg.weight_decay * pf))
+        if not _is_quant(st["v"]):
+            continue
+        pn, m, v = kadamw.adamw_chain(
+            p, g, st["m"], dequantize_state(st["v"], p.shape), lr,
+            1.0 if scale is None else scale, c1, c2, **consts)
+        p.copy_(pn)
         st["m"].copy_(m)
-        if quant:
-            qs = quantize_state(v, cfg.block)
-            st["v"]["q"].copy_(qs["q"])
-            st["v"]["scale"].copy_(qs["scale"])
-        else:
-            st["v"].copy_(v)
+        qs = quantize_state(v, cfg.block)
+        st["v"]["q"].copy_(qs["q"])
+        st["v"]["scale"].copy_(qs["scale"])
     opt_state["count"].copy_(count)
     return params, opt_state, gnorm

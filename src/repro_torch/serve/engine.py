@@ -148,7 +148,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.capture import GraphStep
+from ..core.capture import GraphStep, Staged
 from ..core.plan_store import PlanStore, resolve_plan_store
 from ..core.scheduler import ScheduleContext
 from ..device import resolve_device
@@ -295,33 +295,6 @@ class _Fetch:
         return self.host.numpy()
 
 
-class _Staged:
-    """A fixed int32 device buffer fed from two pinned host buffers in
-    turns: the loop keeps two steps in flight, and a host buffer is
-    rewritten only once the copy that last read it has run (its
-    event)."""
-
-    def __init__(self, n: int, device: torch.device):
-        cuda = device.type == "cuda"
-        self.dev = torch.zeros((n,), dtype=torch.int32, device=device)
-        self._host = [torch.zeros((n,), dtype=torch.int32, pin_memory=cuda)
-                      for _ in range(2)]
-        self._ev = [torch.cuda.Event() if cuda else None for _ in range(2)]
-        self._i = 0
-
-    def put(self, fill, n: int):
-        """``fill(a)`` writes the first ``n`` values into a host buffer
-        (numpy), which is then copied into ``dev[:n]``."""
-        host, ev = self._host[self._i], self._ev[self._i]
-        self._i ^= 1
-        if ev is not None:
-            ev.synchronize()
-        fill(host.numpy()[:n])
-        self.dev[:n].copy_(host[:n], non_blocking=ev is not None)
-        if ev is not None:
-            ev.record()
-
-
 _SERIAL = itertools.count()
 
 
@@ -445,7 +418,7 @@ class ServeEngine:
         # (B, blocks a row); with a host proposer, then the drafts (B, k)
         kd = self._kmax if self._spec is not None \
             and not self._proposer.device else 0
-        self._step_stage = _Staged(B * (6 + self._bpr + kd), self.device)
+        self._step_stage = Staged(B * (6 + self._bpr + kd), self.device)
         self._step_in = self._step_stage.dev[:6 * B].view(6, B)
         self._step_pages = self._step_stage.dev[
             6 * B:B * (6 + self._bpr)].view(B, self._bpr)
@@ -460,8 +433,8 @@ class ServeEngine:
         # tokens (seeds, rids unused) and page rows of one chunk group;
         # laid out per (bp, bucket) / (bc, chunk) by _group_views
         group = self.prefill_tiers[-1] * (big + 5 + self._bpr)
-        self._prefill_stage = _Staged(group, self.device)
-        self._chunk_stage = _Staged(group, self.device)
+        self._prefill_stage = Staged(group, self.device)
+        self._chunk_stage = Staged(group, self.device)
         cuda = self.device.type == "cuda"
         self._graphed = cfg.lowered and cuda
         self._capture_stream = torch.cuda.Stream(self.device) \

@@ -11,8 +11,11 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import torch
+
 from ..ft.checkpoint import CheckpointManager
 from ..ft.elastic import FailureSimulator
+from ..tree import leaves
 
 
 @dataclasses.dataclass
@@ -23,6 +26,14 @@ class TrainLoopConfig:
     log_every: int = 10
     step_deadline_s: float = 0.0       # 0 = no straggler deadline
     max_retries: int = 2
+
+
+def _copy_into(live, restored):
+    """Write ``restored``'s leaves into ``live``'s tensors, in place (the
+    restore already held the two trees to one leaf count)."""
+    with torch.no_grad():
+        for d, s in zip(leaves(live), leaves(restored)):
+            d.copy_(s)
 
 
 def train_loop(train_step: Callable, params, opt_state, pipeline,
@@ -37,8 +48,12 @@ def train_loop(train_step: Callable, params, opt_state, pipeline,
 
     Crash-restart contract: on any step exception the loop restores the
     last checkpoint (params, opt, data cursor) and retries from its step;
-    after ``max_retries`` consecutive failures it re-raises.  The restored
-    tensors are new ones on the devices of the tensors they replace.
+    after ``max_retries`` consecutive failures it re-raises.  A restore
+    (here or at the start, from ``ckpt_dir``'s latest checkpoint) copies
+    the saved values into the tensors passed in, leaf by leaf, so their
+    storage stays where it was: a train step captured as a CUDA Graph
+    over those tensors replays on, with no second capture.  The values,
+    and so the losses, are the reference loop's.
     """
     mgr = CheckpointManager(cfg.ckpt_dir) if cfg.ckpt_dir else None
     history = []
@@ -47,7 +62,7 @@ def train_loop(train_step: Callable, params, opt_state, pipeline,
         restored = mgr.restore({"params": params, "opt": opt_state})
         if restored is not None:
             start, tree, data_state = restored
-            params, opt_state = tree["params"], tree["opt"]
+            _copy_into({"params": params, "opt": opt_state}, tree)
             if data_state:
                 pipeline.load_state_dict(data_state)
             if log:
@@ -75,7 +90,7 @@ def train_loop(train_step: Callable, params, opt_state, pipeline,
             restored = mgr.restore({"params": params, "opt": opt_state})
             if restored is not None:
                 step, tree, data_state = restored
-                params, opt_state = tree["params"], tree["opt"]
+                _copy_into({"params": params, "opt": opt_state}, tree)
                 if data_state:
                     pipeline.load_state_dict(data_state)
             pipeline.seek(step)
