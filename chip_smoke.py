@@ -157,6 +157,22 @@ Phases, each printing one JSON line:
             AdamW chain op by op and as the kernel; then chatglm3-6b at
             full width cut to 4 layers (B=2 S=2048, NanoFlow) the same
             way, without the loop
+  streams   every lowered plan runs over per-resource CUDA streams; each
+            served model, on the params its other phases used, against
+            the one-stream program of the same plans in turns (the
+            (4, 2048) prefill group's logits and the mix's 16 greedy
+            tokens and launches bit for bit; the prefill group and the
+            steady tier-4 step timed as ``serve`` times them; from one
+            profiled replay of each graph, and of one eager prefill, the
+            kernel time on the busiest streams and the share of the
+            device time in which kernels of two or more streams overlap;
+            each graph's pool bytes; ``dynamic`` against ``sequential``
+            tokens/s on the mix, both on streams; zamba2-1.2b's prefill
+            graph with TokenWeave's fused add+RMSNorm at 16 blocks
+            against NanoFlow's separate add and norm, each way); then,
+            after ``train``, both train configurations' graphed steps:
+            params, m, v and metrics after 3 steps bit for bit, the step
+            time in turns, the overlap, the pool bytes
 
 Each model phase zeroes the launch counts just before the run it checks
 and reads them just after; the ``kernels`` line reports their sum over
@@ -166,7 +182,7 @@ launched on some path.
 Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,
             serve,lifecycle,paged,sampling,spec,autotune,moe_reference,
             moe_transparency,moe_serve,ssm_reference,ssm_transparency,
-            ssm_serve,train]
+            ssm_serve,train,streams]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
         torch.profiler breakdown of a warm prefill, eager and replayed
         as the engine's graph, of a window of decode steps, with graphs
@@ -3376,6 +3392,289 @@ def phase_train(dev, totals):
 
 
 # ---------------------------------------------------------------------------
+# phase: streams — per-resource CUDA streams against one stream
+# ---------------------------------------------------------------------------
+
+
+def stream_overlap(fn):
+    """From one profiled call of ``fn`` (a graph's replay, or a step):
+    the device time of the kernels (and device copies) on the streams the
+    profiler reports (the four busiest, and the rest summed), the time at
+    least one of them runs (``busy_ms``) and the time kernels of two or
+    more streams run at once, as ms and as a share of ``busy_ms``.
+    Eagerly the streams are the plan's resource streams; inside a CUDA
+    Graph they are the ones CUDA runs the graph's branches on."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+              e.get("args", {}).get("stream", -1))
+             for e in trace.get("traceEvents", [])
+             if e.get("ph") == "X" and e.get("cat") in (
+                 "kernel", "gpu_memcpy", "gpu_memset")]
+    per: dict = {}
+    for a, b, st in spans:
+        per[st] = per.get(st, 0.0) + (b - a) / 1e3
+    # a graph's branches land on many CUDA streams: the four busiest
+    top = sorted(per.values(), reverse=True)
+    # sweep over starts and ends (an end before a start at one instant)
+    points = sorted([(a, 1, st) for a, _b, st in spans]
+                    + [(b, -1, st) for _a, b, st in spans])
+    live: dict = {}
+    busy = both = 0.0
+    last = None
+    for t, d, st in points:
+        if last is not None:
+            n = sum(1 for v in live.values() if v > 0)
+            busy += (t - last) if n >= 1 else 0.0
+            both += (t - last) if n >= 2 else 0.0
+        live[st] = live.get(st, 0) + d
+        last = t
+    return {"kernels": len(spans), "streams": len(per),
+            "kernel_ms_top_streams": top[:4],
+            "kernel_ms_other_streams": sum(top[4:]),
+            "busy_ms": busy / 1e3, "overlap_ms": both / 1e3,
+            "overlap_share": both / busy if busy else 0.0}
+
+
+def _multi_stream(fwd):
+    """Whether any of a Forward's lowered plans uses a side stream."""
+    return any(rz.lowered is not None and rz.lowered.streams.side
+               for rz in fwd.realizers.values())
+
+
+def phase_streams(dev, params, gpu, arch="chatglm3-6b"):
+    """The served model over per-resource streams against the one-stream
+    program of the same lowered plans (``core.streams.one_stream``, the
+    comparison only tests and this script reach), on one process, in
+    turns: the (4, 2048) prefill group's logits (eager through the
+    lowered plans) and 16 greedy tokens of the mix (graphs) bit for bit
+    and with the same launches; the prefill group and the steady tier-4
+    step, each timed like ``serve``; both graphs' overlap from one
+    profiled replay and their pool bytes; then ``dynamic`` against
+    ``sequential`` tokens/s on the mix, both over streams."""
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.core.streams import one_stream
+
+    def one(fn):
+        with one_stream():
+            return fn()
+
+    prog = compile(arch)          # policy: dynamic
+    cfg = prog.model.cfg
+    step = prog.prefill(*PREFILL_GROUP, s_max=4096)
+    batch = prefill_batch(*PREFILL_GROUP, cfg.vocab, dev, SEED + 3)
+    (logits, n_streams) = counted({}, lambda: step(params, batch)[
+        "logits"].clone())
+    (logits1, n_one) = counted({}, lambda: one(lambda: step(params, batch)[
+        "logits"].clone()))
+    multi = _multi_stream(step.fn)
+    logits_equal = bool(torch.equal(logits, logits1))
+    del logits, logits1
+    # the eager prefill's kernels on the plan's own resource streams
+    eager_overlap = stream_overlap(lambda: step(params, batch))
+    # the mix: one engine over streams, one whose every capture (warm-up
+    # included) is the one-stream program
+    engines = {"streams": serve_engine(prog, params, 16),
+               "one_stream": one(lambda: serve_engine(prog, params, 16))}
+    runs = {k: served(e) if k == "streams" else one(lambda: served(e))
+            for k, e in engines.items()}
+    tokens = {k: tokens_of(r[0]) for k, r in runs.items()}
+    tokens_equal = tokens["streams"] == tokens["one_stream"]
+    launches_equal = runs["streams"][2] == runs["one_stream"][2]
+    ok = (multi and logits_equal and tokens_equal and launches_equal
+          and n_streams == n_one
+          and all(len(t) == 16 for t in tokens["streams"]))
+    # the prefill group through the idle engines, in turns, twice
+    prompts = serve_prompts(prog)
+    prefill = {k: [] for k in engines}
+    for order in (("streams", "one_stream"), ("one_stream", "streams")):
+        for k in order:
+            prefill[k].append(prefill_group_ms(engines[k], prompts))
+    # the steady tier-4 step, in turns
+    for e in engines.values():
+        for i, p in enumerate(prompts):
+            e.submit(serve_request(100 + i, p, 64))
+    steady = steady_pair(engines)
+    graphs = {k: {"prefill": e._group_graph("prefill", *PREFILL_GROUP),
+                  "decode_tier4": e._graph(4)} for k, e in engines.items()}
+    overlap = {k: {g: stream_overlap(step_.replay) for g, step_ in gs.items()}
+               for k, gs in graphs.items()}
+    pool = {k: {g: step_.nbytes for g, step_ in gs.items()}
+            for k, gs in graphs.items()}
+    del graphs, runs
+    # the paper's comparison: dynamic against sequential, both on
+    # streams (the streams engine, its steady requests served out)
+    served(engines["streams"])
+    seq = compile(arch, policy="sequential")
+    mix = {"dynamic": engines["streams"],
+           "sequential": serve_engine(seq, params, 16, submit=False)}
+    del engines
+    gc.collect()
+    tps = {k: [] for k in mix}
+    for turn, order in enumerate((("dynamic", "sequential"),
+                                  ("sequential", "dynamic"))):
+        for k in order:
+            e = mix[k]
+            rids = {1000 * (turn + 1) + i for i in range(len(prompts))}
+            for rid, p in zip(sorted(rids), prompts):
+                e.submit(serve_request(rid, p, 16))
+            reqs, wall, _ = served(e)
+            # ``run`` returns every request the engine finished so far
+            tps[k].append(sum(len(r.output) for r in reqs
+                              if r.rid in rids) / wall)
+    del mix, seq
+    gc.collect()
+    fused = (fused_vs_composition(params, batch, arch)
+             if cfg.family == "hybrid" else None)
+    torch.cuda.empty_cache()
+    log({"phase": PREFIX[cfg.family] + "streams", "arch": arch, "gpu": gpu,
+         "strategies": step.strategies, "multi_stream": multi,
+         "prefill_logits_equal": logits_equal,
+         "prefill_launches_equal": n_streams == n_one,
+         "tokens_equal": tokens_equal, "launches_equal": launches_equal,
+         "tokens_head": [t[:4] for t in tokens["streams"]],
+         "prefill_step_ms": prefill, "steady_decode_step_ms": steady,
+         "overlap": overlap, "eager_prefill_overlap": eager_overlap,
+         "graph_nbytes": pool, "tokens_per_s": tps,
+         "tokenweave_fused_vs_composition": fused, "ok": ok})
+    return ok
+
+
+def fused_vs_composition(params, batch, arch):
+    """The hybrid's (4, 2048) prefill forward captured as a graph under
+    ``dynamic`` (TokenWeave's fused add+RMSNorm at 16 blocks on the
+    shared block) and under ``nanoflow`` (the block's add and RMSNorm as
+    two ops), each over streams and over one stream: replay ms, four
+    graphs in turns (CUDA events over 3 replays, twice)."""
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.core.capture import GraphStep
+    from repro_torch.core.streams import one_stream
+    # the forwards stay alive with their graphs: a replay reads what
+    # their ops cache on the device (the heads' slot maps)
+    graphs, fused, fwds = {}, {}, []
+    for policy in ("dynamic", "nanoflow"):
+        fwd = compile(arch, policy=policy).prefill(*PREFILL_GROUP).fn
+        fwds.append(fwd)
+        fused[policy] = sum(1 for rz in fwd.realizers.values()
+                            for st in rz.plan.steps if st.kind == "fused")
+        for mode in ("streams", "one_stream"):
+            ctx = one_stream() if mode == "one_stream" \
+                else contextlib.nullcontext()
+            with ctx:
+                graphs[f"{policy}/{mode}"] = GraphStep(
+                    lambda: fwd(params, batch)["logits"],
+                    lambda: fwd(params, batch),
+                    stream=torch.cuda.Stream())
+    ms = {k: [] for k in graphs}
+    for order in (list(graphs), list(graphs)[::-1]):
+        for k in order:
+            ms[k].append(replay_ms(graphs[k], 3))
+    out = {"replay_ms": ms, "fused_steps": fused,
+           "graph_nbytes": {k: g.nbytes for k, g in graphs.items()}}
+    del graphs, fwds
+    gc.collect()
+    return out
+
+
+def phase_train_streams(dev):
+    """Both train configurations of ``train`` (smollm-135m as published,
+    chatglm3-6b cut to 4 layers), each as two graphed steps from copies
+    of one state: over per-resource streams and the one-stream program.
+    Three steps each, in turns, then params, m, v and metrics bit for
+    bit; the step's wall time in turns (CUDA events, windows of 3
+    steps); the overlap of one profiled replay; the graphs' pool bytes."""
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    from repro_torch.core.streams import one_stream
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainStepConfig
+    ok = True
+    for name, cfg, shape, tcfg in (
+            ("smollm-135m", get_config("smollm-135m"), SMOLLM_SHAPE,
+             TrainStepConfig(optimizer=AdamWConfig(lr=LOOP_LR),
+                             warmup=LOOP_WARMUP, total_steps=LOOP_STEPS)),
+            ("chatglm3-6b 4 layers",
+             dataclasses.replace(get_config("chatglm3-6b"), n_layers=4),
+             GLM_SHAPE, TrainStepConfig())):
+        steps = {k: compile(cfg).train_step(*shape, cfg=tcfg)
+                 for k in ("streams", "one_stream")}
+        params = compile(cfg).init_params(SEED, phase="train")
+        batch = train_batch(*shape, cfg.vocab, dev)
+        state = {}
+        for k, st in steps.items():
+            p = params if k == "streams" else _copy_tree(params)
+            state[k] = (p, st.init_opt(p))
+        del params
+
+        def run(k, i):
+            st, (p, o) = steps[k], state[k]
+            if k == "streams":
+                return st.fn(p, o, batch, i)[2]
+            with one_stream():
+                return st.fn(p, o, batch, i)[2]
+        metrics = {k: [] for k in steps}
+        for i in range(3):
+            for k in steps:
+                metrics[k].append(_copy_tree(run(k, i)))
+        torch.cuda.synchronize()
+        bits = {part: _bits_equal(a, b)[0] for part, a, b in (
+            ("params", state["streams"][0], state["one_stream"][0]),
+            ("opt", state["streams"][1], state["one_stream"][1]))}
+        bits["metrics"] = all(_bits_equal(a, b)[0] for a, b in zip(
+            metrics["streams"], metrics["one_stream"]))
+        multi = _multi_stream(steps["streams"].fn.forward)
+        walls = {k: [] for k in steps}
+        i = 3
+        for order in (("streams", "one_stream"), ("one_stream", "streams")):
+            for k in order:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(3):
+                    run(k, i)
+                    i += 1
+                end.record()
+                end.synchronize()
+                walls[k].append(start.elapsed_time(end) / 3)
+        overlap = {k: stream_overlap(lambda: run(k, 100)) for k in steps}
+        captures = {k: st.fn.stats["graph_captures"]
+                    for k, st in steps.items()}
+        this_ok = (multi and all(bits.values())
+                   and all(c == 1 for c in captures.values()))
+        ok = ok and this_ok
+        log({"phase": "train_streams", "config": name,
+             "shape": list(shape), "strategies": steps["streams"].strategies,
+             "multi_stream": multi, "bitwise_after_3_steps": bits,
+             "loss": [float(m["loss"]) for m in metrics["streams"]],
+             "step_wall_ms": walls, "overlap": overlap,
+             "graph_nbytes": {k: st.fn.stats["graph_nbytes"]
+                              for k, st in steps.items()},
+             "graph_captures": captures, "ok": this_ok})
+        del steps, state, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # phase 5 (optional): where the time goes
 # ---------------------------------------------------------------------------
 
@@ -3566,7 +3865,7 @@ def run_dense(phases, dev, gpu, totals):
     if "reference" in phases:
         ok = phase_reference(dev, totals) and ok
     if phases & {"transparency", "serve", "profile", "lifecycle", "paged",
-                 "sampling", "spec", "autotune"}:
+                 "sampling", "spec", "autotune", "streams"}:
         params = init_params("chatglm3-6b")
         if "transparency" in phases:
             ok = phase_transparency(dev, params, totals) and ok
@@ -3584,6 +3883,8 @@ def run_dense(phases, dev, gpu, totals):
             ok = phase_spec(dev, params, gpu, totals) and ok
         if "autotune" in phases:
             ok = phase_autotune(dev, params, gpu, totals) and ok
+        if "streams" in phases:
+            ok = phase_streams(dev, params, gpu) and ok
     return ok
 
 
@@ -3592,7 +3893,7 @@ def run_moe(phases, dev, gpu, totals):
     if "moe_reference" in phases:
         ok = phase_reference(dev, totals, "deepseek-moe-16b") and ok
     if phases & {"moe_transparency", "moe_serve", "moe_profile", "spec",
-                 "autotune"}:
+                 "autotune", "streams"}:
         params = init_params("deepseek-moe-16b")
         if "moe_transparency" in phases:
             ok = phase_moe_transparency(dev, params, totals) and ok
@@ -3608,6 +3909,8 @@ def run_moe(phases, dev, gpu, totals):
         if "autotune" in phases:
             ok = phase_autotune(dev, params, gpu, totals,
                                 "deepseek-moe-16b") and ok
+        if "streams" in phases:
+            ok = phase_streams(dev, params, gpu, "deepseek-moe-16b") and ok
     return ok
 
 
@@ -3620,7 +3923,7 @@ def run_ssm(phases, dev, gpu, totals):
         # tokens on ``dynamic`` fuses the block's chain under TokenWeave
         ok = phase_reference(dev, totals, "zamba2-1.2b", S=1024, n_layers=6,
                              policy="dynamic") and ok
-    if phases & {"ssm_transparency", "ssm_serve", "ssm_profile"}:
+    if phases & {"ssm_transparency", "ssm_serve", "ssm_profile", "streams"}:
         for arch in ("mamba2-2.7b", "zamba2-1.2b"):
             params = init_params(arch)
             if "ssm_transparency" in phases:
@@ -3629,6 +3932,8 @@ def run_ssm(phases, dev, gpu, totals):
                 phase_profile(dev, params, arch)
             if "ssm_serve" in phases:
                 ok = phase_serve(dev, params, gpu, totals, arch) and ok
+            if "streams" in phases:
+                ok = phase_streams(dev, params, gpu, arch) and ok
             del params        # each model's weights go before the next's
             gc.collect()
             torch.cuda.empty_cache()
@@ -3640,7 +3945,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="kernels,reference,transparency,"
                     "serve,lifecycle,paged,sampling,spec,autotune,"
                     "moe_reference,moe_transparency,moe_serve,ssm_reference,"
-                    "ssm_transparency,ssm_serve,train")
+                    "ssm_transparency,ssm_serve,train,streams")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")
     args = ap.parse_args(argv)
@@ -3679,6 +3984,8 @@ def main(argv=None) -> int:
     ok = run_ssm(phases, dev, gpu, totals) and ok
     if "train" in phases:
         ok = phase_train(dev, totals) and ok
+    if "streams" in phases:
+        ok = phase_train_streams(dev) and ok
     model_phases = phases - {"kernels"}
     for r in kernel_rows:
         r["launches"] = totals.get(r["name"], 0) if model_phases else None

@@ -228,7 +228,11 @@ def realizer_measurer(params, inputs, repeats: int = 2) -> Callable:
     the CPU.  ``params`` and ``inputs`` are the trees the realized plan
     is called with, or callables ``(info, graph) -> tree`` when one
     measurer serves several segments (an embed, a layer stack and a
-    head have different params and inputs).  Returns ``None`` (the
+    head have different params and inputs).  On the card the plan runs
+    over its per-resource streams, which fork from the current stream
+    and join back into it before the call returns (``core/streams.py``),
+    so the two events on the current stream bracket every stream's
+    work.  Returns ``None`` (the
     candidate keeps its modeled score) when the plan cannot be realized
     — it fails to lower or to schedule; any other error, a CUDA error
     included, propagates."""

@@ -19,9 +19,14 @@ tensors or views they never write, except the decode attention op, which
 updates the KV cache it alone reads (models/layers.py).
 
 By default a ``Realizer`` lowers its plan once to the slot IR of
-``core/lowering.py`` and replays that; ``lowered=False`` keeps this
-module's step-by-step interpreter, the reference semantics the lowered
-path is held to bitwise.
+``core/lowering.py`` and replays that: on the card over per-resource
+streams (``core/streams.py``: compute on the caller's stream, memory and
+network ops on side streams, ordered by events derived from the plan's
+data flow), so the plan order the strategies interleave becomes real
+overlap — the GPU form of the JAX package's emission order.
+``lowered=False`` keeps this module's step-by-step interpreter on one
+stream, in plan order: the reference semantics the lowered path is held
+to bitwise, whatever its streams.
 """
 from __future__ import annotations
 
@@ -210,7 +215,8 @@ class Realizer:
 def realize(graph: OpGraph, plan: ExecutionPlan, params, inputs,
             analysis: Optional[AnalysisResult] = None,
             lowered: bool = True) -> dict:
-    """One-shot helper (tests / small models)."""
+    """One-shot helper (tests / small models): lowered, on the card over
+    per-resource streams; ``lowered=False``, the one-stream interpreter."""
     return Realizer(graph, plan, analysis, lowered=lowered)(params, inputs)
 
 

@@ -20,6 +20,15 @@ writes a KV slot must not run twice for one token.  Or, with
 the live state (the train step's first call): the capture after it runs
 nothing, so the step still runs once, and no copy of the state is made.
 
+A lowered plan on the card runs over per-resource streams
+(``core/streams.py``): its side streams fork from the current stream
+when the plan is called and join back before it returns.  Called inside
+the capture, they fork from the capture stream, so their work joins the
+capture and is joined back into it before ``fn`` returns; the warm-up,
+on the same capture stream, runs the plans on the same side streams
+(one fixed object per device), so the workspaces the kernel wrappers
+cache per stream exist before the capture, which may not make them.
+
 The kernel wrappers count their launches in ``kernels.LAUNCHES`` when
 they are called, which under capture is when the graph records them.
 ``GraphStep`` takes that count back out of ``LAUNCHES`` after the capture
@@ -30,9 +39,11 @@ too (they stay counted where the warm-up ran the step for real).
 Graphs given one ``pool`` (``torch.cuda.graph_pool_handle()``) share
 it: a capture reuses what earlier captures freed, so the pool holds the
 largest capture plus the graphs' outputs, not the sum of all captures.
-That is safe while their replays run in series on one stream and each
-caller reads a replay's output before it replays another graph of the
-pool (a later replay may reuse the output's memory for intermediates).
+That is safe while their replays run in series on one stream (a graph's
+side-stream work is ordered inside it, between its fork and its join)
+and each caller reads a replay's output before it replays another graph
+of the pool (a later replay may reuse the output's memory for
+intermediates).
 
 Nothing here falls back to eager execution: a capture or a replay that
 fails raises.

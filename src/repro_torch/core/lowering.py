@@ -24,7 +24,20 @@ fully pre-resolved:
     slice has landed.
 
 Replaying the ``LoweredPlan`` is a thin loop: list-index reads, one
-callable per step, list-index frees at the precomputed death sites.
+callable per step, list-index frees at the precomputed death sites.  On
+the CPU the loop runs the instructions in order.  On CUDA tensors it
+runs them over per-resource streams (``core/streams.py``): each
+instruction on its step's resource stream (compute on the caller's
+stream, memory and network on side streams forked from it at entry),
+waiting on the events of the producers it reads from other streams, and
+every side stream joined back before the call returns; what a side
+stream touches is held until that join (under autograd, marked with
+``record_stream``), so no storage is reused under a pending read.  The stream program is derived with the instructions by
+``lower``, ``specialize`` and ``plan_serde.rehydrate``
+(``LoweredPlan.streams``, never persisted); ``Instr`` stays the JAX
+package's.  Any assignment of instructions to streams gives the bits of
+the one-stream order, which the interpreter (``Realizer(lowered=False)``)
+keeps.
 
 There is no per-plan capture here.  A CUDA Graph bakes in every address
 it touches, and the layer loop (``models/base.py``) hands each call of a
@@ -47,6 +60,8 @@ from typing import Any, Callable, Optional
 from .analysis import BUF, AnalysisResult, static_analysis
 from .graph import FULL, OpGraph
 from .plan import ExecutionPlan, graph_fingerprint, structural_key
+from .streams import StreamProgram
+from .streams import derive as derive_streams
 
 
 class LoweringError(ValueError):
@@ -102,62 +117,86 @@ class LoweredPlan:
     stats: dict
     capture: bool = False              # run inside a captured CUDA Graph
     struct_key: tuple = ()             # shape-free (graph, plan) identity
+    streams: Optional[StreamProgram] = None   # how it runs on CUDA
     _spec_cache: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
     def __call__(self, params, inputs: dict) -> dict:
-        from .backend import FusedCallInfo, _resolve_path
+        from .backend import _resolve_path
         pvals = [_resolve_path(params, p) for p in self.param_paths]
         env: list = [None] * self.n_slots
+        dev = None
         for name, slot in self.input_slots:
             if name not in inputs:
                 raise KeyError(f"missing graph input {name!r}")
-            env[slot] = inputs[name]
+            v = env[slot] = inputs[name]
+            if dev is None and getattr(v, "is_cuda", False):
+                dev = v.device
+        if dev is not None:
+            from .streams import program_of, run
+            return run(self, program_of(self), pvals, env, dev)
         for ins in self.instrs:
-            args = []
-            for slot, sl in ins.reads:
-                v = env[slot]
-                if sl is not None:
-                    v = v.narrow(*sl)
-                args.append(v)
-            if ins.fused:
-                pdict = {p: pvals[ix] for p, ix in ins.fused_pairs}
-                info = FusedCallInfo(ins.step, self.graph,
-                                     list(ins.ext_inputs),
-                                     list(ins.ext_outputs),
-                                     self.split_sizes, pdict)
-                outs = ins.fn(info, *args)
-            else:
-                if ins.member_pairs is not None:
-                    p = {pp: pvals[ix] for pp, ix in ins.member_pairs}
-                elif ins.param_ix >= 0:
-                    p = pvals[ins.param_ix] or {}
-                else:
-                    p = {}
-                outs = ins.fn(p, *args)
-            if not isinstance(outs, tuple):
-                outs = (outs,)
-            if len(outs) != len(ins.writes):
-                raise ValueError(
-                    f"{ins.label} returned {len(outs)} outputs; expected "
-                    f"{len(ins.writes)}")
-            for (slot, buf), v in zip(ins.writes, outs):
-                if slot >= 0:
-                    env[slot] = v
-                if buf is not None:
-                    bslot, start, pad_cfg, axis = buf
-                    if pad_cfg is not None:
-                        before, after, _ = pad_cfg[axis]
-                        shape = list(v.shape)
-                        shape[axis] += before + after
-                        b = env[bslot] = v.new_empty(shape)
-                        b.narrow(axis, before, v.shape[axis]).copy_(v)
-                    else:
-                        env[bslot].narrow(axis, start[axis],
-                                          v.shape[axis]).copy_(v)
+            self._land(ins, env, self._exec(ins, pvals,
+                                            self._args(ins, env)))
             for s in ins.frees:
                 env[s] = None
         return {name: env[slot] for name, slot in self.output_slots}
+
+    @staticmethod
+    def _args(ins: Instr, env: list) -> list:
+        args = []
+        for slot, sl in ins.reads:
+            v = env[slot]
+            if sl is not None:
+                v = v.narrow(*sl)
+            args.append(v)
+        return args
+
+    def _exec(self, ins: Instr, pvals: list, args: list) -> tuple:
+        if ins.fused:
+            from .backend import FusedCallInfo
+            pdict = {p: pvals[ix] for p, ix in ins.fused_pairs}
+            info = FusedCallInfo(ins.step, self.graph, list(ins.ext_inputs),
+                                 list(ins.ext_outputs), self.split_sizes,
+                                 pdict)
+            outs = ins.fn(info, *args)
+        else:
+            if ins.member_pairs is not None:
+                p = {pp: pvals[ix] for pp, ix in ins.member_pairs}
+            elif ins.param_ix >= 0:
+                p = pvals[ins.param_ix] or {}
+            else:
+                p = {}
+            outs = ins.fn(p, *args)
+        if not isinstance(outs, tuple):
+            outs = (outs,)
+        if len(outs) != len(ins.writes):
+            raise ValueError(
+                f"{ins.label} returned {len(outs)} outputs; expected "
+                f"{len(ins.writes)}")
+        return outs
+
+    @staticmethod
+    def _land(ins: Instr, env: list, outs: tuple) -> list:
+        """Store ``outs`` in their slots and merge buffers; returns the
+        merge buffers written."""
+        bufs = []
+        for (slot, buf), v in zip(ins.writes, outs):
+            if slot >= 0:
+                env[slot] = v
+            if buf is not None:
+                bslot, start, pad_cfg, axis = buf
+                if pad_cfg is not None:
+                    before, after, _ = pad_cfg[axis]
+                    shape = list(v.shape)
+                    shape[axis] += before + after
+                    b = env[bslot] = v.new_empty(shape)
+                    b.narrow(axis, before, v.shape[axis]).copy_(v)
+                else:
+                    b = env[bslot]
+                    b.narrow(axis, start[axis], v.shape[axis]).copy_(v)
+                bufs.append(b)
+        return bufs
 
 
 def _pad_cfg(ref, off: int, size: int) -> tuple:
@@ -328,12 +367,14 @@ def lower(graph: OpGraph, plan: ExecutionPlan,
                                                  len(plan.steps))))
 
     n_keys = len(analysis.death) + len(graph.inputs)
+    instrs = tuple(instrs)
     return LoweredPlan(
-        graph=graph, split_sizes=plan.split_sizes, instrs=tuple(instrs),
+        graph=graph, split_sizes=plan.split_sizes, instrs=instrs,
         input_slots=tuple(input_slots), output_slots=tuple(output_slots),
         param_paths=tuple(path_ix), n_slots=n_slots, fingerprint=plan_fp,
         analysis=analysis, capture=capture,
         struct_key=structural_key(graph, plan),
+        streams=derive_streams(graph, plan, analysis, instrs),
         stats={"n_slots": n_slots, "n_env_keys": n_keys,
                "slots_reused": reused, "pad_inits": pad_inits,
                "n_instrs": len(instrs)})
@@ -436,13 +477,15 @@ def specialize(canonical: LoweredPlan, graph: OpGraph, plan: ExecutionPlan,
     analysis = dataclasses.replace(
         ana, plan_fingerprint=plan_fp,
         buffer_bytes=sum(tensors[t].nbytes for t in ana.prealloc))
+    instrs = tuple(instrs)
     return LoweredPlan(
-        graph=graph, split_sizes=sizes, instrs=tuple(instrs),
+        graph=graph, split_sizes=sizes, instrs=instrs,
         input_slots=canonical.input_slots,
         output_slots=canonical.output_slots,
         param_paths=canonical.param_paths, n_slots=canonical.n_slots,
         fingerprint=plan_fp, analysis=analysis,
         capture=canonical.capture if capture is None else capture,
         struct_key=skey,
+        streams=derive_streams(graph, plan, analysis, instrs),
         stats={**canonical.stats,
                "specialized_from": canonical.fingerprint})

@@ -11,7 +11,9 @@ dropped.  ``rehydrate()`` rebinds them from the caller's live
 fingerprint-v2 outer key matches, because that key covers the structural
 identity *and* the op-closure config the callables were traced with.
 CUDA Graphs of whole steps are never persisted: they bind one engine's
-buffers and are captured anew in each process.
+buffers and are captured anew in each process.  Nor is a plan's stream
+program (``core/streams.py``): ``rehydrate`` derives it again from the
+structure, as ``lower`` and ``specialize`` do.
 
 The format is the JAX package's, byte for byte on the same plans.  A
 merge-buffer write carries the buffer's dtype where the JAX package
@@ -67,6 +69,7 @@ import numpy as np
 from .analysis import AnalysisResult
 from .lowering import Instr, LoweredPlan
 from .plan import dtype_name
+from .streams import derive as derive_streams
 
 MAGIC = "dynaflow-planstore"
 FORMAT_VERSION = 1
@@ -439,14 +442,18 @@ def rehydrate(record: dict, analysis_rec: dict, graph, plan,
         analysis = decode_analysis(analysis_rec, graph, plan_fp)
         stats = dict(record["stats"])
         stats["restored"] = stats.get("restored", 0) + 1
+        instrs = tuple(instrs)
         return LoweredPlan(
             graph=graph, split_sizes=tuple(record["split_sizes"]),
-            instrs=tuple(instrs), input_slots=tuple(record["input_slots"]),
+            instrs=instrs, input_slots=tuple(record["input_slots"]),
             output_slots=tuple(record["output_slots"]),
             param_paths=tuple(record["param_paths"]),
             n_slots=record["n_slots"], fingerprint=plan_fp,
             analysis=analysis, capture=bool(record["capture"]),
-            struct_key=struct_key, stats=stats)
+            struct_key=struct_key, stats=stats,
+            # derived again, never stored: the format stays the JAX
+            # package's byte for byte
+            streams=derive_streams(graph, plan, analysis, instrs))
     except (KeyError, IndexError, TypeError, ValueError,
             AttributeError) as e:
         if isinstance(e, RestoreError):

@@ -114,7 +114,10 @@ def plan_nbytes(lowered: LoweredPlan) -> int:
     """Deterministic host-memory estimate of one lowered plan.
 
     Not a profiler — a monotone proxy (instructions, slots, interned
-    paths) so the byte budget evicts big plans before small ones.
+    paths) so the byte budget evicts big plans before small ones.  The
+    JAX package's formula, so the two stores evict alike; the stream
+    program (``core/streams.py``: a few small tuples an instruction,
+    derived, never saved) rides in the 256 bytes an instruction counts.
     """
     n = 512
     for ins in lowered.instrs:

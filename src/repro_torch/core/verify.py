@@ -26,6 +26,10 @@ first.  Three layers, as in the JAX package's ``core/verify.py``:
      (``core/plan_store.py:_verify_restored_plan``): a persisted artifact
      whose checksum and fingerprint both pass can still carry a stale or
      tampered instruction stream.
+     On top of that, the plan's stream program (``core/streams.py``)
+     is replayed with each stream advancing on its own and meeting the
+     others only at the program's waits and joins (``VFY106``, the
+     port's own code: the JAX package has one stream).
   3. **lint-severity warnings** (:func:`lint_plan`) — scheduling smells
      that run correctly but leave performance behind: two collectives in
      one overlap window (they serialize on the interconnect), an exposed
@@ -68,6 +72,7 @@ CODES = {
     "VFY103": (ERROR, "prealloc merge-buffer hazard"),
     "VFY104": (ERROR, "premature free: slot has reads owed"),
     "VFY105": (ERROR, "lowered plan / analysis metadata inconsistent"),
+    "VFY106": (ERROR, "stream-ordering hazard (per-resource streams)"),
     "VFY201": (WARNING, "resource oversubscription in overlap window"),
     "VFY202": (WARNING, "missed overlap: exposed collective"),
     "VFY203": (WARNING, "degenerate split sizes"),
@@ -560,6 +565,144 @@ def verify_lowered(lowered) -> list:
                 f"{_fmt_key(graph, expect)}, but it holds "
                 + ("nothing (dead slot)" if got is None
                    else _fmt_key(graph, got))))
+    if getattr(lowered, "streams", None) is not None:
+        diags.extend(verify_streams(lowered))
+    return diags
+
+
+def verify_streams(lowered) -> list:
+    """Replay a lowered plan's stream program symbolically: each stream
+    runs its instructions in order and learns of another stream's
+    progress only through a wait on an event or, for the caller's
+    stream, a join.  Reports ``VFY106`` where an instruction may run
+    before a value it reads is produced (a merge buffer before it is
+    created, an assemble before every slice has landed), where a value
+    whose storage the allocator may hand out again — it is freed at its
+    death site and not held until the join — can still be read by a
+    pending instruction of another stream, and where a side stream is
+    not joined before the call returns.  A value's storage is taken to
+    belong to its producer's stream; views are covered by the holds,
+    which keep everything a side-stream instruction touches."""
+    from .streams import dependencies
+    prog = lowered.streams
+    ana = lowered.analysis
+    graph = lowered.graph
+    n = len(lowered.instrs)
+    diags = []
+
+    def err(i, msg, hint=""):
+        diags.append(Diagnostic(ERROR, "VFY106", i,
+                                _instr_handles(lowered, i), msg, hint))
+
+    if not (len(prog.streams) == len(prog.waits) == len(prog.events)
+            == len(prog.held) == n):
+        err(-1, f"stream program covers {len(prog.streams)} instrs, the "
+                f"plan has {n}", "derive the stream program again")
+        return diags
+    streams = prog.streams
+    pos, clock = [0] * n, [None] * n
+    count, known = {}, {}
+    for i in range(n):
+        s = streams[i]
+        k = known.setdefault(s, {})
+        for j in prog.waits[i]:
+            if not (0 <= j < i) or prog.events[j] < 0:
+                err(i, f"{lowered.instrs[i].label} waits for instr {j}, "
+                       "which records no event before it")
+                continue
+            for u, q in clock[j].items():
+                if k.get(u, -1) < q:
+                    k[u] = q
+        pos[i] = count.get(s, 0)
+        count[s] = pos[i] + 1
+        k[s] = pos[i]
+        clock[i] = dict(k)
+
+    def after(i, j) -> bool:
+        """Instr ``j`` is ordered before instr ``i`` runs."""
+        return clock[i].get(streams[j], -1) >= pos[j]
+
+    creators: dict = {}
+    for i, deps in enumerate(dependencies(ana)):
+        label = lowered.instrs[i].label
+        reads = {}
+        for (t, p, mode, key) in ana.reads[i]:
+            reads.setdefault(t, mode)
+        for (t, p) in ana.writes[i]:
+            if t in ana.prealloc and p != FULL:
+                creators.setdefault(t, i)
+        for j in deps:
+            if after(i, j):
+                continue
+            buf = next((t for (t, p) in ana.writes[i]
+                        if p != FULL and creators.get(t) == j != i), None)
+            t = next((t for (t, _p) in ana.writes[j] if t in reads), None)
+            if t is None and buf is not None:
+                what = (f"writes the merge buffer of "
+                        f"{_fmt_key(graph, (buf, FULL))} before instr {j} "
+                        "may have created it")
+            elif t is not None and reads[t] == "assemble":
+                what = (f"assembles the merge buffer of "
+                        f"{_fmt_key(graph, (t, FULL))} before the slice "
+                        f"instr {j} writes may have landed")
+            else:
+                what = (f"reads a value of instr {j} (stream "
+                        f"{streams[j]}) before it may have run")
+            err(i, f"{label} on stream {streams[i]} {what}",
+                "wait for the producer's event")
+
+    # frees: a value dies at its death site; unless a held instruction
+    # touched it, its storage may then be reused on its producer's stream
+    producer, touched = {}, {}
+    for i in range(n):
+        for (t, p, mode, key) in ana.reads[i]:
+            k = ((t, key) if mode == "direct"
+                 else (t, BUF) if mode == "assemble" else (t, FULL))
+            touched.setdefault(k, []).append(i)
+        for (t, p) in ana.writes[i]:
+            producer.setdefault((t, p), i)
+            touched.setdefault((t, p), []).append(i)
+            if t in ana.prealloc and p != FULL:
+                producer.setdefault((t, BUF), i)
+                touched.setdefault((t, BUF), []).append(i)
+    nxt = {}                           # (stream, instr) -> next on stream
+    for i in range(n - 1, -1, -1):
+        nxt[i] = {s: q for s, q in nxt.get(i + 1, {}).items()}
+        nxt[i][streams[i]] = i
+    for key, p in producer.items():
+        uses = touched[key]
+        if any(prog.held[u] for u in uses):
+            continue
+        d = ana.death.get(key)
+        if d is None or d >= n:
+            continue                   # an output: the join orders it
+        a = streams[p]
+        q = nxt.get(d + 1, {}).get(a)
+        if q is None:
+            continue                   # nothing after it on that stream
+        for u in uses:
+            if streams[u] != a and not after(q, u):
+                err(d, f"{lowered.instrs[d].label} frees "
+                       f"{_fmt_key(graph, key)} while instr {u} on stream "
+                       f"{streams[u]} may still read it; instr {q} on "
+                       f"stream {a} may reuse its storage",
+                    "hold the value until the join, or order the free "
+                    "after the read")
+                break
+
+    k0 = dict(known.get(0, {}))
+    for j in prog.joins:
+        if not (0 <= j < n) or prog.events[j] < 0:
+            err(n, f"the join waits for instr {j}, which records no event")
+            continue
+        for u, q in clock[j].items():
+            if k0.get(u, -1) < q:
+                k0[u] = q
+    for s, c in sorted(count.items()):
+        if s != 0 and k0.get(s, -1) < c - 1:
+            err(n, f"side stream {s} is not joined: the caller's stream "
+                   f"does not wait for its last instruction",
+                "join every side stream before the call returns")
     return diags
 
 
@@ -711,6 +854,7 @@ def lint_table(rows: Iterable[tuple], include_clean: bool = False) -> str:
 
 __all__ = [
     "CODES", "Diagnostic", "VerifyReport", "PlanVerificationError",
-    "verify", "verify_plan", "verify_lowered", "lint_plan", "enforce",
+    "verify", "verify_plan", "verify_lowered", "verify_streams",
+    "lint_plan", "enforce",
     "format_missing", "lint_table",
 ]

@@ -39,6 +39,18 @@ def kernel_ready(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
+def _not_capturing(what: str, stream: int):
+    """Raise where a wrapper would make its cached per-stream state (a
+    workspace zeroed once) while a CUDA Graph captures: the allocation
+    would come from the graph's pool and its zeroing would replay with
+    the graph.  The step's warm-up must run the plan on the same streams
+    first (``core/capture.py``, ``core/streams.py:side_stream``)."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"kernel {what} for stream {stream:#x} first made under CUDA "
+            "Graph capture: warm the step up on the same streams first")
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``: the kernels'

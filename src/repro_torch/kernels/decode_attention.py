@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, kernel_ready
+from . import LAUNCHES, _not_capturing, kernel_ready
 from .flash_attention import LOG2E
 
 TILE_KEYS = 256        # keys a block stages in shared memory at once
@@ -86,6 +86,7 @@ def _work(dev, stream: int, geo: tuple, words: int) -> torch.Tensor:
     key = (dev, stream, geo)
     buf = _WORK.get(key)
     if buf is None:
+        _not_capturing("workspace", stream)
         buf = _WORK[key] = torch.zeros((words,), dtype=torch.float32,
                                        device=dev)
     return buf

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, kernel_ready
+from . import LAUNCHES, _not_capturing, kernel_ready
 
 _WORK: dict = {}       # per (device, stream, geometry): states + flags
 
@@ -42,6 +42,7 @@ def _work(dev, stream: int, geo: tuple) -> torch.Tensor:
     key = (dev, stream, geo)
     buf = _WORK.get(key)
     if buf is None:
+        _not_capturing("workspace", stream)
         buf = _WORK[key] = torch.zeros((ssd_workspace_words(*geo),),
                                        dtype=torch.float32, device=dev)
     return buf

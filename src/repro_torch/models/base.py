@@ -20,6 +20,12 @@ Conventions
     backward stacks the layers' gradients once) and, under ``remat``,
     recomputes a layer's forward in the backward
     (``torch.utils.checkpoint``).
+  * streams:       on the card each segment call (each layer of a stack)
+    forks the plan's side streams from the current stream and joins them
+    back before it returns (``core/streams.py``), so the overlap the plan
+    sets up stays within one call and the next layer starts from one
+    stream; under autograd the backward runs each op on its forward
+    op's stream, and ``remat``'s recomputation forks and joins again.
 """
 from __future__ import annotations
 

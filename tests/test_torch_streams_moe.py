@@ -1,0 +1,19 @@
+"""The stream program's random legal interleavings on the MoE LM (deepseek-moe-16b): every
+built-in strategy, prefill and decode, bitwise to the in-order replay
+and the interpreter, prefill logits to the JAX package's within bf16
+(the executor and the checks are tests/test_torch_streams.py's; the
+families sit in files of their own so that parallel workers take them
+apart)."""
+import pytest
+
+from test_torch_streams import STRATEGIES, check_interleavings, family_fixture
+
+family = family_fixture(["deepseek-moe-16b"])
+
+
+@pytest.mark.parametrize("name", STRATEGIES)
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_every_strategy_interleaves_to_the_same_bits(family, phase, name):
+    arch, jm, jparams, prog, tparams = family
+    check_interleavings(prog, tparams, phase, name,
+                        (jm, jparams) if phase == "prefill" else None)

@@ -228,7 +228,11 @@ def test_diagnostic_str_ops_and_code_table():
     assert "hint: hintx" in str(d)
     w = v.Diagnostic("warning", "VFY009", 2, (OpHandle(3, FULL, "w"),), "m")
     assert "step 2" in str(w) and w.ops == "w"
-    assert v.CODES == SIDES["jax"].verify.CODES
+    # the JAX package's table plus VFY106, the port's stream-program
+    # code (the JAX package realizes every plan on one stream)
+    assert {k: c for k, c in v.CODES.items() if k != "VFY106"} \
+        == SIDES["jax"].verify.CODES
+    assert v.CODES["VFY106"][0] == "error"
     jd = SIDES["jax"].verify.Diagnostic(
         "error", "VFY005", -1, (jcore.OpHandle(3, 1, "moe"),), "msg",
         "hintx")
