@@ -20,7 +20,10 @@ Phases, each printing one JSON line:
             at each shape the main paths give it (the three backward
             kernels at the train phase's shapes, with SDPA's backward and
             ``F.rms_norm``'s autograd as yardsticks; the AdamW kernel bit
-            for bit at the train models' leaf sets and at odd sizes);
+            for bit at the train models' leaf sets and at odd sizes; the
+            grouped FFN's gate backward at the MoE train step's shapes,
+            with ``GroupedFFN``'s whole backward against torch.autograd
+            of the f32 plain forward beside it);
             time kernel, plain
             version and the one-call PyTorch yardstick where there is one
             over back-to-back calls (``ms``: CUDA events, which measure
@@ -31,6 +34,15 @@ Phases, each printing one JSON line:
             ``device_ms_by``; decode attention cold, rotating over caches
             that pass the 50 MB L2) with the host's enqueue cost a call
             (``host_us``)
+  frontend  one chatglm3-6b decoder layer at full width traced as a raw
+            ``Module``: ``compile(layer, example_inputs=...)`` under
+            ``dynamic`` (NanoFlow) against ``sequential`` through
+            ``Program.__call__`` (plans differ, outputs agree, flash
+            attention and RMSNorm launch)
+  examples  the four ``examples/torch_*.py`` in subprocesses, at once:
+            each exits 0 with its OK line (serve and train on the
+            published smollm-135m: the smoke configs' head dim is below
+            what the attention kernels take)
   reference a 2-layer cut of chatglm3-6b at full width on the GPU
             (kernels) against the same program on the CPU (plain versions)
   transparency
@@ -126,6 +138,15 @@ Phases, each printing one JSON line:
             interpreter (a ``moe_chunked`` line); then the mix on the paged
             cache against the dense one and the paged interpreter, its
             steady tier-4 step and its gather and scatter (``moe_paged``)
+  moe_train deepseek-moe-16b at full width cut to 4 layers (2.27 B
+            parameters; the served model freed first), B=2 S=2048
+            through ``Program.train_step``'s graphed step: ``dynamic``
+            resolves DBO; DBO against two sequential B=1 runs (its
+            per-micro-batch capacity) on the first step's loss and every
+            gradient leaf, route flips counted; the loss falling over 8
+            steps on one repeated batch; two replays against ``fn.eager``
+            bit for bit; wall and device time, MFU, memory, launches (both
+            grouped-FFN kernels)
   ssm_reference
             mamba2-2.7b cut to 2 layers (B=2 S=256) and zamba2-1.2b to
             one group (6 Mamba2 layers and the shared block under
@@ -179,10 +200,10 @@ and reads them just after; the ``kernels`` line reports their sum over
 the phases that ran (null when none did), and every kernel must have
 launched on some path.
 
-Usage:  python3 chip_smoke.py [--phases kernels,reference,transparency,
-            serve,lifecycle,paged,sampling,spec,autotune,moe_reference,
-            moe_transparency,moe_serve,ssm_reference,ssm_transparency,
-            ssm_serve,train,streams]
+Usage:  python3 chip_smoke.py [--phases kernels,frontend,examples,
+            reference,transparency,serve,lifecycle,paged,sampling,spec,
+            autotune,moe_reference,moe_transparency,moe_serve,moe_train,
+            ssm_reference,ssm_transparency,ssm_serve,train,streams]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
         torch.profiler breakdown of a warm prefill, eager and replayed
         as the engine's graph, of a window of decode steps, with graphs
@@ -249,6 +270,17 @@ TOL = {
     # the elements of dx where r (dh g) and k x cancel
     "rmsnorm_bwd": dict(atol_of_max=2e-3, rtol=1.6e-2, l2=4e-3),
     "fused_add_rmsnorm_bwd": dict(atol_of_max=2e-3, rtol=1.6e-2, l2=4e-3),
+    # the gate's backward: f32 arithmetic in both (expf against
+    # torch.sigmoid's exp, FMAs nvcc may contract), each output rounded
+    # once to bf16: one ulp (2^-7 relative), and atol for dh1 where
+    # silu'(h1) = s (1 + h1 (1 - s)) cancels near h1 = -1.28
+    "grouped_ffn_gate_bwd": dict(atol_of_max=1e-5, rtol=2 ** -7, l2=1e-3),
+    # GroupedFFN's whole backward (bf16 products through cuBLAS around
+    # the gate kernel) against torch.autograd of the f32 plain version:
+    # h1, h3, dh, dh1, dh3 and h are rounded to bf16 (2^-9 relative each)
+    # before products that sum up to 2048 or 1408 such terms, as flash's
+    # backward rounds P and dS
+    "grouped_ffn_bwd": dict(atol_of_max=2e-2, rtol=2e-2, l2=2e-2),
 }
 SEED = 0
 # phase-name prefix of each model family
@@ -750,6 +782,52 @@ def phase_kernels(dev, build_log=None):
                            name="composition"),
             library_device_ms=None)
 
+    def gate_bwd(what, N, E=64, D=2048, Fd=1408):
+        h1, h3, dh = randn(E, N, Fd), randn(E, N, Fd), randn(E, N, Fd)
+        got = gm.grouped_ffn_gate_bwd(h1, h3, dh)
+        want = gm.grouped_ffn_gate_bwd_plain(h1, h3, dh)
+        gate = compare_bwd("grouped_ffn_gate_bwd", list(zip(got, want)))
+        # GroupedFFN's whole backward at the expert FFN's own shape
+        x, dy = randn(E, N, D), randn(E, N, D)
+        ws = [(randn(*sh).float() * sh[1] ** -0.5).to(torch.bfloat16)
+              for sh in ((E, D, Fd), (E, D, Fd), (E, Fd, D))]
+        ins = [t.requires_grad_() for t in (x, *ws)]
+        y = gm.grouped_ffn(*ins)
+        bwd = torch.autograd.grad(y, ins, dy, retain_graph=True)
+        ref = [t.detach().float().requires_grad_() for t in ins]
+        want_bwd = torch.autograd.grad(gm.grouped_ffn_plain(*ref), ref,
+                                       dy.float())
+        whole = compare_bwd("grouped_ffn_bwd", list(zip(bwd, want_bwd)))
+        del ref, want_bwd
+        torch.cuda.synchronize()
+        n = E * N * Fd
+
+        def kernel():
+            return gm.grouped_ffn_gate_bwd(h1, h3, dh)
+
+        def plain():
+            return gm.grouped_ffn_gate_bwd_plain(h1, h3, dh)
+        return dict(
+            shape=f"{what}: E={E} N={N} F={Fd} bf16 (h1, h3, dh)",
+            **{**gate, "ok": gate["ok"] and whole["ok"]},
+            grouped_ffn_backward=dict(
+                shape=f"x ({E}, {N}, {D}), w1/w3 ({E}, {D}, {Fd}), w2 "
+                      f"({E}, {Fd}, {D}) bf16, against torch.autograd of "
+                      "the f32 plain forward", **whole,
+                ms=cuda_ms(lambda: torch.autograd.grad(
+                    y, ins, dy, retain_graph=True), iters=5)),
+            ms=cuda_ms(kernel),
+            plain_ms=cuda_ms(plain, iters=5),
+            # 3 bf16 values read and 3 written an element; ~13 f32
+            # operations (an exp among them)
+            **bound(13.0 * n, 12.0 * n, peak=PEAK_F32_FLOPS),
+            # no single PyTorch call computes the gate's backward: the
+            # plain composition of torch ops is the yardstick
+            library_ms=None,
+            composition_ms=cuda_ms(plain),
+            **device_times([kernel], [plain], name="composition"),
+            library_device_ms=None)
+
     def scan(what, b, H, N, L=2048, P=64, G=1):
         args = ssd_inputs(g, b, L, H, P, N)
         out, ref = ssd.ssd_scan(*args), ssd.ssd_scan_plain(*args)
@@ -926,6 +1004,15 @@ def phase_kernels(dev, build_log=None):
                     # tokens through the decode graph (capacity 240, 120)
                     ffn("deepseek-moe-16b chunk (1, 2048)", 240),
                     ffn("deepseek-moe-16b chunk (1, 1024)", 120)]),
+        # the MoE train step's gate backward (deepseek-moe-16b B=2
+        # S=2048): capacity 480 of 4096 tokens (sequential), 240 of a
+        # DBO micro-batch's 2048
+        kernel_row("grouped_ffn_gate_bwd", "cuda",
+                   "src/repro_torch/kernels/csrc/grouped_ffn_bwd.cu",
+                   "src/repro/models/moe.py:211",
+                   [gate_bwd("deepseek-moe-16b train, sequential", 480),
+                    gate_bwd("deepseek-moe-16b train, DBO micro-batch",
+                             240)]),
         # x, B and C are column views of one post-conv buffer, as the
         # model hands them over
         kernel_row("ssd_scan", "cuda",
@@ -982,7 +1069,8 @@ def phase_kernels(dev, build_log=None):
             lib.repro_grouped_ffn_info, i) for i, v in enumerate(
             ("gate-up N>64", "down N>64", "gate-up N<=64", "down N<=64"))},
         **{f"ssd_scan N={n}": _build.kernel_info(lib.repro_ssd_scan_info, n)
-           for n in (128, 64)}}
+           for n in (128, 64)},
+        "grouped_ffn_gate_bwd": _gate_bwd_info(lib)}
     reset_launch_counts()
     log({"phase": "kernels", "build_s": build_s, "builds": builds,
          "tolerance": "per kernel: |kernel - plain| <= atol + rtol*|plain| "
@@ -990,6 +1078,20 @@ def phase_kernels(dev, build_log=None):
                       "<= l2 (reasons in chip_smoke.py TOL)",
          "results": rows})
     return rows
+
+
+def _gate_bwd_info(lib):
+    """Registers a thread, spill bytes and resident blocks an SM of the
+    gate backward kernel."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    regs, local, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _build.check(lib.repro_grouped_ffn_gate_bwd_info(
+        ctypes.byref(regs), ctypes.byref(local), ctypes.byref(per_sm)),
+        "grouped_ffn_gate_bwd_info")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": per_sm.value}
 
 
 def ptxas_report(build_log, names):
@@ -3033,13 +3135,19 @@ def grads_agree(got, want):
 def train_flops(cfg, params, B, S):
     """Model FLOPs of one train step: 6 N per token for the matmul
     params (every param but an untied embedding table, which is a
-    lookup; a tied table is the head's matmul) plus the causal
-    attention's 2 (B S^2 H hd / 2) per layer forward, three times for the
-    forward and backward.  Recomputation under remat is not counted."""
+    lookup; a tied table is the head's matmul; of a MoE's routed experts
+    only the top_k of n_experts a token passes, not the capacity's
+    padding) plus the causal attention's 2 (B S^2 H hd / 2) per layer
+    forward, three times for the forward and backward.  Recomputation
+    under remat is not counted."""
     from repro_torch.tree import leaves
     n = sum(t.numel() for t in leaves(params))
     if not cfg.tie_embeddings:
         n -= cfg.vocab * cfg.d_model
+    if cfg.moe is not None:
+        routed = sum(t.numel() for t in leaves(
+            params["layers"]["moe"]["experts"]))
+        n -= routed * (1 - cfg.moe.top_k / cfg.moe.n_experts)
     attn = 3 * 4.0 * B * S * S * cfg.n_heads * cfg.hd * 0.5 * cfg.n_layers
     return 6.0 * n * B * S + attn, n
 
@@ -3388,6 +3496,274 @@ def phase_train(dev, totals):
     del dyn, params, opt
     gc.collect()
     torch.cuda.empty_cache()
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase: moe_train — deepseek-moe-16b trains (DBO, the grouped FFN's
+# backward)
+# ---------------------------------------------------------------------------
+
+# full width, the dense first layer and 3 MoE layers (2.27 B parameters:
+# 4.5 GB of bf16 weights, as much of gradients, 18.2 GB of f32 AdamW
+# moments); B=2 S=2048, 4096 tokens: dynamic resolves the MoE layers to
+# DBO
+MOE_TRAIN_LAYERS, MOE_TRAIN_SHAPE, MOE_LOOP_STEPS = 4, (2, 2048), 8
+# DBO against sequential on the first step's loss and gradients.  DBO
+# dispatches each micro-batch alone, at a micro-batch's capacity (240 of
+# 2048 tokens), so the sequential side is two B=1 runs, as in
+# moe_transparency (one B=2 run drops other assignments: its gradients
+# differ from two B=1 runs' by ~60% relative L2 on the card); then the
+# products differ only in batch size (the merged attention's 4096 rows
+# against 2048) and routes flip only on near ties (counted by
+# route_check): TRAIN_TOL's loss and leaf limits
+MOE_TRAIN_TOL = dict(loss_rel=TRAIN_TOL["loss_rel"],
+                     leaf_rel_l2=TRAIN_TOL["leaf_rel_l2"])
+MOE_TRAIN_KERNELS = TRAIN_KERNELS + ("grouped_ffn", "grouped_ffn_gate_bwd")
+
+
+def phase_moe_train(dev, gpu, totals):
+    """deepseek-moe-16b at full width cut to 4 layers, B=2 S=2048, through
+    ``Program.train_step``'s graphed ``TrainStep``: ``dynamic`` resolves
+    the MoE layers to DBO; DBO against two sequential B=1 runs on the
+    first step's loss and gradients with route flips counted; the loss
+    falling over a short loop on one repeated batch; graph replays
+    against ``fn.eager`` bit for bit; the replay's wall and device time,
+    MFU, memory and launches, in which both grouped-FFN kernels must
+    appear."""
+    import math
+
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainLoopConfig, TrainStepConfig,
+                                   train_loop)
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              n_layers=MOE_TRAIN_LAYERS)
+    B, S = MOE_TRAIN_SHAPE
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=LOOP_LR),
+                           warmup=LOOP_WARMUP, total_steps=MOE_LOOP_STEPS)
+    dyn = compile(cfg, policy="dynamic").train_step(B, S, cfg=tcfg)
+    seq1 = compile(cfg, policy="sequential").train_step(1, S, cfg=tcfg)
+    params = compile(cfg).init_params(SEED, phase="train")
+    batch = train_batch(B, S, cfg.vocab, dev)
+    rows = [{key: v[b:b + 1] for key, v in batch.items()} for b in range(B)]
+    k = cfg.moe.top_k
+    wrs = list(params["layers"]["moe"]["router"]["wr"])
+    # the routes of one forward each way (DBO routes merged, before the
+    # split MoE section)
+    with torch.no_grad():
+        seq_routes = []
+        for row in rows:
+            with recorded_routes() as r:
+                seq1.fn.forward(params, row)
+            seq_routes.append(r)
+        seq_routes = [(torch.cat([x for x, _ in layer]),
+                       torch.cat([v for _, v in layer]))
+                      for layer in zip(*seq_routes)]
+        with recorded_routes() as dbo_routes:
+            dyn.fn.forward(params, batch)
+        share, unexplained = route_check(dbo_routes, seq_routes, wrs, k)
+    del seq_routes, dbo_routes
+    # the two runs' gradients of their mean losses, weighted by tokens:
+    # the gradient of the batch's mean loss
+    parts = [seq1.fn.grads(params, row) for row in rows]
+    cnt = sum(c for _, (_, c) in parts)
+    weights = [c / cnt for _, (_, c) in parts]
+    want = (tree_map(lambda *gs: sum(g.float() * w
+                                     for g, w in zip(gs, weights)),
+                     *[g for g, _ in parts]),
+            (sum(ls for _, (ls, _) in parts), cnt))
+    del parts
+    got, counts = counted(totals, lambda: dyn.fn.grads(params, batch))
+    grads, _ = grads_agree(got, want)
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    vs_seq = {"against": "two sequential B=1 runs",
+              "loss": grads["loss"], "loss_sequential": grads["loss_want"],
+              "loss_rel_err": grads["loss_rel_err"],
+              "routes_agree_share": share,
+              "routes_differing_off_a_near_tie": unexplained,
+              "grad_leaf_rel_l2_max": grads["leaf_rel_l2_max"],
+              "grad_leaf_rel_l2": grads["leaf_rel_l2"],
+              "finite": grads["finite"], "launches": counts}
+    this_ok = (dyn.strategies.get("layers") == "dbo"
+               and grads["finite"] and unexplained == 0
+               and grads["loss_rel_err"] < MOE_TRAIN_TOL["loss_rel"]
+               and grads["leaf_rel_l2_max"] < MOE_TRAIN_TOL["leaf_rel_l2"]
+               and all(counts.get(n, 0) > 0 for n in
+                       GRAD_KERNELS + ("grouped_ffn",
+                                       "grouped_ffn_gate_bwd")))
+    opt = dyn.init_opt(params)
+    stats0 = dict(dyn.fn.stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, hist = train_loop(
+        dyn.fn, params, opt, RepeatedBatch(batch),
+        TrainLoopConfig(steps=MOE_LOOP_STEPS, log_every=10 ** 9))
+    loop_s = time.perf_counter() - t0
+    capture = {**capture_record(dyn.fn, stats0),
+               "loop_peak_allocated_gb": torch.cuda.max_memory_allocated()
+               / 1e9,
+               "loop_peak_reserved_gb": torch.cuda.max_memory_reserved()
+               / 1e9}
+    losses = [h["loss"] for h in hist]
+    falls = all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    bitwise = graph_vs_eager(dyn.fn, params, opt, batch, MOE_LOOP_STEPS,
+                             steps=2)
+    gc.collect()
+    torch.cuda.empty_cache()                  # the eager copies' memory
+    timings = step_timings(dyn.fn, params, opt, batch, cfg, totals,
+                           MOE_LOOP_STEPS + bitwise["replays"])
+    this_ok = (this_ok and falls and bitwise["ok"]
+               and capture["graph_captures"] == 1
+               and all(timings["kernel_launches_one_step"].get(n, 0) > 0
+                       for n in MOE_TRAIN_KERNELS))
+    log({"phase": "moe_train", "gpu": gpu,
+         "config": "deepseek-moe-16b at full width, %d layers (the dense "
+                   "first and %d MoE), B=%d S=%d, TrainStepConfig(lr=1e-3, "
+                   "warmup=3, remat), the step one CUDA Graph"
+                   % (MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS - 1, B, S),
+         "params": sum(t.numel() for t in _leaves(params)),
+         "strategies": dyn.strategies,
+         "dbo_vs_sequential": vs_seq, "capture": capture,
+         "loop": {"steps": MOE_LOOP_STEPS, "losses": losses,
+                  "falls": falls, "loop_s": loop_s,
+                  "step_time_s": [h["step_time_s"] for h in hist]},
+         "graph_vs_eager": bitwise, **timings,
+         "tolerance": dict(MOE_TRAIN_TOL, routes="every differing route on "
+                           "a near tie of sequential's router logits",
+                           graph_vs_eager="bitwise"),
+         "ok": this_ok})
+    del dyn, seq1, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return this_ok
+
+
+# ---------------------------------------------------------------------------
+# phases: frontend and examples — the raw-graph path and the user scripts
+# ---------------------------------------------------------------------------
+
+FRONTEND_SHAPE = (4, 2048)
+
+
+def phase_frontend(dev, totals):
+    """One chatglm3-6b decoder layer at full width, traced as a raw
+    ``Module``: ``compile(layer, example_inputs=...)`` under ``dynamic``
+    against ``sequential``, both through ``Program.__call__`` on the same
+    params and inputs.  A raw program's context counts rows of the batch
+    dim (4 here), not tokens, so ``dynamic`` takes its thresholds in
+    those units (``dynamic_policy(split_tokens=4, seq_tokens=2)``) and
+    resolves NanoFlow, whose plan splits the layer in two micro-batches.
+    The plans must differ, the outputs agree within the transparency
+    phase's limit, and the flash attention and RMSNorm kernels launch."""
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    from repro_torch.core.module import TensorSpec
+    from repro_torch.core.policy import resolve_strategy
+    from repro_torch.core.scheduler import ScheduleContext
+    from repro_torch.core.strategies.dynamic import dynamic_policy
+    from repro_torch.models.base import DenseDecoderLayer
+    from repro_torch.models.layers import MeshInfo
+    cfg = get_config("chatglm3-6b")
+    B, S = FRONTEND_SHAPE
+    layer = DenseDecoderLayer(cfg, MeshInfo(), cfg.seq_parallel)
+    example = {"x": TensorSpec((B, S, cfg.d_model), torch.bfloat16),
+               "positions": TensorSpec((B, S), torch.int32)}
+    params = layer.init(SEED, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    inputs = {"x": torch.randn((B, S, cfg.d_model), generator=g,
+                               device=dev).to(torch.bfloat16),
+              "positions": torch.arange(S, dtype=torch.int32, device=dev)
+              .expand(B, S).contiguous()}
+    policy = dynamic_policy(split_tokens=B, seq_tokens=2)
+    seq = compile(layer, policy="sequential", example_inputs=example)
+    dyn = compile(layer, policy=policy, example_inputs=example)
+    want = seq(params, inputs)["x"]
+    got, counts = counted(totals, lambda: dyn(params, inputs)["x"])
+    plans = {"sequential": seq.plan(B), "dynamic": dyn.plan(B)}
+    strategy = resolve_strategy(policy, ScheduleContext(
+        local_batch=B, global_batch=B, phase="train"), graph=dyn.graph).name
+    err = rel_err(got, want)
+    finite = bool(torch.isfinite(got.float()).all())
+    differ = plans["sequential"].fingerprint() \
+        != plans["dynamic"].fingerprint()
+    ok = (finite and err < 5e-2 and differ and strategy == "nanoflow"
+          and counts.get("flash_attention", 0) > 0
+          and counts.get("rmsnorm", 0) > 0)
+    log({"phase": "frontend",
+         "config": "chatglm3-6b DenseDecoderLayer at full width traced as "
+                   "a raw Module, x (%d, %d, %d) bf16" % (B, S, cfg.d_model),
+         "graph_nodes": len(dyn.graph.nodes), "dynamic_strategy": strategy,
+         "plans": {k: {"steps": len(v.steps), "split_sizes": v.split_sizes,
+                       "fingerprint": v.fingerprint()}
+                   for k, v in plans.items()},
+         "rel_err_vs_sequential": err,
+         "max_abs_err_vs_sequential": max_err(got, want), "finite": finite,
+         "launches": counts,
+         "store": {k: dyn.stats[k] for k in ("misses", "hits", "shares")},
+         "call_ms": {"sequential": cuda_ms(lambda: seq(params, inputs),
+                                           iters=5),
+                     "dynamic": cuda_ms(lambda: dyn(params, inputs),
+                                        iters=5)},
+         "tolerance": "relative L2 error of x < 5e-2 (the transparency "
+                      "phase's limit)", "ok": ok})
+    return ok
+
+
+# (script, arguments, its last line).  The smoke configs' head dim (8) is
+# below what the attention kernels take, so on the card the serve and
+# train examples run published configs; serve_batched the small one
+EXAMPLES = (
+    ("torch_quickstart.py", ["--device", "cuda"], "quickstart OK"),
+    # tracing, plans, the overlap model and the verifier: all on the host
+    ("torch_custom_strategy.py", [], "custom_strategy OK"),
+    ("torch_serve_batched.py", ["--device", "cuda", "--arch",
+                                "smollm-135m"], "serve_batched OK"),
+    ("torch_train_ft.py", ["--device", "cuda", "--steps", "40",
+                           "--crash-at", "20"], "train_ft OK"),
+)
+
+
+def phase_examples():
+    """Each ``examples/torch_*.py`` in a subprocess of its own, all four at
+    once: exit code 0 and its OK line last."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs, runs = [], {}
+    try:
+        for script, args, _ in EXAMPLES:
+            procs.append((time.perf_counter(), subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "examples", script),
+                 *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        for (script, args, want), (t0, p) in zip(EXAMPLES, procs):
+            try:
+                out, err = p.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            lines = out.strip().splitlines()
+            runs[script] = {"args": args, "returncode": p.returncode,
+                            "s": time.perf_counter() - t0,
+                            "tail": lines[-4:],
+                            "stderr_tail": err.strip().splitlines()[-6:],
+                            "ok": p.returncode == 0 and bool(lines)
+                            and want in lines[-1]}
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ok = len(runs) == len(EXAMPLES) and all(r["ok"] for r in runs.values())
+    log({"phase": "examples", "runs": runs, "ok": ok})
     return ok
 
 
@@ -3889,6 +4265,7 @@ def run_dense(phases, dev, gpu, totals):
 
 
 def run_moe(phases, dev, gpu, totals):
+    import torch
     ok = True
     if "moe_reference" in phases:
         ok = phase_reference(dev, totals, "deepseek-moe-16b") and ok
@@ -3911,6 +4288,11 @@ def run_moe(phases, dev, gpu, totals):
                                 "deepseek-moe-16b") and ok
         if "streams" in phases:
             ok = phase_streams(dev, params, gpu, "deepseek-moe-16b") and ok
+        del params        # the served model goes before the trained cut
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "moe_train" in phases:
+        ok = phase_moe_train(dev, gpu, totals) and ok
     return ok
 
 
@@ -3942,10 +4324,11 @@ def run_ssm(phases, dev, gpu, totals):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,reference,transparency,"
-                    "serve,lifecycle,paged,sampling,spec,autotune,"
-                    "moe_reference,moe_transparency,moe_serve,ssm_reference,"
-                    "ssm_transparency,ssm_serve,train,streams")
+    ap.add_argument("--phases", default="kernels,frontend,examples,"
+                    "reference,transparency,serve,lifecycle,paged,sampling,"
+                    "spec,autotune,moe_reference,moe_transparency,moe_serve,"
+                    "moe_train,ssm_reference,ssm_transparency,ssm_serve,"
+                    "train,streams")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")
     args = ap.parse_args(argv)
@@ -3975,6 +4358,12 @@ def main(argv=None) -> int:
                    else [])
     ok = all(r["ok"] for r in kernel_rows)
     totals: dict = {}     # launches summed over the model phases that ran
+    if "frontend" in phases:
+        ok = phase_frontend(dev, totals) and ok
+    if "examples" in phases:
+        ok = phase_examples() and ok
+    gc.collect()
+    torch.cuda.empty_cache()
     ok = run_dense(phases, dev, gpu, totals) and ok
     gc.collect()          # the chatglm3-6b params go before the MoE's
     torch.cuda.empty_cache()

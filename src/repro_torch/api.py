@@ -18,6 +18,11 @@ specialized or restored, not re-lowered; a ``plan_store_path``
 warm-starts the store at compile time and the program checkpoints it
 after every build.  ``Program.save`` / ``Program.load`` bundle the model
 config, the policy, the KV cache backend and the store in one file.
+``compile`` also takes an untraced ``core.Module`` with
+``example_inputs`` (name -> ``TensorSpec``) or a traced ``OpGraph``, the
+quickstart path: that program records, lowers and realizes one plan per
+shape bucket through the same store (``Program.plan``,
+``Program.__call__``).
 ``policy="auto"`` is the cost-model autotuner (``core/autotune.py``): its
 verdicts persist in the store, so a loaded program re-tunes nothing, and
 ``Program.explain()`` shows them.  Entry points run on
@@ -40,12 +45,15 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .core.backend import Realizer
+from .core.graph import OpGraph
+from .core.module import Module, trace
 from .core.plan import FINGERPRINT_VERSION, strategy_salt
 from .core.plan_serde import FORMAT_VERSION
 from .core.plan_store import (PlanStore, checkpoint_plan_store,
                               resolve_plan_store)
-from .core.policy import as_policy
-from .core.scheduler import ScheduleContext
+from .core.policy import as_policy, resolve_strategy
+from .core.scheduler import ScheduleContext, record_plan
 from .device import resolve_device
 
 PROGRAM_MAGIC = "dynaflow-program"
@@ -79,11 +87,12 @@ class CompiledStep:
 def compile(model, policy=None, smoke: bool = False, device=None,
             verify: str = "warn", plan_store: Optional[PlanStore] = None,
             plan_store_path: Optional[str] = None,
-            cache=None) -> "Program":
+            cache=None, example_inputs=None) -> "Program":
     """Build a :class:`Program`.
 
-    ``model``  — an arch name (``"chatglm3-6b"``), an ``ArchConfig``, or a
-                 built LM.
+    ``model``  — an arch name (``"chatglm3-6b"``), an ``ArchConfig``, a
+                 built LM, or (the prototyping path) an untraced
+                 ``core.Module`` or a traced ``OpGraph``.
     ``policy`` — a ``StrategyPolicy``, a bare ``OpSchedulerBase``, or a
                  registry name (``"auto"`` for the cost-model autotuner,
                  whose verdicts persist in the plan store); default: the
@@ -105,6 +114,8 @@ def compile(model, policy=None, smoke: bool = False, device=None,
                  the choice to ``ServeConfig``.  Its identity salts the
                  serve steps' PlanStore keys and is saved in
                  ``Program.save`` bundles.
+    ``example_inputs`` — name -> ``TensorSpec``, required when ``model``
+                 is an untraced ``Module``.
     """
     from .models.layers import MeshInfo
     if verify not in ("strict", "warn", "off"):
@@ -130,6 +141,15 @@ def compile(model, policy=None, smoke: bool = False, device=None,
     bind = getattr(policy, "bind_store", None)
     if callable(bind):
         bind(store)
+    if isinstance(model, Module):
+        if example_inputs is None:
+            raise ValueError(
+                "compile(Module, ...) needs example_inputs= "
+                "(name -> TensorSpec) to trace the graph")
+        model = trace(model, dict(example_inputs))
+    if isinstance(model, OpGraph):
+        return Program(graph=model, policy=policy, store=store,
+                       verify=verify, device=device)
     if isinstance(model, str):
         from .configs import get_config, get_smoke_config
         model = get_smoke_config(model) if smoke else get_config(model)
@@ -147,13 +167,16 @@ def _is_default_auto(policy) -> bool:
 
 
 class Program:
-    """A model bound to a strategy policy and a PlanStore."""
+    """A model bound to a strategy policy and a PlanStore: an LM (the
+    step builders below) or a raw ``OpGraph`` (``plan`` and
+    ``__call__``)."""
 
-    def __init__(self, model, policy, device=None,
+    def __init__(self, model=None, policy=None, device=None,
                  store: Optional[PlanStore] = None,
                  policy_spec: Optional[str] = None, verify: str = "warn",
-                 cache=None):
+                 cache=None, graph: Optional[OpGraph] = None):
         self.model = model
+        self.graph = graph
         self.policy = policy
         self.device = device
         self.store = store if store is not None else PlanStore()
@@ -166,6 +189,7 @@ class Program:
             from .serve.kv_cache import resolve_cache_backend
             cache = resolve_cache_backend(cache)
         self.cache_backend = cache      # None: ServeConfig decides
+        self._graph_cache: dict = {}    # (local_batch, phase) -> (g, rz, plan)
 
     # -- lifecycle ---------------------------------------------------------
     def checkpoint(self) -> int:
@@ -231,12 +255,19 @@ class Program:
         return {"verify": self.verify_mode,
                 "verify_sink": self._verify_reports}
 
+    def _require_lm(self, what: str):
+        if self.model is None:
+            raise TypeError(
+                f"Program.{what} needs an LM program; this program wraps "
+                "a raw Module/OpGraph — call it directly instead")
+
     # -- one-file deployment -----------------------------------------------
     def save(self, path: str) -> int:
         """Write a one-file bundle: a versioned JSON header (model config,
         policy spec and salt, cache backend) followed by the PlanStore
         artifact, atomically.  Returns the number of persisted plan
         entries."""
+        self._require_lm("save")
         header = {
             "magic": PROGRAM_MAGIC,
             "format_version": PROGRAM_FORMAT_VERSION,
@@ -366,6 +397,7 @@ class Program:
         """Random parameter tree from ``seed`` on ``device`` (default: the
         program's device, else the GPU), drawn for ``phase``'s segments
         (every phase's tree has the same layout)."""
+        self._require_lm("init_params")
         dev = resolve_device(device if device is not None else self.device)
         return self.model.init_params(seed, device=dev, phase=phase)
 
@@ -384,6 +416,7 @@ class Program:
         and are verified under the program's ``verify`` mode, like
         ``prefill``'s.  ``cfg``: a ``TrainStepConfig`` (default: remat
         under ``remat_policy``)."""
+        self._require_lm("train_step")
         from .train.step import TrainStepConfig, _build_train_step
         tcfg = cfg or TrainStepConfig(remat=True, remat_policy=remat_policy)
         fn, segs, binputs, init_opt = _build_train_step(
@@ -397,6 +430,7 @@ class Program:
     def prefill(self, global_batch: int, seq_len: int, *,
                 s_max: Optional[int] = None) -> CompiledStep:
         """Build the prefill step for a (batch, seq-bucket) shape."""
+        self._require_lm("prefill")
         from .models.base import build_forward
         segs, binputs = self.model.build_segments(
             "prefill", global_batch, seq_len, s_max=s_max or seq_len)
@@ -413,6 +447,7 @@ class Program:
         """Decode steps at every batch tier against the program's store:
         the first tier lowers, the rest specialize.  Returns
         ``{tier: CompiledStep}``."""
+        self._require_lm("decode_tiers")
         from .models.base import build_forward
         from .serve.engine import pow2_tiers
         out = {}
@@ -439,6 +474,7 @@ class Program:
         ``sampling=``, ``seed`` and ``async_host`` included.  The
         program's cache backend is the default; ``ServeConfig.cache``
         wins over it."""
+        self._require_lm("serve")
         from .serve.engine import ServeConfig, ServeEngine
         if cfg is None:
             cfg = ServeConfig(**overrides)
@@ -452,3 +488,76 @@ class Program:
                              plan_store=self.store)
         self._engines.add(engine)
         return engine
+
+    # -- raw-graph path (prototyping / quickstart) -------------------------
+    def plan(self, local_batch: Optional[int] = None, phase: str = "train",
+             **ctx_overrides):
+        """Record (and cache) the execution plan the policy chooses for a
+        context — introspection for the Fig. 6/7 workflow."""
+        if self.graph is None:
+            raise TypeError("Program.plan is the raw-graph path; LM "
+                            "programs plan per step builder")
+        if local_batch is None:
+            local_batch = self._graph_batch()
+        info = ScheduleContext(local_batch=local_batch,
+                               global_batch=local_batch, phase=phase,
+                               **ctx_overrides)
+        _, _, plan = self._graph_program(info)
+        return plan
+
+    def __call__(self, params, inputs: dict) -> dict:
+        """Raw-graph execution: resolve the context from the concrete
+        inputs, record and lower the plan once per shape bucket (through
+        the program's PlanStore), and run it.
+
+        The run goes through ``LoweredPlan.__call__`` as every lowered
+        plan does: on CUDA tensors over the per-resource streams of
+        ``core/streams.py`` with the kernels, on the CPU in order with
+        their plain versions; a kernel that fails on a CUDA input raises.
+        It is not captured as a CUDA Graph: the caller owns ``params``
+        and ``inputs``, whose storages change from call to call."""
+        if self.graph is None:
+            raise TypeError("this Program wraps an LM; build a step with "
+                            "train_step()/prefill()/decode_tiers()")
+        b = self._graph_batch(inputs)
+        info = ScheduleContext(local_batch=b, global_batch=b, phase="train")
+        _, realizer, _ = self._graph_program(info)
+        return realizer(params, inputs)
+
+    def _graph_batch(self, inputs: Optional[dict] = None) -> int:
+        g = self.graph
+        for name, tid in sorted(g.inputs.items()):
+            ref = g.tensors[tid]
+            if ref.batch_dim is None:
+                continue
+            shape = (inputs[name].shape if inputs is not None
+                     else ref.shape)
+            return int(shape[ref.batch_dim])
+        return 0
+
+    def _graph_program(self, info: ScheduleContext):
+        from .core.partition import partition
+        key = (info.local_batch, info.phase)
+        hit = self._graph_cache.get(key)
+        if hit is not None:
+            return hit
+        sched = resolve_strategy(self.policy, info, graph=self.graph)
+        g = self.graph
+        # the policy's rule union, not the branch's rules (as
+        # build_forward): every bucket of one program sees one graph
+        rules = self.policy.partition_rules()
+        if rules:
+            g = partition(g, rules, default_depth=2)
+        plan = record_plan(g, sched, info)
+        salt = f"graph|{info.phase}|{strategy_salt(self.policy)}"
+        realizer = Realizer(g, plan, plan_cache=self.store, plan_salt=salt)
+        if self.verify_mode != "off":
+            from .core.verify import enforce, verify as run_verify
+            report = run_verify(g, plan, lowered=realizer.lowered,
+                                lint=True)
+            self._verify_reports.append(
+                (f"graph/{info.phase}/b{info.local_batch}", report))
+            enforce(report, self.verify_mode, what="graph plan")
+        self._graph_cache[key] = (g, realizer, plan)
+        self.checkpoint()
+        return self._graph_cache[key]

@@ -6,6 +6,7 @@ plain PyTorch version (the port of the JAX package's ``kernels/ref.py``):
   rmsnorm.py           RMSNorm                              (CUDA C++)
                        and fused residual-add + RMSNorm     (CUDA C++)
   grouped_matmul.py    grouped SwiGLU expert FFN            (CUDA C++)
+                       and its gate's backward              (CUDA C++)
   ssd_scan.py          Mamba2 chunked SSD scan              (CUDA C++)
   adamw.py             multi-tensor AdamW update            (CUDA C++)
   tokenweave.py        reduce-scatter + fused add/norm + all-gather

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "grouped_ffn.cu",
            "ssd_scan.cu", "rmsnorm.cu", "fused_add_rmsnorm.cu",
-           "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "adamw.cu")
+           "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "adamw.cu",
+           "grouped_ffn_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "repro_grouped_ffn_fwd": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P], _I),
     "repro_grouped_ffn_info": ([_I, _P, _P, _P], _I),
+    "repro_grouped_ffn_gate_bwd": ([_P, _P, _P, _P, _P, _P, _LL, _P], _I),
+    "repro_grouped_ffn_gate_bwd_info": ([_P, _P, _P], _I),
     "repro_ssd_scan_fwd": (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
          ctypes.POINTER(_LL), _P, _P], _I),

@@ -44,7 +44,7 @@ from ..core.module import Module, TensorSpec, fold_seed
 from ..core.verify import VerifyReport, enforce, verify_lowered
 from ..core.verify import verify as run_verify
 from ..device import resolve_device
-from ..tree import tree_map
+from ..tree import leaves, tree_map
 from .layers import (AddOp, AllGatherOp, AttentionOp, DecodeAttentionOp,
                      EmbedOp, HeadLayout, HeadLossOp, LmHeadOp, MeshInfo,
                      MLPBlock, OProj, PsumOp, QKVProj, ReduceScatterOp,
@@ -119,17 +119,48 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _remat_call(fn, policy: str, *args):
     """``fn(*args)`` whose activations the backward recomputes:
-    ``"full"`` keeps none, ``"dots"`` keeps the matmul outputs."""
+    ``"full"`` keeps none, ``"dots"`` keeps the matmul outputs.
+
+    On the card the recompute runs on the stream the forward ran on
+    (``_on_stream``), and runs to its end (no early stop): the backward
+    starts it from whichever node first needs a saved tensor of the
+    layer, and that node may sit on a side stream (a MoE layer's memory
+    ops do), where a plan forked from it would give the recomputed
+    tensors another stream than the one their backward nodes run on."""
     from torch.utils.checkpoint import (checkpoint,
-                                        create_selective_checkpoint_contexts)
+                                        create_selective_checkpoint_contexts,
+                                        set_checkpoint_early_stop)
     kw = {}
     if policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
+    dev = next((t.device for a in args for t in leaves(a)
+                if isinstance(t, torch.Tensor) and t.is_cuda), None)
+    if dev is not None:
+        fn = functools.partial(_on_stream, fn, torch.cuda.current_stream(dev))
     # the forward draws no random numbers, so the generator's state need
-    # not be saved: reading it is refused while a CUDA Graph captures
-    return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False, **kw)
+    # not be saved: reading it is refused while a CUDA Graph captures;
+    # without an early stop the plan's side streams join before the
+    # recompute returns
+    with set_checkpoint_early_stop(False):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+
+def _on_stream(fn, stream, *args):
+    """``fn(*args)`` with ``stream`` current.  Called from another stream
+    (a recompute started by a side-stream backward node), ``stream`` first
+    waits for the caller's stream and the caller's stream then waits for
+    ``stream``: the node reads what the recompute wrote."""
+    caller = torch.cuda.current_stream(stream.device)
+    if caller == stream:
+        return fn(*args)
+    stream.wait_stream(caller)
+    try:
+        with torch.cuda.stream(stream):
+            return fn(*args)
+    finally:
+        caller.wait_stream(stream)
 
 
 @dataclasses.dataclass

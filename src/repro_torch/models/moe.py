@@ -17,9 +17,11 @@ which statically enforces that a scheduler splitting the MoE section keeps
 its whole dispatch→combine chain per-micro-batch (what DBO wants).
 
 The expert GEMM goes through ``kernels.ops.grouped_ffn`` — the Hopper
-kernel on a CUDA tensor, its plain version on the CPU.  The weight-gather
-(zero3) and ff-sharded expert modes belong to training and the launch
-layer and are not ported yet (ROADMAP queue 1, items 4 and 9).
+kernel on a CUDA tensor, its plain version on the CPU — and trains through
+its autograd Function (``kernels/grouped_matmul.py`` ``GroupedFFN``: the
+gate's backward a kernel too).  The weight-gather (zero3) and ff-sharded
+expert modes under ``mesh.fsdp`` belong to FSDP training and the launch
+layer and are not ported yet (ROADMAP queue 1, items 4.4 and 9).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from ..core.graph import VBATCH
 from ..core.module import Module, Op, TensorSpec, mark
 from ..dist import collectives as col
 from .base import (DenseDecodeLayer, DenseDecoderLayer, EmbedSegment, LMBase,
-                   LogitsHead)
+                   LogitsHead, TrainHead)
 from .layers import (AddOp, AllGatherOp, AttentionOp, DecodeAttentionOp,
                      HeadLayout, make_param, MeshInfo, MLPBlock, OProj,
                      PsumOp, QKVProj, ReduceScatterOp, RMSNormOp, RopeOp)
@@ -194,19 +196,21 @@ class ExpertGEMMOp(Op):
 
 
 class ExpertFFN(Module):
-    """Expert GEMM with resident weights (sharded over 'model' only).
+    """Expert GEMM with resident weights (sharded over 'model' only), in
+    every phase, training included.
 
     The JAX package's two other storage modes — zero3 weight gathers
-    (train) and the ff-sharded decode layout — apply under ``mesh.fsdp``
-    and are not ported yet (ROADMAP queue 1, items 4 and 9)."""
+    (FSDP training) and the ff-sharded decode layout — apply under
+    ``mesh.fsdp`` and are not ported yet (ROADMAP queue 1, items 4.4 and
+    9)."""
 
     def __init__(self, d, m: MoEConfig, mesh: MeshInfo, dtype=torch.bfloat16):
         super().__init__()
         if mesh.fsdp:
             raise NotImplementedError(
                 "zero3 and ff-sharded expert weights (mesh.fsdp) are not "
-                "ported yet: ROADMAP queue 1, items 4 (training) and 9 "
-                "(launch)")
+                "ported yet: ROADMAP queue 1, items 4.4 (FSDP training) "
+                "and 9 (launch)")
         self.gemm = ExpertGEMMOp(d, m, mesh, dtype=dtype)
         self.named("expert_ffn")
 
@@ -460,8 +464,7 @@ class MoELM(LMBase):
 
     def layer_stacks(self, phase):
         cfg, mesh = self.cfg, self.mesh
-        if phase not in ("prefill", "decode"):
-            raise NotImplementedError(f"phase {phase!r} is not ported yet")
+        prefill = phase == "prefill"     # train keeps no K/V
         stacks = []
         n_moe = cfg.n_layers
         if cfg.moe.first_layer_dense:
@@ -476,22 +479,27 @@ class MoELM(LMBase):
                                 "output_map": dict(cmap)}))
             else:
                 dmod = DenseDecoderLayer(cfg, mesh, cfg.seq_parallel,
-                                         collect_kv=True)
-                stacks.append(("dense0", dmod, 1, (), ("k", "v"),
-                               {"output_map": {"k": "dense0.k",
-                                               "v": "dense0.v"}}))
+                                         collect_kv=prefill)
+                omap = ({"k": "dense0.k", "v": "dense0.v"} if prefill
+                        else {})
+                stacks.append(("dense0", dmod, 1, (),
+                               ("k", "v") if prefill else (),
+                               {"output_map": omap}))
         if phase == "decode":
             mod = MoEDecodeLayer(cfg, mesh)
             stacks.append(("layers", mod, n_moe,
                            ("k_cache", "v_cache"), ("k_cache", "v_cache")))
         else:
             mod = MoEDecoderLayer(cfg, mesh, cfg.seq_parallel,
-                                  collect_kv=True)
-            stacks.append(("layers", mod, n_moe, (), ("k", "v")))
+                                  collect_kv=prefill)
+            stacks.append(("layers", mod, n_moe, (),
+                           ("k", "v") if prefill else ()))
         return stacks
 
     def make_head(self, phase):
         sp = self.cfg.seq_parallel and phase != "decode"
+        if phase == "train":
+            return TrainHead(self.cfg, self.mesh, sp)
         return LogitsHead(self.cfg, self.mesh, sp,
                           keep_last=(phase != "decode"))
 

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, the port imports in a
+"""The port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and no ``examples/torch_*.py`` imports JAX or the JAX
+package, the port imports in a
 process where ``jax`` cannot be imported, and its entry points refuse to
 fall back to the CPU on a machine without a GPU."""
 import ast
@@ -17,7 +18,9 @@ FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 4
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 20
     return files
 

@@ -432,7 +432,9 @@ def _run_both(arch, policy, B=4, S=16, steps=2, accum=0, **tcfg):
     return jms, tms, jp0, jp, tp, tstep
 
 
-def _check_step(jms, tms, jp0, jp, tp):
+def _check_step(jms, tms, jp0, jp, tp, limits=None):
+    """``limits``: leaf path (a tuple of keys) -> its update's relative L2
+    limit, where it is not 5e-2."""
     for jm_, tm_ in zip(jms, tms):
         assert tm_["tokens"] == jm_["tokens"]
         assert tm_["lr"] == pytest.approx(jm_["lr"], rel=1e-6)
@@ -440,11 +442,13 @@ def _check_step(jms, tms, jp0, jp, tp):
         assert tm_["grad_norm"] == pytest.approx(jm_["grad_norm"], rel=2e-2)
     j0 = dict(jax.tree_util.tree_leaves_with_path(jp0))
     for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
+        keys = tuple(k.key for k in path)
         t = tp
-        for k in path:
-            t = t[k.key]
+        for k in keys:
+            t = t[k]
         old = np32(j0[path])
-        assert rel(np32(t) - old, np32(leaf) - old) < 5e-2, path
+        limit = (limits or {}).get(keys, 5e-2)
+        assert rel(np32(t) - old, np32(leaf) - old) < limit, path
 
 
 @pytest.mark.parametrize("policy", ["sequential", "nanoflow", "tokenweave",
@@ -564,7 +568,7 @@ def test_program_train_step_handle_and_verify():
 
 
 def test_other_families_refuse_the_train_phase():
-    for arch in ("deepseek-moe-16b", "mamba2-2.7b"):
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
         prog = tcompile(arch, smoke=True, device="cpu")
         with pytest.raises(NotImplementedError, match="train"):
             prog.train_step(2, 16)

@@ -23,7 +23,10 @@ version, the eager chain; these cases hold:
 The ``cuda``-marked cases run on the card (skipped here): the replayed
 graph against ``fn.eager`` bit for bit, the kernel against its plain
 chain bit for bit, one capture per set of storages and none after a
-restore.  The JAX package is imported only by the cases that compare
+restore; a MoE layer stack under DBO (its memory ops on a side stream)
+the same way, and its remat gradients against the kept activations'
+bit for bit (the recompute runs on the forward's stream whichever
+node starts it).  The JAX package is imported only by the cases that compare
 with it, so this file runs on a machine without it.
 """
 import dataclasses
@@ -485,3 +488,58 @@ def test_adamw_kernel_matches_plain_bitwise(cuda, count, grad_clip):
     assert LAUNCHES["adamw"] == before + 1
     for got, ref in zip(ps + ms + vs, want[0] + want[1] + want[2]):
         assert torch.equal(got, ref)
+
+
+def _moe_cut(remat=True):
+    """deepseek-moe-16b's family at widths the kernels take (d_model 256,
+    2 heads of 128, 8 experts of width 128 top-2 and a shared one): the
+    dense first layer and a stack of 2 MoE layers, which remat
+    recomputes layer by layer; B=2 S=1024 resolves ``dynamic`` to DBO."""
+    cfg = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(
+        cfg, n_layers=3, d_model=256, n_heads=2, n_kv=2, d_ff=512,
+        vocab=1024, moe=dataclasses.replace(
+            cfg.moe, n_experts=8, top_k=2, d_ff_expert=128, n_shared=1))
+    prog = tcompile(cfg, policy="dynamic")
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=1e-3), warmup=2,
+                           total_steps=20, remat=remat)
+    step = prog.train_step(2, 1024, cfg=tcfg)
+    assert step.strategies["layers"] == "dbo"
+    return prog, step
+
+
+@pytest.mark.cuda
+def test_moe_graphed_step_equals_eager_bitwise(cuda):
+    prog, step = _moe_cut()
+    params = prog.init_params(0, phase="train")
+    opt = step.init_opt(params)
+    vocab = prog.model.cfg.vocab
+    step.fn(params, opt, _batch(vocab, 2, 1024, 5, cuda), 0)
+    ep, eo = _copy(params), _copy(opt)
+    counts = dict(LAUNCHES)
+    for i in range(1, 4):
+        b = _batch(vocab, 2, 1024, 5 + i, cuda)
+        _, _, m = step.fn(params, opt, b, i)
+        m = {k: v.clone() for k, v in m.items()}
+        _, _, em = step.fn.eager(ep, eo, b, i)
+        torch.cuda.synchronize()
+        _same_bits(m, em)
+        _same_bits(params, ep)
+        _same_bits(opt, eo)
+    assert step.fn.stats["graph_captures"] == 1
+    for name in ("grouped_ffn", "grouped_ffn_gate_bwd"):
+        assert LAUNCHES[name] > counts.get(name, 0), name
+
+
+@pytest.mark.cuda
+def test_moe_remat_gradients_equal_kept_activations_bitwise(cuda):
+    prog, step = _moe_cut(remat=True)
+    _, kept = _moe_cut(remat=False)
+    params = prog.init_params(0, phase="train")
+    batch = _batch(prog.model.cfg.vocab, 2, 1024, 9, cuda)
+    for _ in range(2):
+        got = step.fn.grads(params, batch)
+        want = kept.fn.grads(params, batch)
+        torch.cuda.synchronize()
+        _same_bits(got[0], want[0])
+        assert torch.equal(got[1][0], want[1][0])

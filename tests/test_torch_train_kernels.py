@@ -12,7 +12,8 @@ On the CPU every backward wrapper takes its plain version:
   * ``rmsnorm_bwd_plain`` against ``jax.vjp`` of the reference's
     ``RMSNormOp.kernel``;
   * each autograd Function (``FlashAttention``, ``RMSNorm``,
-    ``FusedAddRMSNorm``) against torch.autograd of its plain forward.
+    ``FusedAddRMSNorm``) against torch.autograd of its plain forward
+    (``GroupedFFN``'s in tests/test_torch_moe_train.py).
 
 Tolerances: in f32, 1e-4 relative (sums over up to 128 keys or 128
 columns in another order; JAX's vjp of the plain norm multiplies dh by g
@@ -37,6 +38,7 @@ import torch
 
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import rmsnorm as rn
 
 F32 = dict(atol=1e-4, rtol=1e-4)
@@ -556,3 +558,56 @@ def test_norm_bwd_instantiations_hold_their_blocks(cuda, fused):
         assert info["local_bytes"] == 0, (w, p, info)
         assert info["blocks_per_sm"] == geo["blocks_per_sm"]
         assert info["resident_per_sm"] >= geo["blocks_per_sm"], (w, p)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the grouped FFN's gradient
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 7), (3, 5, 61), (2, 7, 64),
+                                   (64, 240, 1408)])
+def test_gate_bwd_kernel_matches_plain(cuda, shape):
+    """f32 arithmetic in both, each output rounded once to bf16: within
+    one bf16 ulp (2^-7 relative), plus 1e-5 of the largest magnitude
+    where silu'(h1) cancels near h1 = -1.28; the vector path and the
+    element tail alike."""
+    h1, h3, dh = (t.to(cuda) for t in arrays(13, "bfloat16", shape, shape,
+                                                 shape))
+    before = LAUNCHES["grouped_ffn_gate_bwd"]
+    got = gm.grouped_ffn_gate_bwd(h1, h3, dh)
+    want = gm.grouped_ffn_gate_bwd_plain(h1, h3, dh)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grouped_ffn_gate_bwd"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        a, b = a.float(), b.float()
+        allowed = 2 ** -7 * b.abs() + 1e-5 * b.abs().max()
+        assert bool(((a - b).abs() <= allowed).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,N,D,Fd", [(4, 37, 128, 64), (8, 100, 256, 192),
+                                      (2, 1, 128, 128)])
+def test_grouped_ffn_function_matches_autograd(cuda, E, N, D, Fd):
+    """``GroupedFFN`` on the card (the forward kernel, the bf16 products
+    and the gate kernel) against torch.autograd of the f32 plain version:
+    the products round h1, h3, dh, dh1, dh3 and h to bf16, so 2e-2
+    relative L2."""
+    x, w1, w3, w2, dy = (t.to(cuda) for t in arrays(
+        14, "bfloat16", (E, N, D), (E, D, Fd), (E, D, Fd), (E, Fd, D),
+        (E, N, D)))
+    w1, w3, w2 = (w * w.shape[1] ** -0.5 for w in (w1, w3, w2))
+    ins = [t.clone().requires_grad_() for t in (x, w1, w3, w2)]
+    counts = dict(LAUNCHES)
+    y = gm.grouped_ffn(*ins)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    for name in ("grouped_ffn", "grouped_ffn_gate_bwd"):
+        assert LAUNCHES[name] == counts.get(name, 0) + 1, name
+    ref = [t.float().requires_grad_() for t in (x, w1, w3, w2)]
+    want = torch.autograd.grad(gm.grouped_ffn_plain(*ref), ref, dy.float())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _rel(a, b) < 2e-2
