@@ -23,7 +23,9 @@ Phases, each printing one JSON line:
             for bit at the train models' leaf sets and at odd sizes; the
             grouped FFN's gate backward at the MoE train step's shapes,
             with ``GroupedFFN``'s whole backward against torch.autograd
-            of the f32 plain forward beside it);
+            of the f32 plain forward beside it; the SSD scan's backward
+            at the SSM train steps' NanoFlow halves, with torch.autograd
+            of the plain scan as its yardstick);
             time kernel, plain
             version and the one-call PyTorch yardstick where there is one
             over back-to-back calls (``ms``: CUDA events, which measure
@@ -160,6 +162,21 @@ Phases, each printing one JSON line:
   ssm_serve each SSM model answers the same 4 requests (its decode starts
             from the cache rows as they are: neither package hands the
             recurrent state from prefill to decode)
+  ssm_train mamba2-2.7b at full width cut to 16 layers (0.77 B
+            parameters) and zamba2-1.2b as published, each B=2 S=2048
+            through ``Program.train_step``'s graphed step (the served
+            models freed first): ``dynamic`` resolves NanoFlow on the
+            Mamba2 stacks and TokenWeave on the shared block; a cut at
+            full width on the card against the CPU (mamba2-2.7b 2 layers
+            B=2 S=512, zamba2-1.2b one group B=1 S=256); ``dynamic``
+            against ``sequential`` on the first step's loss and every
+            gradient leaf; the same gradients over per-resource streams
+            and on one stream bit for bit; the loss falling over 8 steps
+            on one repeated batch; two replays against ``fn.eager`` bit
+            for bit; wall and device time, busy share, tokens/s, MFU,
+            memory and the graph pool, the largest device ops, launches
+            (the scan's forward and backward kernels; zamba2's flash and
+            fused add+RMSNorm backwards)
   train     smollm-135m cut to 2 layers at full width: ``Program.
             train_step(2, 512)`` on the card against the CPU (loss, every
             gradient leaf, one step's metrics); smollm-135m as published
@@ -203,7 +220,8 @@ launched on some path.
 Usage:  python3 chip_smoke.py [--phases kernels,frontend,examples,
             reference,transparency,serve,lifecycle,paged,sampling,spec,
             autotune,moe_reference,moe_transparency,moe_serve,moe_train,
-            ssm_reference,ssm_transparency,ssm_serve,train,streams]
+            ssm_reference,ssm_transparency,ssm_serve,ssm_train,train,
+            streams]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
         torch.profiler breakdown of a warm prefill, eager and replayed
         as the engine's graph, of a window of decode steps, with graphs
@@ -281,6 +299,16 @@ TOL = {
     # before products that sum up to 2048 or 1408 such terms, as flash's
     # backward rounds P and dS
     "grouped_ffn_bwd": dict(atol_of_max=2e-2, rtol=2e-2, l2=2e-2),
+    # the SSD scan's backward: f32 FMAs in both from the same bf16
+    # operands, the sums in other orders (the kernel's per thread and
+    # over a group's heads in head order, the plain version's through
+    # cuBLAS); dx, dB and dC each rounded once to bf16: one ulp (2^-7
+    # relative) apart where two f32 values straddle a rounding boundary,
+    # plus 2e-3 of the largest magnitude where the sums cancel, and 1e-2
+    # relative L2; ddt, dA and dD stay f32: 1e-3 relative L2 (dA sums dt
+    # times a reverse cumsum that cancels)
+    "ssd_scan_bwd": dict(atol_of_max=2e-3, rtol=2 ** -7, l2=1e-2,
+                         f32_l2=1e-3),
 }
 SEED = 0
 # phase-name prefix of each model family
@@ -399,15 +427,20 @@ def device_times(kernel, library=None, name="library"):
 
 def pass_ms(fn, parts, iters=20, windows=5):
     """Device ms a call of ``fn`` spends in each of its kernels whose name
-    holds one of ``parts`` (the passes of a multi-launch kernel), from
-    ``torch.profiler``'s kernel durations over ``iters`` calls; a window
-    missing one of the passes' events is measured again, up to
-    ``windows`` times (None where none was whole)."""
+    holds one of ``parts`` (the passes of a multi-launch kernel, each
+    launched once a call), from ``torch.profiler``'s kernel durations
+    over ``iters`` calls: a pass's mean over its launches.  The profiler
+    drops a window's first kernel now and then (seen on an H100: 19 of
+    20), so a pass counts with ``iters - 1`` launches; a window missing
+    more is measured again, up to ``windows`` times (None where none was
+    whole; then ``_counts`` has each device event's name and count in the
+    last window)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    out, events = {}, []
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -419,11 +452,12 @@ def pass_ms(fn, parts, iters=20, windows=5):
         out = {}
         for part in parts:
             mine = [e for e in events if part in e.key]
-            out[part] = (sum(_dev_us(e) for e in mine) / 1e3 / iters
-                         if mine and sum(e.count for e in mine) >= iters
-                         else None)
+            n = sum(e.count for e in mine)
+            out[part] = (sum(_dev_us(e) for e in mine) / 1e3 / n
+                         if n >= iters - 1 else None)
         if all(v is not None for v in out.values()):
             return out
+    out["_counts"] = {e.key[:100]: e.count for e in events}
     return out
 
 
@@ -849,6 +883,68 @@ def phase_kernels(dev, build_log=None):
             library_ms=None,
             **device_times([lambda: ssd.ssd_scan(*args)]))
 
+    def scan_bwd(what, b, H, N, L=2048, P=64, G=1):
+        args = ssd_inputs(g, b, L, H, P, N)
+        dy = randn(b, L, H, P)
+        got = ssd.ssd_scan_bwd(*args, dy)
+        want = ssd.ssd_scan_bwd_plain(*args, dy)
+        again = ssd.ssd_scan_bwd(*args, dy)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        row = compare_bwd("ssd_scan_bwd", [
+            (a, w) for a, w in zip(got, want) if a.dtype == torch.bfloat16])
+        f32_l2 = {n: rel_err(a, w) for n, a, w in zip(
+            ("dx", "ddt", "dA", "dB", "dC", "dD"), got, want)
+            if a.dtype == torch.float32}
+        row["f32_rel_l2"] = f32_l2
+        row["ok"] = (row["ok"] and same and max(f32_l2.values())
+                     <= TOL["ssd_scan_bwd"]["f32_l2"])
+        del got, want, again
+        # the composition: torch.autograd of ssd_scan_plain, its backward
+        # alone (the forward's graph kept)
+        leaf = [t.detach().requires_grad_() for t in args]
+        y = ssd.ssd_scan_plain(*leaf)
+
+        def comp():
+            return torch.autograd.grad(y, leaf, dy, retain_graph=True)
+
+        def kernel():
+            return ssd.ssd_scan_bwd(*args, dy)
+
+        Q = ssd.chunk_len(L, 128)
+        tri = Q * (Q + 1) // 2
+        # what the chunked VJP needs, per head and chunk: the recomputed
+        # state update and sum_i exp(cum_i) C_i^T dy_i, dx's, dC's and
+        # dB's inter-chunk terms (2 Q N P each), dy_i . x_j and dx's M
+        # term over the triangle (2 T P each), dC's and dB's intra terms
+        # (2 T N each); C_i . B_j over the triangle once per group;
+        # x, dy, dx, B, C, dB, dC, dt, ddt, A, D, dA and dD once
+        flops = b * (L // Q) * (H * (10 * Q * N * P + 4 * tri * (P + N))
+                                + G * 2 * tri * N)
+        nbytes = (3 * 2 * b * L * H * P + 4 * 2 * b * L * G * N
+                  + 2 * 4 * b * L * H + 4 * 4 * H)
+        out = dict(
+            shape=f"{what}: b={b} L={L} H={H} P={P} G={G} N={N} Q={Q}, "
+                  "bf16 x/B/C/dy, f32 dt/A/D",
+            **row, same_bits_twice=same,
+            ms=cuda_ms(kernel, iters=10),
+            plain_ms=cuda_ms(lambda: ssd.ssd_scan_bwd_plain(*args, dy),
+                             iters=3),
+            **bound(flops, nbytes),
+            # no single PyTorch call computes the scan's gradient: the
+            # yardstick is autograd of the plain composition
+            library_ms=None,
+            composition_ms=cuda_ms(comp, iters=3),
+            **device_times([kernel], [comp], name="composition"),
+            library_device_ms=None,
+            pass_device_ms=pass_ms(kernel, (
+                "ssd_bwd_states", "ssd_bwd_walk", "ssd_bwd_chunk",
+                "ssd_bwd_reduce")))
+        out["bound_share"] = out["bound_ms"] / out["device_ms"]
+        del leaf, y
+        torch.cuda.empty_cache()
+        return out
+
     def adamw_state(shapes, dtypes, gdtypes=None):
         ps = [randn(*sh).to(dt) for sh, dt in zip(shapes, dtypes)]
         gs = [(randn(*sh).float() * 1e-2).to(dt)
@@ -1021,6 +1117,14 @@ def phase_kernels(dev, build_log=None):
                    [scan(f"{m2} prefill", 4, 80, 128),
                     scan(f"{m2} NanoFlow half", 2, 80, 128),
                     scan(f"{z2} NanoFlow half", 2, 64, 64)]),
+        # the scan's gradient at the ssm_train phase's NanoFlow halves
+        # (B=2 S=2048 split in two rows): the VJP of the reference's
+        # SSDScanOp._ref, whose Pallas scan has no VJP
+        kernel_row("ssd_scan_bwd", "cuda",
+                   "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                   "src/repro/models/mamba2.py:132",
+                   [scan_bwd(f"{m2} train, NanoFlow half", 1, 80, 128),
+                    scan_bwd(f"{z2} train, NanoFlow half", 1, 64, 64)]),
         # the backward kernels, at the train phase's shapes
         kernel_row("flash_attention_bwd", "cuda",
                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1055,6 +1159,7 @@ def phase_kernels(dev, build_log=None):
                                              "norm_bwd_kernelI",
                                              "ffn_gemm_kernel",
                                              "ssd_scan_kernel",
+                                             "ssd_bwd_",
                                              # bf16 x and g, each pack count
                                              "fused_kernelI13__nv_bfloat16S"))
     builds["runtime"] = {
@@ -1070,6 +1175,10 @@ def phase_kernels(dev, build_log=None):
             ("gate-up N>64", "down N>64", "gate-up N<=64", "down N<=64"))},
         **{f"ssd_scan N={n}": _build.kernel_info(lib.repro_ssd_scan_info, n)
            for n in (128, 64)},
+        **{f"ssd_scan_bwd {part} N={n}": _build.kernel_info(
+            lambda v, *a, w=w: lib.repro_ssd_scan_bwd_info(v, w, *a), n)
+           for n in (128, 64) for w, part in enumerate(
+               ("states", "walk", "chunk", "reduce"))},
         "grouped_ffn_gate_bwd": _gate_bwd_info(lib)}
     reset_launch_counts()
     log({"phase": "kernels", "build_s": build_s, "builds": builds,
@@ -3251,12 +3360,14 @@ def train_attribution(step, params, opt, batch, first_step, windows=3):
     return out
 
 
-def step_timings(step, params, opt, batch, cfg, totals, first_step):
+def step_timings(step, params, opt, batch, cfg, totals, first_step,
+                 flops=None):
     """Warm timings of ``step`` (a replay of its graph once it was
     captured on ``params``): wall ms a step (CUDA events, three windows of
     3 steps), the profiler's device ms a step and busy share, tokens/s,
-    MFU, peak allocated and reserved memory over one step and the
-    launches of one step.  Trains ``params`` on."""
+    MFU (``flops``: (model FLOPs a step, matmul params), by default
+    ``train_flops``), peak allocated and reserved memory over one step and
+    the launches of one step.  Trains ``params`` on."""
     import torch
     B, S = batch["ids"].shape
     i = first_step
@@ -3280,7 +3391,7 @@ def step_timings(step, params, opt, batch, cfg, totals, first_step):
         walls.append(start.elapsed_time(end) / 3)
     wall = sum(walls) / len(walls)
     prof = _profile(lambda: step(params, opt, batch, i + 11), 2)
-    flops, n = train_flops(cfg, params, B, S)
+    flops, n = flops or train_flops(cfg, params, B, S)
     return {"step_wall_ms": wall, "step_wall_ms_windows": walls,
             "step_device_ms": prof["device_ms_per_step"],
             "device_busy_share": prof["device_busy_share"],
@@ -3644,6 +3755,195 @@ def phase_moe_train(dev, gpu, totals):
     gc.collect()
     torch.cuda.empty_cache()
     return this_ok
+
+
+# mamba2-2.7b's depth in ``ssm_train``: at 16 of its 64 layers (0.77 B
+# parameters) the graph-against-eager copies of the parameters and the
+# AdamW state fit beside the step; at full depth (2.70 B: ~32 GB of
+# weights, gradients and state) they would take about as much again
+SSM_TRAIN_LAYERS = 16
+SSM_TRAIN_SHAPE, SSM_LOOP_STEPS = (2, 2048), 8
+# (layers, (B, S)) of each model's GPU-against-CPU cut at full width:
+# mamba2-2.7b 2 layers; zamba2-1.2b one group (6 Mamba2 layers and the
+# shared block)
+SSM_TRAIN_CUTS = {"mamba2-2.7b": (2, (2, 512)), "zamba2-1.2b": (6, (1, 256))}
+SSM_GRAD_KERNELS = ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd")
+HYBRID_GRAD_KERNELS = SSM_GRAD_KERNELS + ("flash_attention",
+                                          "flash_attention_bwd")
+
+
+def ssm_train_flops(model, params, B, S):
+    """(model FLOPs of one SSM or hybrid train step, matmul params): 6 per
+    matmul parameter a token (the linears' weights, the shared block's at
+    each of its uses, the tied embedding as the head's matmul; not the
+    convolutions' taps, the norms' gains or the scan's per-head
+    parameters), plus 3 x ``SSDScanOp.flops_estimate`` per Mamba2 layer
+    and 3 x the causal attention's 4 B S^2 H hd / 2 per use of the shared
+    block.  Recomputation under remat is not counted."""
+    import torch
+
+    from repro_torch.core.module import TensorSpec
+    from repro_torch.models.mamba2 import SSDScanOp
+    from repro_torch.tree import leaves_with_paths
+    cfg = model.cfg
+    uses = getattr(model, "n_groups", 0)
+    n = 0
+    for path, t in leaves_with_paths(params):
+        if path[-2:] == ("lin", "w") or path == ("embed", "emb", "w"):
+            n += t.numel() * (uses if path[0] == "shared_attn" else 1)
+    op = SSDScanOp(cfg, model.mesh)
+    scan = op.flops_estimate([TensorSpec((B, S, op.ch_loc),
+                                         torch.bfloat16)])
+    attn = 4.0 * B * S * S * cfg.n_heads * cfg.hd * 0.5 * uses
+    return 6.0 * n * B * S + 3 * (scan * cfg.n_layers + attn), n
+
+
+def _ssm_train_cut(dev, totals, arch):
+    """``arch`` at full width cut to ``SSM_TRAIN_CUTS[arch]``:
+    ``Program.train_step`` on the card (kernels) against the same program
+    on the CPU (plain versions): the loss and every gradient leaf."""
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    layers, (B, S) = SSM_TRAIN_CUTS[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    prog = compile(cfg)
+    step = prog.train_step(B, S)
+    params = prog.init_params(SEED, device="cpu", phase="train")
+    gpu_params = _copy_tree(params, dev)
+    batch = train_batch(B, S, cfg.vocab, "cpu")
+    gpu_batch = {k: v.to(dev) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    want = step.fn.grads(params, batch)
+    cpu_s = time.perf_counter() - t0
+    got, counts = counted(totals, lambda: step.fn.grads(gpu_params,
+                                                        gpu_batch))
+    checks, ok = grads_agree(got, want)
+    need = (HYBRID_GRAD_KERNELS if cfg.family == "hybrid"
+            else SSM_GRAD_KERNELS)
+    ok = ok and all(counts.get(k, 0) > 0 for k in need)
+    log({"phase": "ssm_train_cut", "arch": arch,
+         "config": f"{arch} at full width, {layers} layers, B={B} S={S}, "
+                   "policy dynamic", "strategies": step.strategies,
+         "grads": checks, "kernel_launches": counts, "cpu_grads_s": cpu_s,
+         "tolerance": TRAIN_TOL, "ok": ok})
+    del step, params, gpu_params, got, want
+    gc.collect()
+    return ok
+
+
+def _ssm_train_model(dev, gpu, totals, arch):
+    """``arch`` (mamba2-2.7b cut to ``SSM_TRAIN_LAYERS``, zamba2-1.2b as
+    published) at B=2 S=2048 through the graphed ``TrainStep``."""
+    import math
+
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    from repro_torch.core.streams import one_stream
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainLoopConfig, TrainStepConfig,
+                                   train_loop)
+    cfg = get_config(arch)
+    if cfg.family == "ssm":
+        cfg = dataclasses.replace(cfg, n_layers=SSM_TRAIN_LAYERS)
+    B, S = SSM_TRAIN_SHAPE
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=LOOP_LR),
+                           warmup=LOOP_WARMUP, total_steps=SSM_LOOP_STEPS)
+    dyn_prog = compile(cfg, policy="dynamic")
+    dyn = dyn_prog.train_step(B, S, cfg=tcfg)
+    seq = compile(cfg, policy="sequential").train_step(B, S, cfg=tcfg)
+    params = dyn_prog.init_params(SEED, phase="train")
+    batch = train_batch(B, S, cfg.vocab, dev)
+    want = seq.fn.grads(params, batch)
+    got, counts = counted(totals, lambda: dyn.fn.grads(params, batch))
+    grads, this_ok = grads_agree(got, want)
+    del want
+    # the same plans on one stream: the gradients bit for bit
+    with one_stream():
+        single = dyn.fn.grads(params, batch)
+    torch.cuda.synchronize()
+    same, differ = _bits_equal(got[0], single[0])
+    same = same and all(torch.equal(a, b) for a, b in zip(got[1], single[1]))
+    del got, single
+    gc.collect()
+    torch.cuda.empty_cache()
+    strat = dyn.strategies
+    mamba = [k for k in strat if k == "layers" or k.startswith("mamba")]
+    shared = [k for k in strat if k.startswith("shared_attn@")]
+    hybrid = cfg.family == "hybrid"
+    need = HYBRID_GRAD_KERNELS + FUSED_PAIR if hybrid else SSM_GRAD_KERNELS
+    this_ok = (this_ok and same and bool(mamba)
+               and all(strat[k] == "nanoflow" for k in mamba)
+               and all(strat[k] == "tokenweave" for k in shared)
+               and len(shared) == getattr(dyn_prog.model, "n_groups", 0)
+               and all(counts.get(k, 0) > 0 for k in need))
+    opt = dyn.init_opt(params)
+    stats0 = dict(dyn.fn.stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, hist = train_loop(
+        dyn.fn, params, opt, RepeatedBatch(batch),
+        TrainLoopConfig(steps=SSM_LOOP_STEPS, log_every=10 ** 9))
+    loop_s = time.perf_counter() - t0
+    capture = {**capture_record(dyn.fn, stats0),
+               "loop_peak_allocated_gb": torch.cuda.max_memory_allocated()
+               / 1e9,
+               "loop_peak_reserved_gb": torch.cuda.max_memory_reserved()
+               / 1e9}
+    losses = [h["loss"] for h in hist]
+    falls = all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    bitwise = graph_vs_eager(dyn.fn, params, opt, batch, SSM_LOOP_STEPS,
+                             steps=2)
+    gc.collect()
+    torch.cuda.empty_cache()                  # the eager copies' memory
+    timings = step_timings(dyn.fn, params, opt, batch, cfg, totals,
+                           SSM_LOOP_STEPS + bitwise["replays"],
+                           flops=ssm_train_flops(dyn_prog.model, params,
+                                                 B, S))
+    this_ok = (this_ok and falls and bitwise["ok"]
+               and capture["graph_captures"] == 1
+               and all(timings["kernel_launches_one_step"].get(n, 0) > 0
+                       for n in need + ("adamw",)))
+    log({"phase": "ssm_train", "arch": arch, "gpu": gpu,
+         "config": "%s at full width, %d layers%s, B=%d S=%d, "
+                   "TrainStepConfig(lr=1e-3, warmup=3, remat), the step one "
+                   "CUDA Graph over per-resource streams"
+                   % (arch, cfg.n_layers,
+                      " (the shared block used %d times)" % len(shared)
+                      if hybrid else "", B, S),
+         "params": sum(t.numel() for t in _leaves(params)),
+         "strategies": strat,
+         "dynamic_vs_sequential": grads, "first_step_launches": counts,
+         "streams_vs_one_stream": {"grads_bitwise": same,
+                                   "differ": differ[:8]},
+         "capture": capture,
+         "loop": {"steps": SSM_LOOP_STEPS, "losses": losses,
+                  "falls": falls, "loop_s": loop_s,
+                  "step_time_s": [h["step_time_s"] for h in hist]},
+         "graph_vs_eager": bitwise, **timings,
+         "mfu_counts": "6 x matmul params a token (the shared block's at "
+                       "each use) + 3 x SSDScanOp.flops_estimate a Mamba2 "
+                       "layer + 3 x the shared block's causal attention, "
+                       "over 989 TFLOP/s",
+         "tolerance": dict(TRAIN_TOL, graph_vs_eager="bitwise",
+                           streams_vs_one_stream="bitwise"),
+         "ok": this_ok})
+    del dyn, seq, dyn_prog, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return this_ok
+
+
+def phase_ssm_train(dev, gpu, totals):
+    """mamba2-2.7b and zamba2-1.2b train: each at a cut on the card
+    against the CPU, then at B=2 S=2048 through the graphed step."""
+    ok = True
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        ok = _ssm_train_cut(dev, totals, arch) and ok
+        ok = _ssm_train_model(dev, gpu, totals, arch) and ok
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -4319,6 +4619,8 @@ def run_ssm(phases, dev, gpu, totals):
             del params        # each model's weights go before the next's
             gc.collect()
             torch.cuda.empty_cache()
+    if "ssm_train" in phases:
+        ok = phase_ssm_train(dev, gpu, totals) and ok
     return ok
 
 
@@ -4328,7 +4630,7 @@ def main(argv=None) -> int:
                     "reference,transparency,serve,lifecycle,paged,sampling,"
                     "spec,autotune,moe_reference,moe_transparency,moe_serve,"
                     "moe_train,ssm_reference,ssm_transparency,ssm_serve,"
-                    "train,streams")
+                    "ssm_train,train,streams")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")
     args = ap.parse_args(argv)

@@ -8,6 +8,7 @@ plain PyTorch version (the port of the JAX package's ``kernels/ref.py``):
   grouped_matmul.py    grouped SwiGLU expert FFN            (CUDA C++)
                        and its gate's backward              (CUDA C++)
   ssd_scan.py          Mamba2 chunked SSD scan              (CUDA C++)
+                       and its backward                     (CUDA C++)
   adamw.py             multi-tensor AdamW update            (CUDA C++)
   tokenweave.py        reduce-scatter + fused add/norm + all-gather
   ops.py               the dispatch the model code calls

@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "grouped_ffn.cu",
            "ssd_scan.cu", "rmsnorm.cu", "fused_add_rmsnorm.cu",
            "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "adamw.cu",
-           "grouped_ffn_bwd.cu")
+           "grouped_ffn_bwd.cu", "ssd_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,6 +64,10 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
          ctypes.POINTER(_LL), _P, _P], _I),
     "repro_ssd_scan_info": ([_I, _P, _P, _P], _I),
+    "repro_ssd_scan_bwd": (
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+         _I, _I, _I, ctypes.POINTER(_LL), _P, _P], _I),
+    "repro_ssd_scan_bwd_info": ([_I, _I, _P, _P, _P], _I),
     "repro_adamw": (
         [_P, ctypes.POINTER(_P), _I, _LL, _P, _P, _P, _P, _F, _F, _F, _F, _F,
          _F, _I, _P], _I),

@@ -12,7 +12,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.module import Module, Op, TensorSpec
-from .base import EmbedSegment, LMBase, LogitsHead
+from .base import EmbedSegment, LMBase, LogitsHead, TrainHead
 from .layers import (AddOp, AttentionOp, DecodeAttentionOp, HeadLayout,
                      MeshInfo, MLPBlock, OProj, PsumOp, QKVProj, RMSNormOp,
                      RopeOp, ShardedLinear)
@@ -93,7 +93,15 @@ class HybridLM(LMBase):
     attention block (one set of weights, segment ``uid`` shared_attn@i),
     then the trailing Mamba2 layers.  Prefill collects no state, so
     decode starts from the cache rows as they are (no prefill -> decode
-    handoff, as in the JAX package)."""
+    handoff, as in the JAX package).
+
+    Training builds the prefill's segments: the Mamba2 stacks (their scan
+    differentiated by ``SSDScan``, ``models/mamba2.py``) and the shared
+    block at every use, its attention through ``FlashAttention`` and its
+    norms through the norm Functions (TokenWeave's fused add+RMSNorm where
+    the strategy fuses).  The shared block is one params subtree that
+    every use reads, so autograd sums its uses' gradients, as the
+    reference's autodiff does."""
 
     family = "hybrid"
 
@@ -110,8 +118,6 @@ class HybridLM(LMBase):
 
     def layer_stacks(self, phase):
         cfg, mesh = self.cfg, self.mesh
-        if phase not in ("prefill", "decode"):
-            raise NotImplementedError(f"phase {phase!r} is not ported yet")
         decode = phase == "decode"
         mcaches = (("conv_state", "ssm_state") if decode else ())
         stacks = []
@@ -145,6 +151,8 @@ class HybridLM(LMBase):
         return stacks
 
     def make_head(self, phase):
+        if phase == "train":
+            return TrainHead(self.cfg, self.mesh, sp=False)
         return LogitsHead(self.cfg, self.mesh, sp=False,
                           keep_last=(phase != "decode"))
 

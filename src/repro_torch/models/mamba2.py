@@ -16,6 +16,15 @@ them to XLA.  The convolutions are unrolled f32 sums over the 4 taps, not
 ``F.conv1d``: on the card cuDNN runs an f32 convolution in TF32 by
 default.
 
+Training runs the prefill's layer stack (``layer_stacks("train")``) into
+``TrainHead``.  Where a gradient flows the scan is the ``SSDScan``
+autograd Function: its forward is the serve path's and saves only the
+scan's inputs; its backward recomputes each chunk's starting state and
+launches ``csrc/ssd_scan_bwd.cu`` (on the CPU ``ssd_scan_bwd_plain``,
+the VJP of the reference's ``SSDScanOp._ref`` written out chunk by
+chunk).  The conv, the softplus and the gated norm train under autograd
+as plain PyTorch, as the reference leaves them to XLA's autodiff.
+
 Decode keeps two caches per layer: conv_state (B, W-1, ch_loc) and
 ssm_state (B, H_loc, N, P) — O(1) per token.
 """
@@ -26,7 +35,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..core.module import Module, Op, TensorSpec
-from .base import EmbedSegment, LMBase, LogitsHead
+from .base import EmbedSegment, LMBase, LogitsHead, TrainHead
 from .layers import (AddOp, make_param, MeshInfo, PsumOp, RMSNormOp,
                      ShardedLinear)
 
@@ -329,7 +338,9 @@ def mamba_cache_specs(cfg: ArchConfig, mesh: MeshInfo, B_loc: int) -> dict:
 
 
 class Mamba2LM(LMBase):
-    """Attention-free Mamba2 LM.  The prefill stack collects no state, so
+    """Attention-free Mamba2 LM; trains through the prefill's stack (see
+    the module's docstring for the scan's gradient).  The prefill stack
+    collects no state, so
     decode starts from whatever the cache rows hold, as in the JAX
     package's serve engine (its prefill -> decode state handoff is not
     implemented either)."""
@@ -345,12 +356,12 @@ class Mamba2LM(LMBase):
             mod = Mamba2DecodeLayer(cfg, mesh)
             return [("layers", mod, cfg.n_layers,
                      ("conv_state", "ssm_state"), ("conv_state", "ssm_state"))]
-        if phase != "prefill":
-            raise NotImplementedError(f"phase {phase!r} is not ported yet")
         mod = Mamba2Layer(cfg, mesh)
         return [("layers", mod, cfg.n_layers, (), ())]
 
     def make_head(self, phase):
+        if phase == "train":
+            return TrainHead(self.cfg, self.mesh, sp=False)
         return LogitsHead(self.cfg, self.mesh, sp=False,
                           keep_last=(phase != "decode"))
 

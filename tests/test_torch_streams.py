@@ -509,19 +509,12 @@ def test_every_strategy_interleaves_to_the_same_bits(family, phase, name):
 @pytest.mark.parametrize("name", STRATEGIES)
 def test_every_strategy_interleaves_the_train_forward(name):
     """The dense LM's train forward (loss sum and token count per
-    sample); the MoE LM's is in tests/test_torch_streams_moe.py, and
-    Mamba2 and the hybrid do not train in the port yet."""
+    sample); the MoE LM's is in tests/test_torch_streams_moe.py, Mamba2's
+    and the hybrid's in tests/test_torch_streams_ssm.py."""
     prog = tcompile("chatglm3-6b", policy="sequential", smoke=True,
                     device="cpu")
     check_interleavings(prog, prog.init_params(0, phase="train"), "train",
                         name)
-
-
-@pytest.mark.parametrize("arch", ARCHS[2:])
-def test_the_other_families_refuse_the_train_phase(arch):
-    prog = tcompile(arch, policy="sequential", smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        prog.model.build_segments("train", 4, 16)
 
 
 # ---------------------------------------------------------------------------

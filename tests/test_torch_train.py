@@ -567,11 +567,23 @@ def test_program_train_step_handle_and_verify():
     assert prog.stats["shares"] > before
 
 
-def test_other_families_refuse_the_train_phase():
-    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
-        prog = tcompile(arch, smoke=True, device="cpu")
-        with pytest.raises(NotImplementedError, match="train"):
-            prog.train_step(2, 16)
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_ssm_families_train_step_handle_and_verify(arch):
+    """The SSM and hybrid families train: ``TrainHead`` for the train
+    phase, a step that builds and verifies, and a train tree with the
+    serve tree's layout (their parity: tests/test_torch_ssm_train.py)."""
+    from repro_torch.models.base import TrainHead
+    prog = tcompile(arch, policy="sequential", smoke=True, device="cpu",
+                    verify="strict")
+    assert isinstance(prog.model.make_head("train"), TrainHead)
+    step = prog.train_step(2, 16)
+    assert step.init_opt is not None and callable(step.fn)
+    assert set(step.batch_inputs) == {"ids", "labels", "positions"}
+    assert prog.verify().ok
+    p = prog.init_params(0, device="cpu", phase="train")
+    serve = prog.init_params(0, device="cpu")
+    assert [k for k, _ in leaves_with_paths(p)] == \
+        [k for k, _ in leaves_with_paths(serve)]
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ On the CPU every backward wrapper takes its plain version:
     ``RMSNormOp.kernel``;
   * each autograd Function (``FlashAttention``, ``RMSNorm``,
     ``FusedAddRMSNorm``) against torch.autograd of its plain forward
-    (``GroupedFFN``'s in tests/test_torch_moe_train.py).
+    (``GroupedFFN``'s in tests/test_torch_moe_train.py, ``SSDScan``'s and
+    ``ssd_scan_bwd_plain``'s in tests/test_torch_ssm_train.py, which
+    share this file's ``ssd_inputs``).
 
 Tolerances: in f32, 1e-4 relative (sums over up to 128 keys or 128
 columns in another order; JAX's vjp of the plain norm multiplies dh by g
@@ -40,6 +42,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 
 F32 = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=3e-2, rtol=3e-2)
@@ -611,3 +614,134 @@ def test_grouped_ffn_function_matches_autograd(cuda, E, N, D, Fd):
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
         assert _rel(a, b) < 2e-2
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's gradient
+# ---------------------------------------------------------------------------
+
+# (b, L, H, G, N, chunk): mamba2-2.7b's and zamba2-1.2b's train
+# micro-batches (Q = 128), then odd shapes: L not a multiple of the chunk
+# (Q = 32; Q = 4), L below it (Q = 37), G = 2 and 3, b = 3
+SSD_TRAIN = [(1, 2048, 80, 1, 128, 128), (1, 2048, 64, 1, 64, 128)]
+SSD_ODD = [(3, 96, 4, 2, 128, 64), (2, 37, 4, 1, 64, 128),
+           (1, 300, 2, 2, 128, 128), (2, 256, 6, 3, 64, 128)]
+
+
+def ssd_inputs(seed, b, L, H, G, N, P=64, dtype=torch.bfloat16,
+               fdtype=torch.float32, views=True):
+    """Seeded scan operands as the model hands them over: x, B and C in
+    ``dtype``, column views of one (b, L, H P + 2 G N) activation where
+    ``views``; dt = softplus(n - 1), A = -exp(U(0, log 16)), D ~ N(1,
+    1/4) in ``fdtype``; and a cotangent dy in ``dtype``."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt):
+        return torch.from_numpy(np.asarray(a, np.float64)).to(dt)
+
+    xbc = t(rng.standard_normal((b, L, H * P + 2 * G * N)), dtype)
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    Bm = xbc[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    Cm = xbc[..., H * P + G * N:].unflatten(-1, (G, N))
+    if not views:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dt = torch.nn.functional.softplus(
+        t(rng.standard_normal((b, L, H)) - 1.0, fdtype))
+    A = -torch.exp(t(rng.uniform(0.0, math.log(16.0), H), fdtype))
+    D = t(rng.normal(1.0, 0.5, H), fdtype)
+    dy = t(rng.standard_normal((b, L, H, P)), dtype)
+    return x, dt, A, Bm, Cm, D, dy
+
+
+def _bf16_close(a, b):
+    """One bf16 rounding of each side (2^-7 relative) plus 2e-3 of the
+    largest magnitude where f32 sums in another order cancel, and 1e-2
+    relative L2."""
+    a, b = a.float(), b.float()
+    allowed = 2 ** -7 * b.abs() + 2e-3 * b.abs().max()
+    return bool(((a - b).abs() <= allowed).all()) and _rel(a, b) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L,H,G,N,chunk", SSD_TRAIN + SSD_ODD)
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, b, L, H, G, N, chunk):
+    """The kernels against ``ssd_scan_bwd_plain`` on the card: both in f32
+    from the same bf16 operands, the sums in another order; dx, dB and dC
+    each rounded once to bf16 (``_bf16_close``), ddt, dA and dD within
+    1e-3 relative L2.  Two calls give the same bits."""
+    x, dt, A, Bm, Cm, D, dy = (t.to(cuda) for t in ssd_inputs(
+        20, b, L, H, G, N))
+    before = LAUNCHES["ssd_scan_bwd"]
+    got = ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy, chunk=chunk)
+    want = ssd.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, D, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan_bwd"] == before + 1
+    for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        if a.dtype == torch.bfloat16:
+            assert _bf16_close(a, w), name
+        else:
+            assert _rel(a, w) < 1e-3, (name, _rel(a, w))
+    again = ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy.clone(), chunk=chunk)
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_takes_any_cotangent_layout(cuda):
+    """dy as a transposed copy's view (not kernel-ready) gives the bits of
+    the contiguous dy."""
+    x, dt, A, Bm, Cm, D, dy = (t.to(cuda) for t in ssd_inputs(
+        21, 2, 128, 4, 1, 64))
+    odd = dy.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not odd.is_contiguous()
+    got = ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, D, odd)
+    want = ssd.ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_ssd_scan_op_trains_through_the_kernels(cuda, arch):
+    """``SSDScanOp`` at the published widths on CUDA tensors with a
+    gradient to flow: the forward kernel and the backward kernels launch,
+    and every scan input (the post-conv activations, the raw dt) and
+    parameter (A_log, D, dt_bias) gets a finite, nonzero gradient, within
+    1e-2 relative L2 of the CPU's (the plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import MeshInfo
+    from repro_torch.models.mamba2 import SSDScanOp
+    op = SSDScanOp(get_config(arch), MeshInfo())
+    rng = np.random.default_rng(22)
+    L, H = 256, op.H_loc
+    xbc0 = torch.from_numpy(rng.standard_normal((1, L, op.ch_loc)).astype(
+        np.float32)).bfloat16()
+    dt0 = torch.from_numpy(rng.standard_normal((1, L, H)).astype(
+        np.float32)).bfloat16()
+    p0 = {"A_log": torch.from_numpy(np.log(rng.uniform(1, 16, H)).astype(
+              np.float32)),
+          "D": torch.from_numpy(rng.normal(1, 0.5, H).astype(np.float32)),
+          "dt_bias": torch.from_numpy(rng.normal(0, 0.5, H).astype(
+              np.float32))}
+    wgt = torch.from_numpy(rng.standard_normal((1, L, op.d_in_loc)).astype(
+        np.float32))
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ins = [t.to(dev).requires_grad_() for t in
+               (xbc0, dt0, p0["A_log"], p0["D"], p0["dt_bias"])]
+        p = dict(zip(("A_log", "D", "dt_bias"), ins[2:]))
+        counts = dict(LAUNCHES)
+        y = op.kernel(p, ins[0], ins[1])
+        grads[dev.type] = torch.autograd.grad(
+            (y.float() * wgt.to(dev)).sum(), ins)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            for name in ("ssd_scan", "ssd_scan_bwd"):
+                assert LAUNCHES[name] == counts.get(name, 0) + 1, name
+    for name, g, c in zip(("xbc", "dt", "A_log", "D", "dt_bias"),
+                          grads["cuda"], grads["cpu"]):
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert float(g.float().norm()) > 0, name
+        assert _rel(g.cpu(), c) < 1e-2, (name, _rel(g.cpu(), c))
