@@ -299,14 +299,16 @@ TOL = {
     # before products that sum up to 2048 or 1408 such terms, as flash's
     # backward rounds P and dS
     "grouped_ffn_bwd": dict(atol_of_max=2e-2, rtol=2e-2, l2=2e-2),
-    # the SSD scan's backward: f32 FMAs in both from the same bf16
-    # operands, the sums in other orders (the kernel's per thread and
-    # over a group's heads in head order, the plain version's through
-    # cuBLAS); dx, dB and dC each rounded once to bf16: one ulp (2^-7
-    # relative) apart where two f32 values straddle a rounding boundary,
-    # plus 2e-3 of the largest magnitude where the sums cancel, and 1e-2
-    # relative L2; ddt, dA and dD stay f32: 1e-3 relative L2 (dA sums dt
-    # times a reverse cumsum that cancels)
+    # the SSD scan's backward: the same bf16 operands in both, the
+    # kernel's products on the tensor cores with every f32 operand in a
+    # bf16 high and low part (~2^-16 relative), the plain version's in
+    # f32 through cuBLAS, the sums in other orders (the kernel's over a
+    # unit's heads in head order, then over head sets); dx, dB and dC each
+    # rounded once to bf16: one ulp (2^-7 relative) apart where two values
+    # straddle a rounding boundary, plus 2e-3 of the largest magnitude
+    # where the sums cancel, and 1e-2 relative L2; ddt, dA and dD stay
+    # f32: 1e-3 relative L2 (dA sums dt times a reverse cumsum that
+    # cancels)
     "ssd_scan_bwd": dict(atol_of_max=2e-3, rtol=2 ** -7, l2=1e-2,
                          f32_l2=1e-3),
 }
@@ -528,7 +530,7 @@ def phase_kernels(dev, build_log=None):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES as LAUNCHES_
-    from repro_torch.kernels import _build, reset_launch_counts
+    from repro_torch.kernels import _build, reset_launch_counts, sm_count
     from repro_torch.kernels import adamw as kadamw
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
@@ -923,10 +925,14 @@ def phase_kernels(dev, build_log=None):
                                 + G * 2 * tri * N)
         nbytes = (3 * 2 * b * L * H * P + 4 * 2 * b * L * G * N
                   + 2 * 4 * b * L * H + 4 * 4 * H)
+        geo = ssd.ssd_bwd_geometry(b, L, H, G, N, Q, sm_count(0))
         out = dict(
             shape=f"{what}: b={b} L={L} H={H} P={P} G={G} N={N} Q={Q}, "
                   "bf16 x/B/C/dy, f32 dt/A/D",
             **row, same_bits_twice=same,
+            geometry={k: geo[k] for k in ("sets", "units",
+                                          "heads_per_unit")},
+            workspace_bytes=4 * geo["words"],
             ms=cuda_ms(kernel, iters=10),
             plain_ms=cuda_ms(lambda: ssd.ssd_scan_bwd_plain(*args, dy),
                              iters=3),

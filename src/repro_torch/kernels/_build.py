@@ -66,7 +66,7 @@ _SIGNATURES = {
     "repro_ssd_scan_info": ([_I, _P, _P, _P], _I),
     "repro_ssd_scan_bwd": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-         _I, _I, _I, ctypes.POINTER(_LL), _P, _P], _I),
+         _I, _I, _I, _I, ctypes.POINTER(_LL), _P, _P], _I),
     "repro_ssd_scan_bwd_info": ([_I, _I, _P, _P, _P], _I),
     "repro_adamw": (
         [_P, ctypes.POINTER(_P), _I, _LL, _P, _P, _P, _P, _F, _F, _F, _F, _F,

@@ -155,6 +155,26 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// Copy ``bytes`` (a multiple of 16; both addresses 16-byte aligned) from
+// shared to global memory in one bulk transfer, in the bulk group that
+// tma_store_commit closes.  Generic-proxy writes of ``src`` must be made
+// visible first (fence_proxy_async, then a barrier), and ``src`` stays
+// untouched until tma_store_wait_read.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// wait until the committed bulk stores have completed (their writes are
+// made), not only read their shared memory
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // orders this thread's shared-memory writes before later async-proxy
 // (TMA, wgmma) reads of them
 __device__ __forceinline__ void fence_proxy_async() {

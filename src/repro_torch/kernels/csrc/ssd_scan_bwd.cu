@@ -1,7 +1,10 @@
 // Backward of the chunked SSD scan (Mamba2) for Hopper (sm_90a): bf16 x,
 // B, C and dy in; f32 dt, A, D.  Out: dx, dB, dC in bf16, ddt, dA, dD in
-// f32.  Every product is an f32 FMA on the CUDA cores; nothing is
-// rounded before the outputs.
+// f32.  Every chunk product runs on the tensor cores (mma.sync m16n8k16,
+// bf16 in, f32 accumulate) with the forward's numerics: products of two
+// bf16 operands (C B^T, dy x^T and their transposes) are exact, and every
+// f32 operand (M, Z, the states S_n and dS', w o B, exp(cum) o C) enters
+// as a bf16 high part and a bf16 low part, two products, ~2^-16 relative.
 //
 // Replaces no TPU kernel: the Pallas ssd_scan (src/repro/kernels/
 // ssd_scan.py) has no VJP, and the reference trains through XLA's
@@ -24,114 +27,157 @@
 //
 // What bounds it on the H100.  At mamba2-2.7b's train micro-batch (b = 1,
 // L = 2048, H = 80, P = 64, N = 128, G = 1, Q = 128) the function needs
-// ~21.7 GFLOP per call in the chunked form: per head and chunk the
-// recomputed state update and sum_i exp(cum_i) C_i^T dy_i (2.1 MFLOP
-// each), dy_i . x_j over the triangle (1.1), dx's two terms (1.1 and
-// 2.1), dC's and dB's (2.1 each, twice).  That is 0.022 ms at 989
-// TFLOP/s against ~66 MB moved (x, dy and dx 21 MB each; B, C, dB, dC,
-// dt, ddt): 0.020 ms at 3.35 TB/s, so operations and bytes are about
-// even.  zamba2-1.2b's (H = 64, N = 64) needs ~9.7 GFLOP on ~51 MB:
-// bytes, 0.015 ms.
+// ~21.7 GFLOP: 0.022 ms at 989 TFLOP/s, against ~66 MB of operands and
+// results, 0.020 ms at 3.35 TB/s; zamba2-1.2b's (H = 64, N = 64) ~9.7
+// GFLOP on ~51 MB: bytes, 0.015 ms.  The chunked form keeps the work
+// linear in L, at the price of a walk over the chunks' states (S_n
+// forward, dS' back) between two passes over the chunks, and the split
+// products double every product with an f32 operand: ~9,700 mma.sync a
+// head-chunk at N = 128 (states 2,048, chunk pass 7,680), ~12.4 M a call.
+// So the chunk pass runs at the rate of mma.sync (the state terms at ~0.33
+// mma a cycle an SM; the triangle's long rows run alone on their warp's
+// scheduler), and the states pass and the walk move the slabs, 84 MB of
+// them at that shape.  Measured on an H100 (tools/kernel_probes.py
+// --probes ssd_bwd): ~0.31 ms a call there, ~0.17 ms at zamba2-1.2b's.
 //
-// This first kernel is simple, not fast.  Its products run on the CUDA
-// cores in f32 (67 TFLOP/s at most: 0.32 ms for 21.7 GFLOP), and it
-// moves ~0.7 GB of f32 workspace beside its operands (each chunk's
-// states S_n and dS', and per-head dB and dC before the sum over a
-// group).  Four launches on the caller's stream, none with atomics, each
-// sum in a fixed order, so two calls give the same bits:
-//   states  per (chain, chunk): the chunk's own state update
-//           sum_j w_j B_j^T x_j and sum_i exp(cum_i) C_i^T dy_i, f32 (N, P)
-//           each, and the chunk decay exp(cum_Q), to the workspace.
-//   walk    per (chain, state element): S_n walking forward and dS'
-//           walking back, in place over the two.
-//   chunk   per (chain, chunk), one block an SM (~208 KB of shared
-//           memory at N = 128): x, dy, B and C staged in bf16; M, Z and K
-//           over the triangle in f32; then dC (S_n staged), dB and dx
-//           (dS' staged), each thread 4 rows by N / 32 or P / 32
-//           columns; then dcum's reverse cumsum in one warp.  dx and ddt
-//           are written final, dB and dC per head, dA and dD per chunk.
-//   reduce  dB and dC summed over each group's heads in head order,
-//           rounded once to bf16; dA and dD over (batch, chunk) in order.
+// Design.  Four launches on the caller's stream, no atomics, every sum in
+// a fixed order, so two calls give the same bits.  The states and chunk
+// passes run one block of eight warps per unit: a batch row, a chunk, and
+// a set of consecutive heads of one group (ssd_bwd_geometry in
+// kernels/ssd_scan.py picks the sets so that the busiest SM runs the
+// fewest head-chunks), so a unit loads its chunk's B and C once (TMA, the
+// 128-byte swizzle) for all its heads and streams each head's x and dy
+// (and state tiles) through a two-stage ring of TMA and bulk copies.
+//   states  per unit and head: the chunk's own state update (w o B)^T x
+//           and sum_i exp(cum_i) C_i^T dy_i on the tensor cores, f32 (N,
+//           P) each, staged in shared memory as f32 pairs at the places
+//           their bf16 high and low parts will take in the head's
+//           workspace slabs and written out in one bulk store that drains
+//           under the next head's products; and the chunk decay.
+//   walk    per (chain, 4 state elements): S_n walking forward and dS'
+//           walking back, each slab rewritten in place (a thread reads
+//           only the 16 bytes it then writes) as a bf16 high tile and a
+//           bf16 low tile of N rows by 128 bytes in the 128-byte swizzle,
+//           ready for a bulk copy and ldmatrix; <S_n, dS'> per warp, from
+//           the last 16 chunks' S_n kept in registers (the rest read back).
+//   chunk   per unit, the heads in order twice: first with S_n staged
+//           (phase I: dC, with the rows i of the triangle), then with dS'
+//           staged (phase J: dx and dB, with the rows j).  Warp w owns
+//           row tile t = 7 - w or w - 4 (the two warps of a scheduler
+//           hold t and 7 - t) and keeps dC (then dB) of its 16 rows in
+//           registers across the unit's heads, in head order.  C B^T and
+//           dy x^T tiles are exact products (phase J recomputes their
+//           transposes); scaled in registers to Z = dy x^T E dt, M^T and
+//           Z^T they go straight back as A operands in high and low
+//           parts; K's row sums (phase I) and column sums (phase J, the
+//           rows of the transpose) never leave registers.  Phase I
+//           leaves each row's sum_j K_ij dt_j + u_i in ddt; phase J's end
+//           finishes dcum, its reverse cumsum, ddt and the dA and dD
+//           parts in one warp.  A unit of a whole group writes dB and dC
+//           in bf16; otherwise f32 sums per head set go to the workspace.
+//   reduce  dB and dC over a group's head sets in order (where a group
+//           has more than one), rounded once to bf16; dA and dD over
+//           (batch, chunk) in order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int QM = 128;       // largest chunk
-constexpr int P = 64;         // head dim
-constexpr int NT = 256;       // threads a block
-constexpr int NW = NT / 32;
-constexpr int XS = P + 4;     // row stride of the x and dy tiles (elements):
-                              // 136 bytes, an odd count of 8-byte words, so
-                              // lanes on consecutive rows hit distinct banks
-constexpr int TRI = QM * (QM + 1) / 2;   // the triangle j <= i, packed
+using hopper::exp2_ftz;
+using hopper::ldsm_x4;
+using hopper::ldsm_x4_t;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_fence_init;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::mma16816;
+using hopper::pack_bf16x2;
+using hopper::smem_u32;
+using hopper::tma_load_4d;
 
-template <int N>
-struct Lay {                  // byte offsets of the chunk kernel's smem
-  static constexpr int BS = N + 4;       // row stride of B and C (elements)
-  static constexpr int SS = P + 4;       // row stride of a staged f32 state
-  static constexpr size_t x = 0;                          // bf16 [QM][XS]
-  static constexpr size_t dy = x + QM * XS * 2;           // bf16 [QM][XS]
-  static constexpr size_t b = dy + QM * XS * 2;           // bf16 [QM][BS]
-  static constexpr size_t c = b + QM * BS * 2;            // bf16 [QM][BS]
-  static constexpr size_t m = c + QM * BS * 2;            // f32 triangle
-  static constexpr size_t z = m + TRI * 4;                // f32 triangle
-  static constexpr size_t s = z + TRI * 4;                // f32 [N][SS] or K
-  static constexpr size_t sbytes = size_t(N * SS > TRI ? N * SS : TRI) * 4;
-  static constexpr size_t vec = s + sbytes;               // f32 [NV][QM]
-  static constexpr int NV = 9;
-  static constexpr size_t red = vec + NV * QM * 4;        // f32 [NW + 1]
-  static constexpr size_t bytes = red + (NW + 1) * 4;
-  // the states kernel: the four tiles, then its vectors
-  static constexpr size_t vec_a = m;
-  static constexpr size_t bytes_a = m + 4 * QM * 4;
+constexpr int QM = 128;        // largest chunk: rows staged per chunk
+constexpr int P = 64;          // head dim
+constexpr int NWARPS = 8;
+constexpr int NT = NWARPS * 32;
+constexpr int BOX = QM * 128;  // bytes of a 128-row box of 64 columns
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory of the states and chunk passes, byte offsets from a
+// 1024-byte aligned base: the unit's B and C (N / 64 boxes each), two
+// stages (x, dy and, in the chunk pass, a state's high and low tiles),
+// the states pass's slab image, each warp's cum, dt and w rows, phase J's
+// row vectors (two heads deep) and the mbarriers (two stages, B and C).
+template <int N, bool CHUNK>
+struct Lay {
+  static constexpr size_t b = 0;
+  static constexpr size_t c = b + size_t(N / 64) * BOX;
+  static constexpr size_t stage0 = c + size_t(N / 64) * BOX;
+  static constexpr size_t sx = 0, sdy = BOX, shi = 2 * BOX,
+                          slo = 2 * BOX + size_t(N) * 128;
+  static constexpr size_t stage = 2 * BOX + (CHUNK ? 2 * size_t(N) * 128 : 0);
+  // the states pass's image of a head's two slabs, copied out in bulk
+  static constexpr size_t stg = stage0 + 2 * stage;
+  static constexpr size_t cum = stg + (CHUNK ? 0 : 2 * size_t(N) * 256);
+  static constexpr size_t dt = cum + NWARPS * QM * 4;        // f32 [8][QM]
+  static constexpr size_t w = dt + NWARPS * QM * 4;          // f32 [8][QM]
+  static constexpr size_t jv = w + NWARPS * QM * 4;          // f32 [2][3][QM]
+  static constexpr size_t bar = jv + (CHUNK ? 2 * 3 * QM * 4 : 0);
+  static constexpr size_t bytes = bar + 32 + 1024;   // + alignment slack
+  static_assert(bytes <= 232448, "more shared memory than a block has");
 };
-// vectors, by index into the [NV][QM] block
-enum { V_DT, V_CUM, V_ECUM, V_W, V_ROWK, V_COLK, V_U, V_R, V_GD };
 
 struct Args {
-  const bf16* x;
   const float* dt;
   const float* A;
-  const bf16* B;
-  const bf16* C;
   const float* D;
-  const bf16* dy;
   bf16* dx;       // (b, L, H, P) contiguous
   float* ddt;     // (b, L, H) contiguous
   float* dA;      // (H,)
   bf16* dB;       // (b, L, G, N) contiguous
   bf16* dC;
   float* dD;      // (H,)
-  int batch, H, G, L, Q, nc;
-  long long sxb, sxl, sxh, sdb, sdl, sdh, sbb, sbl, sbg, scb, scl, scg,
-      syb, syl, syh;
-  // workspace: S_n and dS' (f32 [chains][nc][N][P] each), per-head dB and
-  // dC (f32 [b][L][H][N] each), per (chain, chunk) decay, dA and dD parts
-  float *ws_s, *ws_ds, *ws_db, *ws_dc, *ws_g, *ws_pa, *ws_pd;
+  int batch, H, G, L, Q, nc, K;   // K: head sets a group
+  long long sdb, sdl, sdh;        // dt's strides
+  // workspace: per (chain, chunk) two slabs (S_n, dS') of N * P words;
+  // dB and dC per head set (f32 [b][L][G][K][N] each, where K > 1); per
+  // (chain, chunk) the decay, the dA and dD parts and the walk's warps'
+  // parts of <S_n, dS'>
+  float *ws_st, *ws_db, *ws_dc, *ws_g, *ws_pa, *ws_pd, *ws_sd;
 };
 
-__device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
-
-// four bf16 at an 8-byte aligned shared address, as floats
-__device__ __forceinline__ float4 ld4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+// byte offset of element (r, col) of a tile of rows stored as boxes of 64
+// columns in the 128-byte swizzle, one box after another
+__device__ __forceinline__ uint32_t tile_off(int r, int col) {
+  return (col >> 6) * BOX + hopper::sw128_offset(r, col & 63);
 }
 
-__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// (v0, v1) as bf16x2 high parts and the bf16x2 of what they leave out
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16x2(v0 - hf.x, v1 - hf.y);
+}
+
+// the bf16x2 pair u times (w0, w1), split into high and low parts
+__device__ __forceinline__ void scale_split(uint32_t u, float w0, float w1,
+                                            uint32_t& hi, uint32_t& lo) {
+  const float2 v =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  split2(v.x * w0, v.y * w1, hi, lo);
+}
+
+__device__ __forceinline__ float2 ld_bf2(const unsigned char* tile, int r,
+                                         int col) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(tile + tile_off(r, col)));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -141,524 +187,912 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// eight bf16 from global memory (16 bytes, aligned) into a shared row,
-// zeros where the row is past the chunk; two 8-byte stores (shared rows
-// are 8-byte aligned)
-__device__ __forceinline__ void copy16(bf16* dst, const bf16* src,
-                                       bool valid) {
-  uint4 v = make_uint4(0, 0, 0, 0);
-  if (valid) v = __ldg(reinterpret_cast<const uint4*>(src));
-  uint2* d = reinterpret_cast<uint2*>(dst);
-  d[0] = make_uint2(v.x, v.y);
-  d[1] = make_uint2(v.z, v.w);
+// the sum over the four lanes of a quad (one accumulator row's owners)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Stage chunk n of chain (bi, h): x, dy, B and C rows into shared memory
-// (rows past Q zero), dt, the inclusive cumsum of dt * A, exp(cum) and the
-// state update's weights w.  Ends with __syncthreads().
+__device__ __forceinline__ void zero_bytes(unsigned char* p, int from,
+                                           int to) {
+  for (int i = from + 16 * threadIdx.x; i < to; i += 16 * NT)
+    *reinterpret_cast<uint4*>(p + i) = make_uint4(0, 0, 0, 0);
+}
+
+// The unit of block u: batch row, chunk, group and head set (head sets
+// fastest, so the blocks that share a chunk's B and C run together), and
+// its heads [h0, h1).
+struct Unit {
+  int bi, n, grp, k, h0, h1;
+};
+__device__ __forceinline__ Unit unit_of(const Args& a, int u) {
+  Unit r;
+  r.k = u % a.K;
+  u /= a.K;
+  r.grp = u % a.G;
+  u /= a.G;
+  r.n = u % a.nc;
+  r.bi = u / a.nc;
+  const int R = a.H / a.G;
+  r.h0 = r.grp * R + r.k * R / a.K;
+  r.h1 = r.grp * R + (r.k + 1) * R / a.K;
+  return r;
+}
+
+// Each warp scans dt * A over the chunk itself (4 rows a lane, then a warp
+// scan: a fixed order) into its own rows: cum, dt and w_j = exp(cum_Q -
+// cum_j) dt_j.  Returns cum_Q.
+__device__ __forceinline__ float warp_scan(const float (&d)[4], float Ah,
+                                           int Q, int lane, float* cw,
+                                           float* wdt, float* ww) {
+  float part[4], run = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    run += d[k] * Ah;
+    part[k] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    cw[4 * lane + k] = excl + part[k];
+    wdt[4 * lane + k] = d[k];
+  }
+  __syncwarp();
+  const float last = cw[Q - 1];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    ww[4 * lane + k] = expf(last - (excl + part[k])) * d[k];
+  __syncwarp();
+  return last;
+}
+
+// dt of head h, chunk n, rows 4 lane .. 4 lane + 3 (zero past Q)
+__device__ __forceinline__ void load_dt(const Args& a, int bi, int n, int h,
+                                        int lane, float (&d)[4]) {
+  const float* p = a.dt + bi * a.sdb + h * a.sdh;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int i = 4 * lane + j;
+    d[j] = i < a.Q ? __ldg(p + ((long long)n * a.Q + i) * a.sdl) : 0.f;
+  }
+}
+
+// the slab (f32 [N][P] before the walk, a high and a low bf16 tile after)
+// of chain ``chain``, chunk n: which 0 for S_n, 1 for dS'
 template <int N>
-__device__ void stage_chunk(const Args& a, int bi, int h, int n,
-                            unsigned char* smem, size_t vec_off) {
-  using L = Lay<N>;
-  constexpr int BS = L::BS;
-  bf16* xs = reinterpret_cast<bf16*>(smem + L::x);
-  bf16* dys = reinterpret_cast<bf16*>(smem + L::dy);
-  bf16* bs = reinterpret_cast<bf16*>(smem + L::b);
-  bf16* cs = reinterpret_cast<bf16*>(smem + L::c);
-  float* vec = reinterpret_cast<float*>(smem + vec_off);
-  const int Q = a.Q, tid = threadIdx.x;
-  const long long l0 = (long long)n * Q;
-  const int grp = h / (a.H / a.G);
-  for (int e = tid; e < QM * (P / 8); e += NT) {
-    const int j = e / (P / 8), k = (e % (P / 8)) * 8;
-    const long long l = l0 + j;
-    copy16(xs + j * XS + k, a.x + bi * a.sxb + l * a.sxl + h * a.sxh + k,
-           j < Q);
-    copy16(dys + j * XS + k, a.dy + bi * a.syb + l * a.syl + h * a.syh + k,
-           j < Q);
-  }
-  for (int e = tid; e < QM * (N / 8); e += NT) {
-    const int j = e / (N / 8), k = (e % (N / 8)) * 8;
-    const long long l = l0 + j;
-    copy16(bs + j * BS + k, a.B + bi * a.sbb + l * a.sbl + grp * a.sbg + k,
-           j < Q);
-    copy16(cs + j * BS + k, a.C + bi * a.scb + l * a.scl + grp * a.scg + k,
-           j < Q);
-  }
-  float* dtv = vec + V_DT * QM;
-  if (tid < QM)
-    dtv[tid] = tid < Q ? __ldg(a.dt + bi * a.sdb + (l0 + tid) * a.sdl +
-                               h * a.sdh)
-                       : 0.f;
-  __syncthreads();
-  if (tid < 32) {  // one warp: 4 rows a lane, then a warp scan
-    const int lane = tid;
-    const float Ah = __ldg(a.A + h);
-    float part[4], run = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      run += dtv[4 * lane + k] * Ah;
-      part[k] = run;
-    }
-    float incl = run;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += o;
-    }
-    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) excl = 0.f;
-    float* cum = vec + V_CUM * QM;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) cum[4 * lane + k] = excl + part[k];
-    __syncwarp();
-    const float last = cum[Q - 1];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int i = 4 * lane + k;
-      vec[V_ECUM * QM + i] = expf(cum[i]);
-      vec[V_W * QM + i] = expf(last - cum[i]) * dtv[i];
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ float* slab(const Args& a, size_t chain, int n,
+                                       int which) {
+  return a.ws_st + ((chain * a.nc + n) * 2 + which) * size_t(N * P);
+}
+
+// Byte offset in a slab of the f32 pair (s, p), (s, p + 1) (p even) before
+// the walk: the pairs of the 4-column group p & ~3 lie where that group's
+// high (p % 4 == 0) and low (p % 4 == 2) bf16 parts go after it.
+template <int N>
+__device__ __forceinline__ uint32_t pair_off(int s, int p) {
+  return (p & 2 ? N * 128 : 0) + hopper::sw128_offset(s, p & ~3);
 }
 
 // ---- launch 1: each chunk's own state update and dS contribution -------
 template <int N>
-__global__ void __launch_bounds__(NT) ssd_bwd_states(const Args a) {
-  using L = Lay<N>;
-  constexpr int BS = L::BS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
-  stage_chunk<N>(a, bi, h, n, smem, L::vec_a);
-  const bf16* xs = reinterpret_cast<const bf16*>(smem + L::x);
-  const bf16* dys = reinterpret_cast<const bf16*>(smem + L::dy);
-  const bf16* bs = reinterpret_cast<const bf16*>(smem + L::b);
-  const bf16* cs = reinterpret_cast<const bf16*>(smem + L::c);
-  const float* vec = reinterpret_cast<const float*>(smem + L::vec_a);
-  const float* ecum = vec + V_ECUM * QM;
-  const float* w = vec + V_W * QM;
-  const int Q = a.Q, tid = threadIdx.x;
-  const size_t chain = (size_t)bi * a.H + h;
-  float* gs = a.ws_s + (chain * a.nc + n) * N * P;
-  float* gd = a.ws_ds + (chain * a.nc + n) * N * P;
-  // 4 x 4 tiles of (N, P): 16 column groups a row group
-  for (int t = tid; t < (N / 4) * (P / 4); t += NT) {
-    const int s0 = (t / (P / 4)) * 4, p0 = (t % (P / 4)) * 4;
-    float as[4][4] = {}, ad[4][4] = {};
-    for (int j = 0; j < Q; ++j) {
-      const float4 bv = ld4(bs + j * BS + s0), xv = ld4(xs + j * XS + p0);
-      const float4 cv = ld4(cs + j * BS + s0), dv = ld4(dys + j * XS + p0);
-      const float wj = w[j], ej = ecum[j];
-      const float bw[4] = {bv.x * wj, bv.y * wj, bv.z * wj, bv.w * wj};
-      const float ce[4] = {cv.x * ej, cv.y * ej, cv.z * ej, cv.w * ej};
-      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float da[4] = {dv.x, dv.y, dv.z, dv.w};
+__global__ void __launch_bounds__(NT, 1)
+ssd_bwd_states(const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tdy,
+               const __grid_constant__ CUtensorMap tb,
+               const __grid_constant__ CUtensorMap tc, const Args a) {
+  using S = Lay<N, false>;
+  constexpr int NP8 = N == 128 ? 8 : 4;   // n8 tiles of P a warp holds
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = hopper::smem_aligned_1024(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t4 = lane & 3, g = lane >> 2;
+  const Unit un = unit_of(a, blockIdx.x);
+  const int Q = a.Q, nt = (Q + 15) / 16, nh = un.h1 - un.h0;
+  const int l0 = un.n * Q;
+  float* cw = reinterpret_cast<float*>(smem + S::cum) + warp * QM;
+  float* wdt = reinterpret_cast<float*>(smem + S::dt) + warp * QM;
+  float* ww = reinterpret_cast<float*>(smem + S::w) + warp * QM;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + S::bar);
+  const uint32_t sb = smem_u32(smem + S::b), sc = smem_u32(smem + S::c);
+
+  // rows past Q are never loaded (a box is Q rows): zero them once
+  for (int k = 0; k < 2 * N / 64; ++k)
+    zero_bytes(smem + k * BOX, Q * 128, BOX);
+  for (int st = 0; st < 2; ++st)
+    for (int k = 0; k < 2; ++k)
+      zero_bytes(smem + S::stage0 + st * S::stage + k * BOX, Q * 128, BOX);
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_init(&bar[2], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto load = [&](int h, int st) {
+    unsigned char* base = smem + S::stage0 + st * S::stage;
+    mbar_arrive_expect_tx(&bar[st], 2 * Q * 128);
+    tma_load_4d(base + S::sx, &tx, &bar[st], 0, h, l0, un.bi);
+    tma_load_4d(base + S::sdy, &tdy, &bar[st], 0, h, l0, un.bi);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar[2], 2 * (N / 64) * Q * 128);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          as[r][q] = fmaf(bw[r], xa[q], as[r][q]);
-          ad[r][q] = fmaf(ce[r], da[q], ad[r][q]);
-        }
+    for (int j = 0; j < N / 64; ++j) {
+      tma_load_4d(smem + S::b + j * BOX, &tb, &bar[2], 64 * j, un.grp, l0,
+                  un.bi);
+      tma_load_4d(smem + S::c + j * BOX, &tc, &bar[2], 64 * j, un.grp, l0,
+                  un.bi);
     }
+    load(un.h0, 0);
+  }
+  float dnext[4];
+  load_dt(a, un.bi, un.n, un.h0, lane, dnext);
+  float a_next = __ldg(a.A + un.h0);
+  mbar_wait(&bar[2], 0);
+
+  // warp w: rows 16 mt of the state, columns c0 .. c0 + 8 NP8 - 1
+  const int mt = N == 128 ? warp : (warp & 3);
+  const int c0 = N == 128 ? 0 : (warp >> 2) * 32;
+  for (int it = 0; it < nh; ++it) {
+    const int h = un.h0 + it, st = it & 1;
+    float dcur[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      *reinterpret_cast<float4*>(gs + (s0 + r) * P + p0) =
-          make_float4(as[r][0], as[r][1], as[r][2], as[r][3]);
-      *reinterpret_cast<float4*>(gd + (s0 + r) * P + p0) =
-          make_float4(ad[r][0], ad[r][1], ad[r][2], ad[r][3]);
+    for (int j = 0; j < 4; ++j) dcur[j] = dnext[j];
+    const float Ah = a_next;
+    if (it + 1 < nh) {
+      if (tid == 0) load(h + 1, st ^ 1);
+      load_dt(a, un.bi, un.n, h + 1, lane, dnext);
+      a_next = __ldg(a.A + h + 1);
+    }
+    const float last = warp_scan(dcur, Ah, Q, lane, cw, wdt, ww);
+    unsigned char* base = smem + S::stage0 + st * S::stage;
+    const uint32_t sx = smem_u32(base + S::sx), sdy = smem_u32(base + S::sdy);
+    mbar_wait(&bar[st], (it >> 1) & 1);
+
+    float as[NP8][4], ad[NP8][4];
+#pragma unroll
+    for (int n8 = 0; n8 < NP8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) as[n8][e] = ad[n8][e] = 0.f;
+    for (int kk = 0; kk < nt; ++kk) {
+      const int j = kk * 16 + 2 * t4;
+      const float w0 = ww[j], w1 = ww[j + 1], w2 = ww[j + 8], w3 = ww[j + 9];
+      const float e0 = expf(cw[j]), e1 = expf(cw[j + 1]),
+                  e2 = expf(cw[j + 8]), e3 = expf(cw[j + 9]);
+      // A: (w o B)^T and (exp(cum) o C)^T, rows s, k = j, high and low
+      const uint32_t aoff = tile_off(kk * 16 + (lane & 7) + (lane >> 4) * 8,
+                                     mt * 16 + ((lane >> 3) & 1) * 8);
+      uint32_t f[4], bh[4], bl[4], ch[4], cl[4];
+      ldsm_x4_t(sb + aoff, f);
+      scale_split(f[0], w0, w1, bh[0], bl[0]);
+      scale_split(f[1], w0, w1, bh[1], bl[1]);
+      scale_split(f[2], w2, w3, bh[2], bl[2]);
+      scale_split(f[3], w2, w3, bh[3], bl[3]);
+      ldsm_x4_t(sc + aoff, f);
+      scale_split(f[0], e0, e1, ch[0], cl[0]);
+      scale_split(f[1], e0, e1, ch[1], cl[1]);
+      scale_split(f[2], e2, e3, ch[2], cl[2]);
+      scale_split(f[3], e2, e3, ch[3], cl[3]);
+#pragma unroll
+      for (int np = 0; np < NP8 / 2; ++np) {
+        const uint32_t boff =
+            tile_off(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                     c0 + np * 16 + (lane >> 4) * 8);
+        uint32_t xf[4], yf[4];
+        ldsm_x4_t(sx + boff, xf);
+        ldsm_x4_t(sdy + boff, yf);
+        mma16816(as[2 * np], bh, xf[0], xf[1]);
+        mma16816(as[2 * np + 1], bh, xf[2], xf[3]);
+        mma16816(ad[2 * np], ch, yf[0], yf[1]);
+        mma16816(ad[2 * np + 1], ch, yf[2], yf[3]);
+        mma16816(as[2 * np], bl, xf[0], xf[1]);
+        mma16816(as[2 * np + 1], bl, xf[2], xf[3]);
+        mma16816(ad[2 * np], cl, yf[0], yf[1]);
+        mma16816(ad[2 * np + 1], cl, yf[2], yf[3]);
+      }
+    }
+    // f32 pairs into the image of the head's two slabs (S's, then dS's),
+    // where the walk reads them; then the image out in one bulk store,
+    // which drains under the next head's products (the pairs stored alone
+    // would leave every sector half written)
+    const size_t chain = (size_t)un.bi * a.H + h;
+    if (tid == 0) hopper::tma_store_wait_read();   // the last head's image
+    __syncthreads();
+    unsigned char* gs = smem + S::stg;
+    unsigned char* gd = gs + N * 256;
+#pragma unroll
+    for (int n8 = 0; n8 < NP8; ++n8) {
+      const int p = c0 + n8 * 8 + 2 * t4, s = mt * 16 + g;
+      *reinterpret_cast<float2*>(gs + pair_off<N>(s, p)) =
+          make_float2(as[n8][0], as[n8][1]);
+      *reinterpret_cast<float2*>(gs + pair_off<N>(s + 8, p)) =
+          make_float2(as[n8][2], as[n8][3]);
+      *reinterpret_cast<float2*>(gd + pair_off<N>(s, p)) =
+          make_float2(ad[n8][0], ad[n8][1]);
+      *reinterpret_cast<float2*>(gd + pair_off<N>(s + 8, p)) =
+          make_float2(ad[n8][2], ad[n8][3]);
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();   // every warp is done with the stage; the image whole
+    if (tid == 0) {
+      hopper::bulk_store(slab<N>(a, chain, un.n, 0), gs, N * 512);
+      hopper::tma_store_commit();
+      a.ws_g[chain * a.nc + un.n] = expf(last);
     }
   }
-  if (tid == 0) a.ws_g[chain * a.nc + n] = expf(vec[V_CUM * QM + Q - 1]);
+  if (tid == 0) hopper::tma_store_wait_all();
 }
 
-// ---- launch 2: S_n walking forward, dS' walking back, per element -------
-// Four elements a thread (float4) and four chunks' loads issued before
-// their updates, so a thread keeps 256 bytes in flight where a plain
-// walk waited on each load in turn.
+// ---- launch 2: S_n walking forward, dS' walking back, in place ----------
+// A thread holds 4 state elements (row s, columns p .. p + 3).  The last
+// KEEP chunks' S_n stay in registers for <S_n, dS'> on the way back (all
+// of them where a chain has at most KEEP chunks, as at L = 2048, Q =
+// 128), whose loads are all issued before their updates; earlier chunks
+// go four at a time and read S_n's parts back.
 constexpr int WALK_UNROLL = 4;
+constexpr int KEEP = 16;
 
 __device__ __forceinline__ float4 fma4(float g, float4 s, float4 t) {
   return make_float4(fmaf(g, s.x, t.x), fmaf(g, s.y, t.y), fmaf(g, s.z, t.z),
                      fmaf(g, s.w, t.w));
 }
 
-__global__ void __launch_bounds__(NT)
-ssd_bwd_walk(float* __restrict__ ws_s, float* __restrict__ ws_ds,
-             const float* __restrict__ ws_g, int nc, int npe4) {
-  const int e = blockIdx.x * NT + threadIdx.x;   // a float4 of the state
-  if (e >= npe4) return;
-  const size_t chain = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  float4* ps = reinterpret_cast<float4*>(ws_s) + chain * nc * npe4 + e;
-  float4* pd = reinterpret_cast<float4*>(ws_ds) + chain * nc * npe4 + e;
-  const float* g = ws_g + chain * nc;
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
+}
+
+// the f32 group the states pass left at (hi, lo), and the bf16 parts of v
+// written over it
+__device__ __forceinline__ float4 ld_group(const unsigned char* hi,
+                                           const unsigned char* lo) {
+  const float2 a = *reinterpret_cast<const float2*>(hi);
+  const float2 b = *reinterpret_cast<const float2*>(lo);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void st_parts(unsigned char* hi, unsigned char* lo,
+                                         float4 v) {
+  uint32_t h0, l0, h1, l1;
+  split2(v.x, v.y, h0, l0);
+  split2(v.z, v.w, h1, l1);
+  *reinterpret_cast<uint2*>(hi) = make_uint2(h0, h1);
+  *reinterpret_cast<uint2*>(lo) = make_uint2(l0, l1);
+}
+// the value the parts at (hi, lo) stand for
+__device__ __forceinline__ float4 ld_parts(const unsigned char* hi,
+                                           const unsigned char* lo) {
+  const uint2 h = *reinterpret_cast<const uint2*>(hi);
+  const uint2 l = *reinterpret_cast<const uint2*>(lo);
+  const float2 h0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&h.x));
+  const float2 h1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&h.y));
+  const float2 l0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&l.x));
+  const float2 l1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&l.y));
+  return make_float4(h0.x + l0.x, h0.y + l0.y, h1.x + l1.x, h1.y + l1.y);
+}
+
+template <int N>
+__global__ void __launch_bounds__(NT) ssd_bwd_walk(const Args a) {
+  constexpr int NPART = N * P / 128;     // warps a chain
+  const int e = blockIdx.x * NT + threadIdx.x;   // a group of 4 elements
+  const int s = e / (P / 4), p = (e % (P / 4)) * 4;
+  const uint32_t hoff = hopper::sw128_offset(s, p), loff = N * 128 + hoff;
+  const size_t chain = blockIdx.y;
+  const int nc = a.nc, n0 = nc - KEEP;   // chunks n0 + k, k < KEEP, kept
+  const float* g = a.ws_g + chain * nc;
+  auto at = [&](int n, int which) {
+    return reinterpret_cast<unsigned char*>(slab<N>(a, chain, n, which));
+  };
+  const int warp_part = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  // <S_n, dS'> of chunk n, a warp's part
+  auto sdot = [&](int n, float4 sn, float4 ds) {
+    const float v = warp_sum(dot4(sn, ds));
+    if ((threadIdx.x & 31) == 0)
+      a.ws_sd[(chain * nc + n) * NPART + warp_part] = v;
+  };
   float4 S = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int n0 = 0; n0 < nc; n0 += WALK_UNROLL) {   // slot n: own -> S_n
+  for (int m = 0; m < n0; m += WALK_UNROLL) {   // own -> S_n
     float4 t[WALK_UNROLL];
     float gn[WALK_UNROLL];
 #pragma unroll
     for (int k = 0; k < WALK_UNROLL; ++k)
-      if (n0 + k < nc) {
-        t[k] = ps[(size_t)(n0 + k) * npe4];
-        gn[k] = g[n0 + k];
+      if (m + k < n0) {
+        unsigned char* b = at(m + k, 0);
+        t[k] = ld_group(b + hoff, b + loff);
+        gn[k] = g[m + k];
       }
 #pragma unroll
     for (int k = 0; k < WALK_UNROLL; ++k)
-      if (n0 + k < nc) {
-        ps[(size_t)(n0 + k) * npe4] = S;
+      if (m + k < n0) {
+        unsigned char* b = at(m + k, 0);
+        st_parts(b + hoff, b + loff, S);
         S = fma4(gn[k], S, t[k]);
       }
   }
+  float4 sn[KEEP], t[KEEP];
+  float gn[KEEP];
+#pragma unroll
+  for (int k = 0; k < KEEP; ++k)
+    if (n0 + k >= 0) {
+      unsigned char* b = at(n0 + k, 0);
+      t[k] = ld_group(b + hoff, b + loff);
+      gn[k] = g[n0 + k];
+    }
+#pragma unroll
+  for (int k = 0; k < KEEP; ++k)
+    if (n0 + k >= 0) {
+      unsigned char* b = at(n0 + k, 0);
+      st_parts(b + hoff, b + loff, S);
+      sn[k] = S;
+      S = fma4(gn[k], S, t[k]);
+    }
+  // own -> dS', walking back: the kept chunks, then the rest
+#pragma unroll
+  for (int k = 0; k < KEEP; ++k)
+    if (n0 + k >= 0) {
+      unsigned char* b = at(n0 + k, 1);
+      t[k] = ld_group(b + hoff, b + loff);
+    }
   float4 dS = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int n0 = nc - 1; n0 >= 0; n0 -= WALK_UNROLL) {   // own -> dS'
-    float4 t[WALK_UNROLL];
-    float gn[WALK_UNROLL];
+#pragma unroll
+  for (int k = KEEP - 1; k >= 0; --k)
+    if (n0 + k >= 0) {
+      unsigned char* b = at(n0 + k, 1);
+      st_parts(b + hoff, b + loff, dS);
+      sdot(n0 + k, sn[k], dS);
+      dS = fma4(gn[k], dS, t[k]);
+    }
+  for (int m = n0 - 1; m >= 0; m -= WALK_UNROLL) {
+    float4 u[WALK_UNROLL], su[WALK_UNROLL];
+    float gu[WALK_UNROLL];
 #pragma unroll
     for (int k = 0; k < WALK_UNROLL; ++k)
-      if (n0 - k >= 0) {
-        t[k] = pd[(size_t)(n0 - k) * npe4];
-        gn[k] = g[n0 - k];
+      if (m - k >= 0) {
+        unsigned char* b = at(m - k, 1);
+        unsigned char* bs = at(m - k, 0);
+        u[k] = ld_group(b + hoff, b + loff);
+        su[k] = ld_parts(bs + hoff, bs + loff);
+        gu[k] = g[m - k];
       }
 #pragma unroll
     for (int k = 0; k < WALK_UNROLL; ++k)
-      if (n0 - k >= 0) {
-        pd[(size_t)(n0 - k) * npe4] = dS;
-        dS = fma4(gn[k], dS, t[k]);
+      if (m - k >= 0) {
+        unsigned char* b = at(m - k, 1);
+        st_parts(b + hoff, b + loff, dS);
+        sdot(m - k, su[k], dS);
+        dS = fma4(gu[k], dS, u[k]);
       }
   }
 }
 
-// the k-th row group (4 rows) warp `warp` takes of `ngroups`: forward and
-// back in turns, so every warp's rows of the triangle come to about the
-// same work
-__device__ __forceinline__ int row_group(int k, int warp) {
-  return (k & 1) ? k * NW + NW - 1 - warp : k * NW + warp;
+// dB or dC of row tile t (the unit's sum over its heads) to the output,
+// rounded once, where the unit holds its whole group; else to its head
+// set's f32 rows of the workspace
+template <int N>
+__device__ __forceinline__ void write_rows(const Args& a, const Unit& un,
+                                           int t, int nt,
+                                           const float (&acc)[N / 8][4],
+                                           bf16* out, float* ws) {
+  if (t >= nt) return;
+  const int lane = threadIdx.x & 31, t4 = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = t * 16 + (lane >> 2) + 8 * half;
+    if (r >= a.Q) continue;
+    const size_t row = ((size_t)un.bi * a.L + (size_t)un.n * a.Q + r) * a.G +
+                       un.grp;
+#pragma unroll
+    for (int n8 = 0; n8 < N / 8; ++n8) {
+      const int s = n8 * 8 + 2 * t4;
+      const float v0 = acc[n8][2 * half], v1 = acc[n8][2 * half + 1];
+      if (a.K == 1)
+        *reinterpret_cast<__nv_bfloat162*>(out + row * N + s) =
+            __floats2bfloat162_rn(v0, v1);
+      else
+        *reinterpret_cast<float2*>(ws + (row * a.K + un.k) * N + s) =
+            make_float2(v0, v1);
+    }
+  }
 }
 
-// ---- launch 3: a chunk's gradients ---------------------------------------
+// ---- launch 3: a unit's gradients ----------------------------------------
 template <int N>
-__global__ void __launch_bounds__(NT, 1) ssd_bwd_chunk(const Args a) {
-  using L = Lay<N>;
-  constexpr int BS = L::BS, SS = L::SS, NS = N / 32, PS = P / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
-  stage_chunk<N>(a, bi, h, n, smem, L::vec);
-  const bf16* xs = reinterpret_cast<const bf16*>(smem + L::x);
-  const bf16* dys = reinterpret_cast<const bf16*>(smem + L::dy);
-  const bf16* bs = reinterpret_cast<const bf16*>(smem + L::b);
-  const bf16* cs = reinterpret_cast<const bf16*>(smem + L::c);
-  float* mt = reinterpret_cast<float*>(smem + L::m);
-  float* zt = reinterpret_cast<float*>(smem + L::z);
-  float* sb = reinterpret_cast<float*>(smem + L::s);
-  float* kt = sb;   // K's triangle, until the states are staged
-  float* vec = reinterpret_cast<float*>(smem + L::vec);
-  float* red = reinterpret_cast<float*>(smem + L::red);
-  const float* dtv = vec + V_DT * QM;
-  const float* cum = vec + V_CUM * QM;
-  const float* ecum = vec + V_ECUM * QM;
-  const float* w = vec + V_W * QM;
-  float* rowk = vec + V_ROWK * QM;
-  float* colk = vec + V_COLK * QM;
-  float* uv = vec + V_U * QM;
-  float* rv = vec + V_R * QM;
-  float* gd = vec + V_GD * QM;
-  const int Q = a.Q, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ngroups = (Q + 3) / 4;
-  const float last = cum[Q - 1];
-  const size_t chain = (size_t)bi * a.H + h;
-  const float* gS = a.ws_s + (chain * a.nc + n) * N * P;
-  const float* gdS = a.ws_ds + (chain * a.nc + n) * N * P;
-  const long long l0 = (long long)n * Q;
+__global__ void __launch_bounds__(NT, 1)
+ssd_bwd_chunk(const __grid_constant__ CUtensorMap tx,
+              const __grid_constant__ CUtensorMap tdy,
+              const __grid_constant__ CUtensorMap tb,
+              const __grid_constant__ CUtensorMap tc, const Args a) {
+  using S = Lay<N, true>;
+  constexpr int MT = N / 16;    // k16 steps over N
+  constexpr int NPART = N * P / 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = hopper::smem_aligned_1024(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t4 = lane & 3, g = lane >> 2;
+  const Unit un = unit_of(a, blockIdx.x);
+  const int Q = a.Q, nt = (Q + 15) / 16, nh = un.h1 - un.h0;
+  const int l0 = un.n * Q;
+  float* cw = reinterpret_cast<float*>(smem + S::cum) + warp * QM;
+  float* wdt = reinterpret_cast<float*>(smem + S::dt) + warp * QM;
+  float* ww = reinterpret_cast<float*>(smem + S::w) + warp * QM;
+  float* jv = reinterpret_cast<float*>(smem + S::jv);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + S::bar);
+  const unsigned char* bsm = smem + S::b;
+  const unsigned char* csm = smem + S::c;
+  const uint32_t sb = smem_u32(bsm), sc = smem_u32(csm);
 
-  // ---- C_i . B_j and dy_i . x_j over the triangle: M, Z, K ---------------
-  // a warp's 4 rows against 32 columns a lane each, block by block
-  for (int k = 0; k * NW < ngroups; ++k) {
-    const int ig = row_group(k, warp);
-    if (ig >= ngroups) continue;
-    const int i0 = 4 * ig, imax = min(i0 + 3, Q - 1);
-    for (int jb = 0; jb * 32 <= imax; ++jb) {
-      const int j = jb * 32 + lane;
-      if (j > imax) continue;
-      float cb[4] = {}, gm[4] = {};
-      for (int s = 0; s < N; s += 4) {
-        const float4 bv = ld4(bs + j * BS + s);
+  for (int k = 0; k < 2 * N / 64; ++k)
+    zero_bytes(smem + k * BOX, Q * 128, BOX);
+  for (int st = 0; st < 2; ++st)
+    for (int k = 0; k < 2; ++k)
+      zero_bytes(smem + S::stage0 + st * S::stage + k * BOX, Q * 128, BOX);
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_init(&bar[2], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // task it < nh: phase I of head h0 + it; else phase J of head h0 + it - nh
+  auto load = [&](int it, int st) {
+    const int J = it >= nh, h = un.h0 + (J ? it - nh : it);
+    unsigned char* base = smem + S::stage0 + st * S::stage;
+    mbar_arrive_expect_tx(&bar[st], 2 * Q * 128 + 2 * N * 128);
+    tma_load_4d(base + S::sx, &tx, &bar[st], 0, h, l0, un.bi);
+    tma_load_4d(base + S::sdy, &tdy, &bar[st], 0, h, l0, un.bi);
+    const float* sl = slab<N>(a, (size_t)un.bi * a.H + h, un.n, J);
+    hopper::bulk_load(base + S::shi, sl, N * 128, &bar[st]);
+    hopper::bulk_load(base + S::slo, sl + N * 32, N * 128, &bar[st]);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar[2], 2 * (N / 64) * Q * 128);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          cb[r] = dot4(cb[r], ld4(cs + (i0 + r) * BS + s), bv);
-      }
-      for (int p = 0; p < P; p += 4) {
-        const float4 xv = ld4(xs + j * XS + p);
+    for (int j = 0; j < N / 64; ++j) {
+      tma_load_4d(smem + S::b + j * BOX, &tb, &bar[2], 64 * j, un.grp, l0,
+                  un.bi);
+      tma_load_4d(smem + S::c + j * BOX, &tc, &bar[2], 64 * j, un.grp, l0,
+                  un.bi);
+    }
+    load(0, 0);
+  }
+  float dnext[4];
+  load_dt(a, un.bi, un.n, un.h0, lane, dnext);
+  float a_next = __ldg(a.A + un.h0), d_next = __ldg(a.D + un.h0);
+  mbar_wait(&bar[2], 0);
+
+  // this warp's row tile (i in phase I, j in phase J) and its rows
+  const int t = warp < 4 ? 7 - warp : warp - 4;
+  const int r0 = t * 16, ra = r0 + g, rb = ra + 8;
+  // dC (phase I), then dB (phase J), of rows r0 .. r0 + 15: summed over
+  // the unit's heads in head order
+  float acc[N / 8][4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          gm[r] = dot4(gm[r], ld4(dys + (i0 + r) * XS + p), xv);
-      }
+  for (int n8 = 0; n8 < N / 8; ++n8)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + r;
-        if (i < Q && j <= i) {
-          const float e = expf(cum[i] - cum[j]), dj = dtv[j];
-          const int t = tri(i) + j;
-          mt[t] = cb[r] * e * dj;
-          zt[t] = gm[r] * e * dj;
-          kt[t] = gm[r] * cb[r] * e;
-          if (j == i) gd[i] = gm[r];
+    for (int e = 0; e < 4; ++e) acc[n8][e] = 0.f;
+  for (int it = 0; it < 2 * nh; ++it) {
+    const bool J = it >= nh;
+    const int h = un.h0 + (J ? it - nh : it), st = it & 1;
+    float dcur[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dcur[j] = dnext[j];
+    const float Ah = a_next, Dh = d_next;
+    if (it + 1 < 2 * nh) {   // request the next task's tiles and dt
+      const int hn = un.h0 + (it + 1 >= nh ? it + 1 - nh : it + 1);
+      if (tid == 0) load(it + 1, st ^ 1);
+      load_dt(a, un.bi, un.n, hn, lane, dnext);
+      a_next = __ldg(a.A + hn);
+      d_next = __ldg(a.D + hn);
+    }
+    const float last = warp_scan(dcur, Ah, Q, lane, cw, wdt, ww);
+    unsigned char* base = smem + S::stage0 + st * S::stage;
+    const uint32_t sx = smem_u32(base + S::sx), sdy = smem_u32(base + S::sdy),
+                   shi = smem_u32(base + S::shi), slo = smem_u32(base + S::slo);
+    const size_t chain = (size_t)un.bi * a.H + h;
+    float* od = a.ddt + ((size_t)un.bi * a.L + l0) * a.H + h;
+    // what the end of phase J reads from global memory (phase I's row
+    // sums, the walk's parts of <S_n, dS'>), requested before the work
+    float stash[4] = {0.f, 0.f, 0.f, 0.f}, sd = 0.f;
+    if (J && warp == 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        stash[k] = 4 * lane + k < Q ? od[(size_t)(4 * lane + k) * a.H] : 0.f;
+      for (int k = lane; k < NPART; k += 32)
+        sd += a.ws_sd[(chain * a.nc + un.n) * NPART + k];
+    }
+    mbar_wait(&bar[st], (it >> 1) & 1);
+
+    if (!J && t < nt) {
+      // ---- phase I: dC += exp(cum_i) dy_i S_n^T + sum_{j<=i} Z_ij B_j ----
+      // dy's fragments of these rows stay in registers; C's (k = s) are
+      // loaded where they are used
+      uint32_t df[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldsm_x4(sdy + tile_off(r0 + (lane & 15), kk * 16 + (lane >> 4) * 8),
+                df[kk]);
+      const float ci0 = cw[ra], ci1 = cw[rb];
+      const float e0 = expf(ci0), e1 = expf(ci1);
+      // the inter term in 32 columns of N at a time, and u_i = sum_s C_is
+      // (its value before exp(cum_i))
+      float u0 = 0.f, u1 = 0.f;
+#pragma unroll
+      for (int c32 = 0; c32 < N / 32; ++c32) {
+        float tmp[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tmp[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            const uint32_t off =
+                tile_off(c32 * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8,
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+            uint32_t bh[4], bl[4];
+            ldsm_x4(shi + off, bh);
+            ldsm_x4(slo + off, bl);
+            mma16816(tmp[2 * np], df[kk], bh[0], bh[1]);
+            mma16816(tmp[2 * np + 1], df[kk], bh[2], bh[3]);
+            mma16816(tmp[2 * np], df[kk], bl[0], bl[1]);
+            mma16816(tmp[2 * np + 1], df[kk], bl[2], bl[3]);
+          }
+        }
+#pragma unroll
+        for (int n8 = 0; n8 < 4; ++n8) {
+          const int s = c32 * 32 + n8 * 8 + 2 * t4;
+          const float2 ca = ld_bf2(csm, ra, s), cb = ld_bf2(csm, rb, s);
+          u0 = fmaf(ca.x, tmp[n8][0], fmaf(ca.y, tmp[n8][1], u0));
+          u1 = fmaf(cb.x, tmp[n8][2], fmaf(cb.y, tmp[n8][3], u1));
+          float* o = acc[c32 * 4 + n8];
+          o[0] = fmaf(e0, tmp[n8][0], o[0]);
+          o[1] = fmaf(e0, tmp[n8][1], o[1]);
+          o[2] = fmaf(e1, tmp[n8][2], o[2]);
+          o[3] = fmaf(e1, tmp[n8][3], o[3]);
         }
       }
+      // the triangle's tiles j <= i
+      float rk0 = 0.f, rk1 = 0.f;   // sum_j K_ij dt_j
+      for (int jt = 0; jt <= t; ++jt) {
+        float cbt[2][4], gmt[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cbt[n][e] = gmt[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MT; ++kk) {   // C_i . B_j
+          uint32_t cf[4], bf[4];
+          ldsm_x4(sc + tile_off(r0 + (lane & 15), kk * 16 + (lane >> 4) * 8),
+                  cf);
+          ldsm_x4(sb + tile_off(jt * 16 + (lane & 7) + (lane >> 4) * 8,
+                                kk * 16 + ((lane >> 3) & 1) * 8),
+                  bf);
+          mma16816(cbt[0], cf, bf[0], bf[1]);
+          mma16816(cbt[1], cf, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {    // dy_i . x_j
+          uint32_t xf[4];
+          ldsm_x4(sx + tile_off(jt * 16 + (lane & 7) + (lane >> 4) * 8,
+                                kk * 16 + ((lane >> 3) & 1) * 8),
+                  xf);
+          mma16816(gmt[0], df[kk], xf[0], xf[1]);
+          mma16816(gmt[1], df[kk], xf[2], xf[3]);
+        }
+        uint32_t zh[4], zl[4];
+#pragma unroll
+        for (int n8 = 0; n8 < 2; ++n8) {
+          const int j = jt * 16 + n8 * 8 + 2 * t4;
+          const float cj0 = cw[j], cj1 = cw[j + 1];
+          const float d0 = wdt[j], d1 = wdt[j + 1];
+          const float* cb = cbt[n8];
+          const float E00 = j <= ra ? exp2_ftz((ci0 - cj0) * LOG2E) : 0.f;
+          const float E01 = j + 1 <= ra ? exp2_ftz((ci0 - cj1) * LOG2E) : 0.f;
+          const float E10 = j <= rb ? exp2_ftz((ci1 - cj0) * LOG2E) : 0.f;
+          const float E11 = j + 1 <= rb ? exp2_ftz((ci1 - cj1) * LOG2E) : 0.f;
+          const float* q = gmt[n8];
+          const float k00 = q[0] * cb[0] * E00, k01 = q[1] * cb[1] * E01,
+                      k10 = q[2] * cb[2] * E10, k11 = q[3] * cb[3] * E11;
+          rk0 = fmaf(k00, d0, fmaf(k01, d1, rk0));
+          rk1 = fmaf(k10, d0, fmaf(k11, d1, rk1));
+          split2(q[0] * E00 * d0, q[1] * E01 * d1, zh[2 * n8], zl[2 * n8]);
+          split2(q[2] * E10 * d0, q[3] * E11 * d1, zh[2 * n8 + 1],
+                 zl[2 * n8 + 1]);
+        }
+#pragma unroll
+        for (int np = 0; np < N / 16; ++np) {   // dC += Z B
+          uint32_t bb[4];
+          ldsm_x4_t(sb + tile_off(jt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                  np * 16 + (lane >> 4) * 8),
+                    bb);
+          mma16816(acc[2 * np], zh, bb[0], bb[1]);
+          mma16816(acc[2 * np + 1], zh, bb[2], bb[3]);
+          mma16816(acc[2 * np], zl, bb[0], bb[1]);
+          mma16816(acc[2 * np + 1], zl, bb[2], bb[3]);
+        }
+      }
+      rk0 = quad_sum(rk0);
+      rk1 = quad_sum(rk1);
+      u0 = quad_sum(u0);
+      u1 = quad_sum(u1);
+      // sum_j K_ij dt_j + u_i, kept in ddt until phase J of this head
+      if (t4 == 0) {
+        if (ra < Q) od[(size_t)ra * a.H] = fmaf(e0, u0, rk0);
+        if (rb < Q) od[(size_t)rb * a.H] = fmaf(e1, u1, rk1);
+      }
+    } else if (J && t < nt) {
+      // ---- phase J: dx and dB of rows j ----------------------------------
+      // the A fragments of these rows, B's (k = s) and x's (k = p), are
+      // loaded where they are used: dB and dx stay in registers
+      auto b_frag = [&](int kk, uint32_t(&f)[4]) {
+        ldsm_x4(sb + tile_off(r0 + (lane & 15), kk * 16 + (lane >> 4) * 8), f);
+      };
+      auto x_frag = [&](int kk, uint32_t(&f)[4]) {
+        ldsm_x4(sx + tile_off(r0 + (lane & 15), kk * 16 + (lane >> 4) * 8), f);
+      };
+      const float cja = cw[ra], cjb = cw[rb];
+      const float wa = ww[ra], wb = ww[rb], dta = wdt[ra], dtb = wdt[rb];
+      // dB += w_j x_j dS'^T, 32 columns of N at a time, and r_j's sum
+      // sum_s B_js (x_j dS'^T)_s
+      float rp0 = 0.f, rp1 = 0.f;
+#pragma unroll
+      for (int c32 = 0; c32 < N / 32; ++c32) {
+        float tmp[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tmp[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t xf[4];
+          x_frag(kk, xf);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            const uint32_t off =
+                tile_off(c32 * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8,
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+            uint32_t bh[4], bl[4];
+            ldsm_x4(shi + off, bh);
+            ldsm_x4(slo + off, bl);
+            mma16816(tmp[2 * np], xf, bh[0], bh[1]);
+            mma16816(tmp[2 * np + 1], xf, bh[2], bh[3]);
+            mma16816(tmp[2 * np], xf, bl[0], bl[1]);
+            mma16816(tmp[2 * np + 1], xf, bl[2], bl[3]);
+          }
+        }
+#pragma unroll
+        for (int n8 = 0; n8 < 4; ++n8) {
+          const int s = c32 * 32 + n8 * 8 + 2 * t4;
+          const float2 ba = ld_bf2(bsm, ra, s), bb = ld_bf2(bsm, rb, s);
+          rp0 = fmaf(ba.x, tmp[n8][0], fmaf(ba.y, tmp[n8][1], rp0));
+          rp1 = fmaf(bb.x, tmp[n8][2], fmaf(bb.y, tmp[n8][3], rp1));
+          float* o = acc[c32 * 4 + n8];
+          o[0] = fmaf(wa, tmp[n8][0], o[0]);
+          o[1] = fmaf(wa, tmp[n8][1], o[1]);
+          o[2] = fmaf(wb, tmp[n8][2], o[2]);
+          o[3] = fmaf(wb, tmp[n8][3], o[3]);
+        }
+      }
+      // dx = w_j B_j dS' first (dS' rows are k), then + M^T dy below
+      float dxa[P / 8][4];
+#pragma unroll
+      for (int n8 = 0; n8 < P / 8; ++n8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dxa[n8][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < MT; ++kk) {
+        uint32_t bf[4];
+        b_frag(kk, bf);
+#pragma unroll
+        for (int np = 0; np < P / 16; ++np) {
+          const uint32_t off =
+              tile_off(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                       np * 16 + (lane >> 4) * 8);
+          uint32_t bh[4], bl[4];
+          ldsm_x4_t(shi + off, bh);
+          ldsm_x4_t(slo + off, bl);
+          mma16816(dxa[2 * np], bf, bh[0], bh[1]);
+          mma16816(dxa[2 * np + 1], bf, bh[2], bh[3]);
+          mma16816(dxa[2 * np], bf, bl[0], bl[1]);
+          mma16816(dxa[2 * np + 1], bf, bl[2], bl[3]);
+        }
+      }
+#pragma unroll
+      for (int n8 = 0; n8 < P / 8; ++n8) {
+        dxa[n8][0] *= wa;
+        dxa[n8][1] *= wa;
+        dxa[n8][2] *= wb;
+        dxa[n8][3] *= wb;
+      }
+      // the triangle's tiles i >= j, from the transposes B_j . C_i and
+      // x_j . dy_i
+      float ck0 = 0.f, ck1 = 0.f, gd0 = 0.f, gd1 = 0.f;
+      for (int it2 = t; it2 < nt; ++it2) {
+        float cbt[2][4], gmt[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cbt[n][e] = gmt[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MT; ++kk) {   // B_j . C_i
+          uint32_t bf[4], cf[4];
+          b_frag(kk, bf);
+          ldsm_x4(sc + tile_off(it2 * 16 + (lane & 7) + (lane >> 4) * 8,
+                                kk * 16 + ((lane >> 3) & 1) * 8),
+                  cf);
+          mma16816(cbt[0], bf, cf[0], cf[1]);
+          mma16816(cbt[1], bf, cf[2], cf[3]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {   // x_j . dy_i
+          uint32_t xf[4], yf[4];
+          x_frag(kk, xf);
+          ldsm_x4(sdy + tile_off(it2 * 16 + (lane & 7) + (lane >> 4) * 8,
+                                 kk * 16 + ((lane >> 3) & 1) * 8),
+                  yf);
+          mma16816(gmt[0], xf, yf[0], yf[1]);
+          mma16816(gmt[1], xf, yf[2], yf[3]);
+        }
+        uint32_t mh[4], ml[4], zh[4], zl[4];
+#pragma unroll
+        for (int n8 = 0; n8 < 2; ++n8) {
+          const int i = it2 * 16 + n8 * 8 + 2 * t4;
+          const float ci0 = cw[i], ci1 = cw[i + 1];
+          const float* cb = cbt[n8];
+          const float E00 = i >= ra ? exp2_ftz((ci0 - cja) * LOG2E) : 0.f;
+          const float E01 = i + 1 >= ra ? exp2_ftz((ci1 - cja) * LOG2E) : 0.f;
+          const float E10 = i >= rb ? exp2_ftz((ci0 - cjb) * LOG2E) : 0.f;
+          const float E11 = i + 1 >= rb ? exp2_ftz((ci1 - cjb) * LOG2E) : 0.f;
+          const float c00 = cb[0], c01 = cb[1], c10 = cb[2], c11 = cb[3];
+          const float* q = gmt[n8];
+          ck0 = fmaf(q[0] * c00, E00, fmaf(q[1] * c01, E01, ck0));
+          ck1 = fmaf(q[2] * c10, E10, fmaf(q[3] * c11, E11, ck1));
+          if (i == ra) gd0 = q[0];
+          if (i + 1 == ra) gd0 = q[1];
+          if (i == rb) gd1 = q[2];
+          if (i + 1 == rb) gd1 = q[3];
+          split2(c00 * E00 * dta, c01 * E01 * dta, mh[2 * n8], ml[2 * n8]);
+          split2(c10 * E10 * dtb, c11 * E11 * dtb, mh[2 * n8 + 1],
+                 ml[2 * n8 + 1]);
+          split2(q[0] * E00 * dta, q[1] * E01 * dta, zh[2 * n8], zl[2 * n8]);
+          split2(q[2] * E10 * dtb, q[3] * E11 * dtb, zh[2 * n8 + 1],
+                 zl[2 * n8 + 1]);
+        }
+#pragma unroll
+        for (int np = 0; np < P / 16; ++np) {   // dx += M^T dy
+          uint32_t yf[4];
+          ldsm_x4_t(sdy + tile_off(it2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                   np * 16 + (lane >> 4) * 8),
+                    yf);
+          mma16816(dxa[2 * np], mh, yf[0], yf[1]);
+          mma16816(dxa[2 * np + 1], mh, yf[2], yf[3]);
+          mma16816(dxa[2 * np], ml, yf[0], yf[1]);
+          mma16816(dxa[2 * np + 1], ml, yf[2], yf[3]);
+        }
+#pragma unroll
+        for (int np = 0; np < N / 16; ++np) {   // dB += Z^T C
+          uint32_t cf[4];
+          ldsm_x4_t(sc + tile_off(it2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                  np * 16 + (lane >> 4) * 8),
+                    cf);
+          mma16816(acc[2 * np], zh, cf[0], cf[1]);
+          mma16816(acc[2 * np + 1], zh, cf[2], cf[3]);
+          mma16816(acc[2 * np], zl, cf[0], cf[1]);
+          mma16816(acc[2 * np + 1], zl, cf[2], cf[3]);
+        }
+      }
+      // dx + D dy, rounded once
+      bf16* ob = a.dx + (((size_t)un.bi * a.L + l0) * a.H + h) * P;
+#pragma unroll
+      for (int n8 = 0; n8 < P / 8; ++n8) {
+        const int col = n8 * 8 + 2 * t4;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = half ? rb : ra;
+          if (r < Q) {
+            const float2 dv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(base + S::sdy +
+                                                         tile_off(r, col)));
+            *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * a.H * P +
+                                               col) =
+                __floats2bfloat162_rn(fmaf(Dh, dv.x, dxa[n8][2 * half]),
+                                      fmaf(Dh, dv.y, dxa[n8][2 * half + 1]));
+          }
+        }
+      }
+      ck0 = quad_sum(ck0);
+      ck1 = quad_sum(ck1);
+      rp0 = quad_sum(rp0);
+      rp1 = quad_sum(rp1);
+      gd0 = quad_sum(gd0);
+      gd1 = quad_sum(gd1);
+      if (t4 == 0) {
+        float* v = jv + ((it - nh) & 1) * 3 * QM;
+        v[ra] = ck0;
+        v[rb] = ck1;
+        v[QM + ra] = expf(last - cja) * rp0;
+        v[QM + rb] = expf(last - cjb) * rp1;
+        v[2 * QM + ra] = gd0;
+        v[2 * QM + rb] = gd1;
+      }
+    }
+    if (it == nh - 1) {   // the unit's dC is complete: out, and start dB
+      write_rows<N>(a, un, t, nt, acc, a.dC, a.ws_dc);
+#pragma unroll
+      for (int n8 = 0; n8 < N / 8; ++n8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n8][e] = 0.f;
+    }
+    __syncthreads();   // every warp is done with the stage; J's rows written
+    if (J && warp == 0) {
+      // ---- dcum, its reverse cumsum, ddt, and the dA and dD parts --------
+      const float* v = jv + ((it - nh) & 1) * 3 * QM;
+      const float* colk = v;
+      const float* rv = v + QM;
+      const float* gdv = v + 2 * QM;
+      sd = warp_sum(sd);
+      float dc[4], dd[4], vs = 0.f, gs = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = 4 * lane + k;
+        dc[k] = dd[k] = 0.f;
+        if (i < Q) {
+          const float dti = wdt[i];
+          const float vv = rv[i] * dti;
+          dc[k] = stash[k] - colk[i] * dti - vv;
+          dd[k] = colk[i] + rv[i];
+          vs += vv;
+          gs += gdv[i];
+        }
+      }
+      vs = warp_sum(vs);
+      gs = warp_sum(gs);
+      // the last step's cum is exp(cum_Q)'s and every w_j's
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * lane + k == Q - 1) dc[k] += vs + expf(last) * sd;
+      float suf[4], run = 0.f;
+#pragma unroll
+      for (int k = 3; k >= 0; --k) {
+        run += dc[k];
+        suf[k] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_down_sync(0xffffffffu, incl, off);
+        if (lane + off < 32) incl += o;
+      }
+      float excl = __shfl_down_sync(0xffffffffu, incl, 1);
+      if (lane == 31) excl = 0.f;
+      float pa = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = 4 * lane + k;
+        if (i < Q) {
+          const float da = excl + suf[k];
+          od[(size_t)i * a.H] = fmaf(da, Ah, dd[k]);
+          pa = fmaf(da, wdt[i], pa);
+        }
+      }
+      pa = warp_sum(pa);
+      if (lane == 0) {
+        a.ws_pa[chain * a.nc + un.n] = pa;
+        a.ws_pd[chain * a.nc + un.n] = gs;
+      }
     }
   }
-  __syncthreads();
-  // ---- K's rows weighted by dt_j, and its columns ------------------------
-  if (tid < QM) {
-    float acc = 0.f;
-    if (tid < Q)
-      for (int j = 0; j <= tid; ++j) acc = fmaf(kt[tri(tid) + j], dtv[j], acc);
-    rowk[tid] = acc;
-  } else {
-    const int j = tid - QM;
-    float acc = 0.f;
-    if (j < Q)
-      for (int i = j; i < Q; ++i) acc += kt[tri(i) + j];
-    colk[j] = acc;
-  }
-  __syncthreads();
-
-  // ---- S_n staged; dC = sum_{j<=i} Z_ij B_j + exp(cum_i) S_n dy_i --------
-  float sdot = 0.f;   // <S_n, dS'>
-  for (int e = tid; e < N * P / 4; e += NT) {
-    const int s = e / (P / 4), p = (e % (P / 4)) * 4;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(gS) + e);
-    const float4 d = __ldg(reinterpret_cast<const float4*>(gdS) + e);
-    *reinterpret_cast<float4*>(sb + s * SS + p) = v;
-    sdot = dot4(sdot, v, d);
-  }
-  sdot = warp_sum(sdot);
-  if (lane == 0) red[warp] = sdot;
-  __syncthreads();
-  for (int k = 0; k * NW < ngroups; ++k) {
-    const int ig = row_group(k, warp);
-    if (ig >= ngroups) continue;
-    const int i0 = 4 * ig;
-    float acc[4][NS] = {};
-    for (int p = 0; p < P; p += 4) {
-      float4 dv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) dv[r] = ld4(dys + (i0 + r) * XS + p);
-#pragma unroll
-      for (int q = 0; q < NS; ++q) {
-        const float4 sv =
-            *reinterpret_cast<const float4*>(sb + (lane + 32 * q) * SS + p);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r][q] = dot4(acc[r][q], dv[r], sv);
-      }
-    }
-    float up[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float e = ecum[i0 + r];
-      up[r] = 0.f;
-#pragma unroll
-      for (int q = 0; q < NS; ++q) {
-        acc[r][q] *= e;
-        up[r] = fmaf(__bfloat162float(cs[(i0 + r) * BS + lane + 32 * q]),
-                     acc[r][q], up[r]);
-      }
-      up[r] = warp_sum(up[r]);
-    }
-    const int jmax = min(i0 + 3, Q - 1);
-    for (int j = 0; j <= jmax; ++j) {
-      float z[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        z[r] = (j <= i0 + r && i0 + r < Q) ? zt[tri(i0 + r) + j] : 0.f;
-#pragma unroll
-      for (int q = 0; q < NS; ++q) {
-        const float bv = __bfloat162float(bs[j * BS + lane + 32 * q]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r][q] = fmaf(z[r], bv, acc[r][q]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + r;
-      if (i >= Q) continue;
-      if (lane == 0) uv[i] = up[r];
-      float* o = a.ws_dc + (((size_t)bi * a.L + l0 + i) * a.H + h) * N;
-#pragma unroll
-      for (int q = 0; q < NS; ++q) o[lane + 32 * q] = acc[r][q];
-    }
-  }
-  __syncthreads();   // every warp is done with S_n
-  if (tid == 0) {
-    float t = 0.f;
-    for (int k = 0; k < NW; ++k) t += red[k];
-    red[NW] = t;
-  }
-  // ---- dS' staged; dB and dx ---------------------------------------------
-  for (int e = tid; e < N * P / 4; e += NT) {
-    const int s = e / (P / 4), p = (e % (P / 4)) * 4;
-    *reinterpret_cast<float4*>(sb + s * SS + p) =
-        __ldg(reinterpret_cast<const float4*>(gdS) + e);
-  }
-  __syncthreads();
-  for (int k = 0; k * NW < ngroups; ++k) {
-    const int jg = row_group(k, warp);
-    if (jg >= ngroups) continue;
-    const int j0 = 4 * jg;
-    // dB_j = w_j dS' x_j + sum_{i>=j} Z_ij C_i
-    float acc[4][NS] = {};
-    for (int p = 0; p < P; p += 4) {
-      float4 xv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) xv[r] = ld4(xs + (j0 + r) * XS + p);
-#pragma unroll
-      for (int q = 0; q < NS; ++q) {
-        const float4 sv =
-            *reinterpret_cast<const float4*>(sb + (lane + 32 * q) * SS + p);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r][q] = dot4(acc[r][q], xv[r], sv);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = j0 + r;
-      float rp = 0.f;
-#pragma unroll
-      for (int q = 0; q < NS; ++q) {
-        rp = fmaf(__bfloat162float(bs[j * BS + lane + 32 * q]), acc[r][q],
-                  rp);
-        acc[r][q] *= w[j];
-      }
-      rp = warp_sum(rp);
-      if (lane == 0 && j < Q) rv[j] = expf(last - cum[j]) * rp;
-    }
-    for (int i = j0; i < Q; ++i) {
-      float z[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        z[r] = i >= j0 + r ? zt[tri(i) + j0 + r] : 0.f;
-#pragma unroll
-      for (int q = 0; q < NS; ++q) {
-        const float cv = __bfloat162float(cs[i * BS + lane + 32 * q]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r][q] = fmaf(z[r], cv, acc[r][q]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = j0 + r;
-      if (j >= Q) continue;
-      float* o = a.ws_db + (((size_t)bi * a.L + l0 + j) * a.H + h) * N;
-#pragma unroll
-      for (int q = 0; q < NS; ++q) o[lane + 32 * q] = acc[r][q];
-    }
-    // dx_j = w_j B_j dS' + sum_{i>=j} M_ij dy_i + D dy_j
-    float ax[4][PS] = {};
-    for (int s = 0; s < N; s += 2) {
-      float ds0[PS], ds1[PS];
-#pragma unroll
-      for (int q = 0; q < PS; ++q) {
-        ds0[q] = sb[s * SS + lane + 32 * q];
-        ds1[q] = sb[(s + 1) * SS + lane + 32 * q];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float2 bv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(bs + (j0 + r) * BS + s));
-#pragma unroll
-        for (int q = 0; q < PS; ++q)
-          ax[r][q] = fmaf(bv.y, ds1[q], fmaf(bv.x, ds0[q], ax[r][q]));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < PS; ++q) ax[r][q] *= w[j0 + r];
-    for (int i = j0; i < Q; ++i) {
-      float m[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        m[r] = i >= j0 + r ? mt[tri(i) + j0 + r] : 0.f;
-#pragma unroll
-      for (int q = 0; q < PS; ++q) {
-        const float dv = __bfloat162float(dys[i * XS + lane + 32 * q]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) ax[r][q] = fmaf(m[r], dv, ax[r][q]);
-      }
-    }
-    const float Dh = __ldg(a.D + h);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = j0 + r;
-      if (j >= Q) continue;
-      bf16* o = a.dx + (((size_t)bi * a.L + l0 + j) * a.H + h) * P;
-#pragma unroll
-      for (int q = 0; q < PS; ++q) {
-        const int p = lane + 32 * q;
-        o[p] = __float2bfloat16_rn(
-            fmaf(Dh, __bfloat162float(dys[j * XS + p]), ax[r][q]));
-      }
-    }
-  }
-  __syncthreads();
-  // ---- dcum, its reverse cumsum, ddt, and the dA and dD parts (warp 0) --
-  if (warp == 0) {
-    const float Ah = __ldg(a.A + h);
-    float dc[4], dd[4], vs = 0.f, gs = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int i = 4 * lane + k;
-      dc[k] = dd[k] = 0.f;
-      if (i < Q) {
-        const float v = rv[i] * dtv[i];
-        dc[k] = rowk[i] - colk[i] * dtv[i] + uv[i] - v;
-        dd[k] = colk[i] + rv[i];
-        vs += v;
-        gs += gd[i];
-      }
-    }
-    vs = warp_sum(vs);
-    gs = warp_sum(gs);
-    // the last step's cum is exp(cum_Q)'s and every w_j's
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (4 * lane + k == Q - 1) dc[k] += vs + expf(last) * red[NW];
-    // reverse cumsum: within the lane's 4 rows, then across lanes
-    float suf[4], run = 0.f;
-#pragma unroll
-    for (int k = 3; k >= 0; --k) {
-      run += dc[k];
-      suf[k] = run;
-    }
-    float incl = run;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_down_sync(0xffffffffu, incl, off);
-      if (lane + off < 32) incl += o;
-    }
-    float excl = __shfl_down_sync(0xffffffffu, incl, 1);
-    if (lane == 31) excl = 0.f;
-    float pa = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int i = 4 * lane + k;
-      if (i < Q) {
-        const float da = excl + suf[k];
-        a.ddt[((size_t)bi * a.L + l0 + i) * a.H + h] = fmaf(da, Ah, dd[k]);
-        pa = fmaf(da, dtv[i], pa);
-      }
-    }
-    pa = warp_sum(pa);
-    if (lane == 0) {
-      a.ws_pa[chain * a.nc + n] = pa;
-      a.ws_pd[chain * a.nc + n] = gs;
-    }
-  }
+  write_rows<N>(a, un, t, nt, acc, a.dB, a.ws_db);
 }
 
-// ---- launch 4: the sums over heads, batch rows and chunks ----------------
+// ---- launch 4: the sums over head sets, batch rows and chunks ------------
 __global__ void __launch_bounds__(NT) ssd_bwd_reduce(const Args a, int N) {
-  const int R = a.H / a.G;
   if (blockIdx.x == gridDim.x - 1) {   // dA and dD, (batch, chunk) in order
     for (int h = threadIdx.x; h < a.H; h += NT) {
       float sa = 0.f, sd = 0.f;
@@ -675,16 +1109,13 @@ __global__ void __launch_bounds__(NT) ssd_bwd_reduce(const Args a, int N) {
     return;
   }
   const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
-  const size_t total = (size_t)a.batch * a.L * a.G * N;
-  if (e >= total) return;
-  const int s = e % N;
+  if (e >= (size_t)a.batch * a.L * a.G * N) return;
   const size_t row = e / N;            // (bi * L + l) * G + g
-  const int g = row % a.G;
-  const size_t bl = row / a.G;
-  const float* pb = a.ws_db + (bl * a.H + (size_t)g * R) * N + s;
-  const float* pc = a.ws_dc + (bl * a.H + (size_t)g * R) * N + s;
+  const int s = e % N;
+  const float* pb = a.ws_db + row * a.K * N + s;
+  const float* pc = a.ws_dc + row * a.K * N + s;
   float sb = 0.f, sc = 0.f;
-  for (int k = 0; k < R; ++k) {
+  for (int k = 0; k < a.K; ++k) {
     sb += pb[(size_t)k * N];
     sc += pc[(size_t)k * N];
   }
@@ -693,32 +1124,47 @@ __global__ void __launch_bounds__(NT) ssd_bwd_reduce(const Args a, int N) {
 }
 
 template <int N>
-int launch_bwd(const Args& a, cudaStream_t s) {
-  using L = Lay<N>;
+int launch_bwd(const Args& a, const bf16* x, const bf16* B, const bf16* C,
+               const bf16* dy, const long long* st, cudaStream_t s) {
+  using LC = Lay<N, true>;
+  using LS = Lay<N, false>;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
         ssd_bwd_chunk<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)L::bytes);
+        (int)LC::bytes);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(ssd_bwd_states<N>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)L::bytes_a);
+                               (int)LS::bytes);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const dim3 grid(a.nc, a.H, a.batch);
-  ssd_bwd_states<N><<<grid, NT, L::bytes_a, s>>>(a);
+  // rank-4 maps (columns, head or group, seq, batch), boxes of 64 x 1 x Q x 1
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(a.Q), 1};
+  const long long dxh[4] = {P, a.H, a.L, a.batch},
+                  dbc[4] = {N, a.G, a.L, a.batch};
+  const long long sx[3] = {st[2], st[1], st[0]};
+  const long long sb[3] = {st[8], st[7], st[6]};
+  const long long sc[3] = {st[11], st[10], st[9]};
+  const long long sy[3] = {st[14], st[13], st[12]};
+  CUtensorMap tx, tdy, tb, tc;
+  int rc = hopper::make_map_bf16(&tx, x, 4, dxh, sx, box);
+  if (!rc) rc = hopper::make_map_bf16(&tdy, dy, 4, dxh, sy, box);
+  if (!rc) rc = hopper::make_map_bf16(&tb, B, 4, dbc, sb, box);
+  if (!rc) rc = hopper::make_map_bf16(&tc, C, 4, dbc, sc, box);
+  if (rc) return rc;
+  const int units = a.batch * a.G * a.K * a.nc;
+  ssd_bwd_states<N><<<units, NT, LS::bytes, s>>>(tx, tdy, tb, tc, a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ssd_bwd_walk<<<dim3((N * P / 4 + NT - 1) / NT, a.H, a.batch), NT, 0, s>>>(
-      a.ws_s, a.ws_ds, a.ws_g, a.nc, N * P / 4);
+  ssd_bwd_walk<N><<<dim3(N * P / 4 / NT, a.batch * a.H), NT, 0, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ssd_bwd_chunk<N><<<grid, NT, L::bytes, s>>>(a);
+  ssd_bwd_chunk<N><<<units, NT, LC::bytes, s>>>(tx, tdy, tb, tc, a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t total = (size_t)a.batch * a.L * a.G * N;
+  const size_t total = a.K > 1 ? (size_t)a.batch * a.L * a.G * N : 0;
   ssd_bwd_reduce<<<(unsigned)((total + NT - 1) / NT + 1), NT, 0, s>>>(a, N);
   return (int)cudaGetLastError();
 }
@@ -730,12 +1176,12 @@ int bwd_info(int which, int* regs, int* local_bytes, int* smem_bytes) {
   int smem = 0;
   if (which == 0) {
     e = cudaFuncGetAttributes(&fa, ssd_bwd_states<N>);
-    smem = (int)Lay<N>::bytes_a;
+    smem = (int)Lay<N, false>::bytes;
   } else if (which == 1) {
-    e = cudaFuncGetAttributes(&fa, ssd_bwd_walk);
+    e = cudaFuncGetAttributes(&fa, ssd_bwd_walk<N>);
   } else if (which == 2) {
     e = cudaFuncGetAttributes(&fa, ssd_bwd_chunk<N>);
-    smem = (int)Lay<N>::bytes;
+    smem = (int)Lay<N, true>::bytes;
   } else {
     e = cudaFuncGetAttributes(&fa, ssd_bwd_reduce);
   }
@@ -754,40 +1200,44 @@ extern "C" {
 // and dy in turn; x, B, C and dy have a unit last stride, 16-byte aligned
 // bases and other strides multiples of 8 elements.  dx, ddt, dB and dC
 // are written contiguous.  P must be 64, N 64 or 128, 1 <= Q <= 128 with
-// L % Q == 0, H % G == 0.  work: ssd_bwd_workspace_words four-byte words
+// L % Q == 0, H % G == 0, 1 <= sets <= H / G (ssd_bwd_geometry's head
+// sets a group).  work: ssd_bwd_workspace_words four-byte words
 // (kernels/ssd_scan.py), any contents: every word is written before it is
 // read.  Returns the first launch error (0 on success).
 int repro_ssd_scan_bwd(const void* x, const void* dt, const void* A,
                        const void* B, const void* C, const void* D,
                        const void* dy, void* dx, void* ddt, void* dA,
                        void* dB, void* dC, void* dD, int batch, int L, int H,
-                       int G, int P_, int N, int Q, const long long* st,
-                       void* work, void* stream) {
+                       int G, int P_, int N, int Q, int sets,
+                       const long long* st, void* work, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P_ != P || Q < 1 || Q > QM || L % Q || G < 1 || H % G || batch < 1 ||
-      batch > 65535 || H > 65535 || (N != 64 && N != 128))
+      batch > 65535 || H > 65535 || (N != 64 && N != 128) || sets < 1 ||
+      sets > H / G)
     return (int)cudaErrorInvalidValue;
   const int nc = L / Q;
   const size_t chains = (size_t)batch * H;
   float* w = static_cast<float*>(work);
-  Args a{static_cast<const bf16*>(x), static_cast<const float*>(dt),
-         static_cast<const float*>(A), static_cast<const bf16*>(B),
-         static_cast<const bf16*>(C), static_cast<const float*>(D),
-         static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
+  Args a{static_cast<const float*>(dt), static_cast<const float*>(A),
+         static_cast<const float*>(D), static_cast<bf16*>(dx),
          static_cast<float*>(ddt), static_cast<float*>(dA),
          static_cast<bf16*>(dB), static_cast<bf16*>(dC),
-         static_cast<float*>(dD), batch, H, G, L, Q, nc,
-         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-         st[9], st[10], st[11], st[12], st[13], st[14]};
-  const size_t states = chains * nc * N * P, heads = (size_t)batch * L * H * N;
-  a.ws_s = w;
-  a.ws_ds = a.ws_s + states;
-  a.ws_db = a.ws_ds + states;
-  a.ws_dc = a.ws_db + heads;
-  a.ws_g = a.ws_dc + heads;
+         static_cast<float*>(dD), batch, H, G, L, Q, nc, sets,
+         st[3], st[4], st[5]};
+  const size_t parts = sets > 1 ? (size_t)batch * L * G * sets * N : 0;
+  a.ws_st = w;
+  a.ws_db = a.ws_st + 2 * chains * nc * N * P;
+  a.ws_dc = a.ws_db + parts;
+  a.ws_g = a.ws_dc + parts;
   a.ws_pa = a.ws_g + chains * nc;
   a.ws_pd = a.ws_pa + chains * nc;
-  return N == 128 ? launch_bwd<128>(a, s) : launch_bwd<64>(a, s);
+  a.ws_sd = a.ws_pd + chains * nc;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* Bb = static_cast<const bf16*>(B);
+  const bf16* Cb = static_cast<const bf16*>(C);
+  const bf16* yb = static_cast<const bf16*>(dy);
+  return N == 128 ? launch_bwd<128>(a, xb, Bb, Cb, yb, st, s)
+                  : launch_bwd<64>(a, xb, Bb, Cb, yb, st, s);
 }
 
 // registers a thread, local (spill) bytes and dynamic shared memory a

@@ -19,14 +19,17 @@ what bounds them and how.
 and an operand that requires one) it runs ``SSDScan``, an autograd
 Function that saves only its inputs; its backward recomputes each
 chunk's starting state and launches ``csrc/ssd_scan_bwd.cu`` (on the
-CPU: ``ssd_scan_bwd_plain``).  Otherwise — the serve path — the forward
+CPU: ``ssd_scan_bwd_plain``): four launches, the chunk products on the
+tensor cores with the forward's numerics, a block per batch row, chunk
+and set of a group's heads (``ssd_bwd_geometry``), a per-call workspace
+(``ssd_bwd_workspace_words``).  Otherwise — the serve path — the forward
 alone runs, as it did before training existed.
 """
 from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, _not_capturing, kernel_ready
+from . import LAUNCHES, _not_capturing, kernel_ready, sm_count
 
 _WORK: dict = {}       # per (device, stream, geometry): states + flags
 
@@ -267,14 +270,46 @@ def _ssd_fwd(x, dt, A, B, C, D, chunk):
     return y
 
 
-def ssd_bwd_workspace_words(b: int, L: int, H: int, N: int, Q: int,
-                            P: int = 64) -> int:
-    """Four-byte words of the backward's per-call workspace: each chain's
-    per-chunk states S_n and dS' (f32 (N, P) each), the per-head dB and dC
-    before the sum over a group's heads (f32 (b, L, H, N) each), and per
-    (chain, chunk) the chunk decay and the dA and dD partials."""
+def ssd_bwd_workspace_words(b: int, L: int, H: int, G: int, N: int, Q: int,
+                            sets: int, P: int = 64) -> int:
+    """Four-byte words of the backward's per-call workspace: per chain and
+    chunk two slabs of N x P words (the chunk's own state terms in f32,
+    which the walk turns in place into S_n and dS' as bf16 high and low
+    tiles); dB and dC per head set, f32 (b, L, G, sets, N) each, where a
+    group has more than one set; per (chain, chunk) the chunk decay, the
+    dA and dD parts and the walk's N * P / 128 warps' parts of <S_n, dS'>."""
     nc = L // Q
-    return 2 * b * H * nc * N * P + 2 * b * L * H * N + 3 * b * H * nc
+    parts = 2 * b * L * G * sets * N if sets > 1 else 0
+    return 2 * b * H * nc * N * P + parts + b * H * nc * (3 + N * P // 128)
+
+
+def ssd_bwd_geometry(b: int, L: int, H: int, G: int, N: int, Q: int,
+                     sms: int) -> dict:
+    """Work split of the backward's states and chunk passes, a pure
+    function of the shapes and the card's SM count ``sms``.
+
+    A unit is a batch row, a chunk and a set of consecutive heads of one
+    group; a block runs one (a whole SM's shared memory), so it loads the
+    chunk's B and C once for its heads and sums dB and dC over them in
+    head order.  The ``sets`` a group is cut into are the fewest for which
+    the busiest SM runs the fewest head-chunks, ``span`` (units in waves of
+    ``sms``, each as long as its largest set); set k of R = H / G heads
+    takes ranks [k R // sets, (k + 1) R // sets) (``ssd_bwd_heads``)."""
+    nc, R = L // Q, H // G
+    span, sets = min((-(-(b * G * k * nc) // sms) * -(-R // k), k)
+                     for k in range(1, R + 1))
+    return dict(sets=sets, units=b * G * sets * nc, span=span,
+                heads_per_unit=-(-R // sets),
+                words=ssd_bwd_workspace_words(b, L, H, G, N, Q, sets))
+
+
+def ssd_bwd_heads(H: int, G: int, sets: int) -> dict:
+    """The heads each unit of a chunk takes, as the kernels pick them:
+    {(group, set): heads}."""
+    R = H // G
+    return {(g, k): list(range(g * R + k * R // sets,
+                               g * R + (k + 1) * R // sets))
+            for g in range(G) for k in range(sets)}
 
 
 def ssd_scan_bwd(x, dt, A, B, C, D, dy, *, chunk: int = 128):
@@ -303,15 +338,15 @@ def ssd_scan_bwd(x, dt, A, B, C, D, dy, *, chunk: int = 128):
     x, B, C, dy = (kernel_ready(x), kernel_ready(B), kernel_ready(C),
                    kernel_ready(dy))
     A, D = A.contiguous(), D.contiguous()
-    work = torch.empty((ssd_bwd_workspace_words(b, L, H, N, Q),),
-                       dtype=torch.float32, device=dev)
+    geo = ssd_bwd_geometry(b, L, H, G, N, Q, sm_count(dev.index or 0))
+    work = torch.empty((geo["words"],), dtype=torch.float32, device=dev)
     st = strides_arg(*x.stride()[:3], *dt.stride(), *B.stride()[:3],
                      *C.stride()[:3], *dy.stride()[:3])
     rc = library().repro_ssd_scan_bwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), D.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dD.data_ptr(), b, L, H, G, P, N, Q, st, work.data_ptr(),
+        dD.data_ptr(), b, L, H, G, P, N, Q, geo["sets"], st, work.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "ssd_scan_bwd")
     LAUNCHES["ssd_scan_bwd"] += 1

@@ -20,9 +20,9 @@ Training runs the prefill's layer stack (``layer_stacks("train")``) into
 ``TrainHead``.  Where a gradient flows the scan is the ``SSDScan``
 autograd Function: its forward is the serve path's and saves only the
 scan's inputs; its backward recomputes each chunk's starting state and
-launches ``csrc/ssd_scan_bwd.cu`` (on the CPU ``ssd_scan_bwd_plain``,
-the VJP of the reference's ``SSDScanOp._ref`` written out chunk by
-chunk).  The conv, the softplus and the gated norm train under autograd
+launches ``csrc/ssd_scan_bwd.cu`` (its chunk products on the tensor
+cores; on the CPU ``ssd_scan_bwd_plain``, the VJP of the reference's
+``SSDScanOp._ref`` written out chunk by chunk).  The conv, the softplus and the gated norm train under autograd
 as plain PyTorch, as the reference leaves them to XLA's autodiff.
 
 Decode keeps two caches per layer: conv_state (B, W-1, ch_loc) and

@@ -26,7 +26,8 @@ bf16, the port's plain versions keep f32 to the output), atol scaled by
 the reference's largest magnitude.
 
 The geometry cases hold the backward kernels' work splits
-(``flash_bwd_geometry``, ``flash_bwd_heads``, ``norm_bwd_geometry``),
+(``flash_bwd_geometry``, ``flash_bwd_heads``, ``norm_bwd_geometry``,
+``ssd_bwd_geometry``, ``ssd_bwd_heads``, ``ssd_bwd_workspace_words``),
 pure functions of the shapes, on the CPU.  The ``cuda``-marked cases
 hold the kernels to their plain versions on the card (skipped here);
 the JAX package is imported only by the cases that compare with it, so
@@ -345,6 +346,102 @@ def test_norm_bwd_geometry_refuses_widths_the_kernel_does_not_take(d):
         rn.norm_bwd_geometry(64, d, H100_SMS)
 
 
+# (b, L, H, G, N, chunk): mamba2-2.7b's and zamba2-1.2b's train
+# micro-batches (Q = 128), then odd shapes: L not a multiple of the chunk
+# (Q = 32; Q = 4), L below it (Q = 37), G = 2 and 3, b = 3
+SSD_TRAIN = [(1, 2048, 80, 1, 128, 128), (1, 2048, 64, 1, 64, 128)]
+SSD_ODD = [(3, 96, 4, 2, 128, 64), (2, 37, 4, 1, 64, 128),
+           (1, 300, 2, 2, 128, 128), (2, 256, 6, 3, 64, 128)]
+# shapes whose head sets differ in size (5 heads a group in sets of 2 and
+# 3 on a 16-SM card) and whose chunk is no multiple of 16 (Q = 50, N = 64),
+# with the SM count the geometry is given (None: the card's)
+SSD_SETS = [(1, 512, 10, 2, 128, 128), (2, 100, 6, 1, 64, 50)]
+SSD_SMS = {(1, 512, 10, 2, 128, 128): 16}
+
+
+def _ssd_units(b, L, H, G, N, chunk, sms):
+    """The (batch row, chunk, heads) of each unit of the backward's states
+    and chunk passes, in block order as the kernels decode it: head sets
+    fastest, then groups, chunks, batch rows."""
+    Q = ssd.chunk_len(L, chunk)
+    geo = ssd.ssd_bwd_geometry(b, L, H, G, N, Q, sms)
+    sets, nc = geo["sets"], L // Q
+    heads = ssd.ssd_bwd_heads(H, G, sets)
+    units = []
+    for u in range(geo["units"]):
+        k, rest = u % sets, u // sets
+        grp, rest = rest % G, rest // G
+        units.append((rest // nc, rest % nc, heads[grp, k]))
+    return geo, units
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 16, 3])
+@pytest.mark.parametrize("b,L,H,G,N,chunk", SSD_TRAIN + SSD_ODD + SSD_SETS)
+def test_ssd_bwd_geometry_puts_every_head_in_one_unit(b, L, H, G, N, chunk,
+                                                      sms):
+    """Of each chunk, every head of a group lands in exactly one unit, in
+    head order, beside only heads of its own group; the units cover every
+    (chain, chunk) once."""
+    geo, units = _ssd_units(b, L, H, G, N, chunk, sms)
+    R, sets = H // G, geo["sets"]
+    assert 1 <= sets <= R and geo["heads_per_unit"] == -(-R // sets)
+    heads = ssd.ssd_bwd_heads(H, G, sets)
+    for grp in range(G):
+        walked = [h for k in range(sets) for h in heads[grp, k]]
+        assert walked == list(range(grp * R, (grp + 1) * R))
+        assert all(heads[grp, k] for k in range(sets))
+    seen = [(bi, h, n) for bi, n, hs in units for h in hs]
+    nc = L // ssd.chunk_len(L, chunk)
+    assert sorted(seen) == [(bi, h, n) for bi in range(b) for h in range(H)
+                            for n in range(nc)]
+    assert max(len(hs) for _, _, hs in units) == geo["heads_per_unit"]
+
+
+@pytest.mark.parametrize("b,L,H,G,N,chunk,sets", [
+    (1, 2048, 80, 1, 128, 128, 8), (1, 2048, 64, 1, 64, 128, 8)])
+def test_ssd_bwd_geometry_fills_the_card_at_the_train_shapes(b, L, H, G, N,
+                                                             chunk, sets):
+    """mamba2-2.7b's and zamba2-1.2b's NanoFlow halves (1280 and 1024
+    head-chunks): 8 sets of 10 and of 8 heads, 128 units in one wave on
+    132 SMs, so the busiest SM runs the even share rounded up; a unit of
+    fewer or more heads would leave it more."""
+    Q = ssd.chunk_len(L, chunk)
+    geo = ssd.ssd_bwd_geometry(b, L, H, G, N, Q, H100_SMS)
+    share = -(-(b * H * (L // Q)) // H100_SMS)
+    assert geo["sets"] == sets and geo["units"] == 128 <= H100_SMS
+    assert geo["span"] == geo["heads_per_unit"] == share
+
+
+def test_ssd_bwd_geometry_takes_whole_groups_where_units_are_few():
+    """Where one wave holds every head set, a set is one head (the shortest
+    span); on a card of few SMs a unit takes its whole group, and dB and
+    dC need no workspace rows."""
+    assert ssd.ssd_bwd_geometry(2, 256, 6, 3, 64, 128, H100_SMS)["sets"] == 2
+    geo = ssd.ssd_bwd_geometry(1, 512, 8, 1, 128, 128, 4)
+    assert geo["sets"] == 1 and geo["heads_per_unit"] == 8
+    assert geo["words"] == ssd.ssd_bwd_workspace_words(1, 512, 8, 1, 128,
+                                                       128, 1)
+    assert geo["words"] == 2 * 8 * 4 * 128 * 64 + 8 * 4 * (3 + 64)
+
+
+@pytest.mark.parametrize("b,L,H,G,N,Q,nbytes,per_head", [
+    (1, 2048, 80, 1, 128, 128, 101_006_336, 251_673_600),
+    (1, 2048, 64, 1, 64, 128, 42_086_400, 100_675_584)])
+def test_ssd_bwd_workspace_at_the_train_shapes(b, L, H, G, N, Q, nbytes,
+                                               per_head):
+    """The per-call workspace at mamba2-2.7b's train shape is 101.0 MB: the
+    states' slabs (83.9 MB, their bf16 parts written over their f32 terms)
+    and dB and dC of 8 head sets (16.8 MB).  A per-head layout (f32 states
+    beside per-head dB and dC) takes 251.7 MB; zamba2-1.2b's 42.1 MB
+    against 100.7 MB."""
+    sets = ssd.ssd_bwd_geometry(b, L, H, G, N, Q, H100_SMS)["sets"]
+    words = ssd.ssd_bwd_workspace_words(b, L, H, G, N, Q, sets)
+    assert words * 4 == nbytes
+    nc = L // Q
+    assert 4 * (2 * b * H * nc * N * 64 + 2 * b * L * H * N
+                + 3 * b * H * nc) == per_head > nbytes
+
+
 # ---------------------------------------------------------------------------
 # on the card: the kernels against their plain backwards
 # ---------------------------------------------------------------------------
@@ -620,14 +717,6 @@ def test_grouped_ffn_function_matches_autograd(cuda, E, N, D, Fd):
 # the SSD scan's gradient
 # ---------------------------------------------------------------------------
 
-# (b, L, H, G, N, chunk): mamba2-2.7b's and zamba2-1.2b's train
-# micro-batches (Q = 128), then odd shapes: L not a multiple of the chunk
-# (Q = 32; Q = 4), L below it (Q = 37), G = 2 and 3, b = 3
-SSD_TRAIN = [(1, 2048, 80, 1, 128, 128), (1, 2048, 64, 1, 64, 128)]
-SSD_ODD = [(3, 96, 4, 2, 128, 64), (2, 37, 4, 1, 64, 128),
-           (1, 300, 2, 2, 128, 128), (2, 256, 6, 3, 64, 128)]
-
-
 def ssd_inputs(seed, b, L, H, G, N, P=64, dtype=torch.bfloat16,
                fdtype=torch.float32, views=True):
     """Seeded scan operands as the model hands them over: x, B and C in
@@ -663,12 +752,17 @@ def _bf16_close(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,L,H,G,N,chunk", SSD_TRAIN + SSD_ODD)
-def test_ssd_scan_bwd_kernel_matches_plain(cuda, b, L, H, G, N, chunk):
+@pytest.mark.parametrize("b,L,H,G,N,chunk", SSD_TRAIN + SSD_ODD + SSD_SETS)
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, monkeypatch, b, L, H, G, N,
+                                           chunk):
     """The kernels against ``ssd_scan_bwd_plain`` on the card: both in f32
     from the same bf16 operands, the sums in another order; dx, dB and dC
     each rounded once to bf16 (``_bf16_close``), ddt, dA and dD within
-    1e-3 relative L2.  Two calls give the same bits."""
+    1e-3 relative L2.  Two calls give the same bits.  ``SSD_SMS`` gives
+    the geometry another SM count, for head sets of unequal size."""
+    sms = SSD_SMS.get((b, L, H, G, N, chunk))
+    if sms is not None:
+        monkeypatch.setattr(ssd, "sm_count", lambda index: sms)
     x, dt, A, Bm, Cm, D, dy = (t.to(cuda) for t in ssd_inputs(
         20, b, L, H, G, N))
     before = LAUNCHES["ssd_scan_bwd"]

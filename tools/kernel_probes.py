@@ -43,9 +43,20 @@
            launches), with each pass's device time at the wrapper's grid
            and the instantiation's registers and blocks resident an SM
 
+  ssd_bwd  builds ``csrc/ssd_scan_bwd.cu`` and, for each ``--ssd-bwd-other
+           NAME=DIR``, the ``ssd_scan_bwd.cu`` in DIR (another tree's
+           csrc directory, such as the parent commit's; one that predates
+           the head-set argument is called with its own per-head
+           workspace); holds each against ``ssd_scan_bwd_plain`` and
+           itself at the train step's two shapes (mamba2-2.7b's and
+           zamba2-1.2b's NanoFlow halves), times them in turns (device
+           time alone, this tree between the others' turns), with each
+           launch's device ms and ptxas's registers and spills
+
 Usage:  python3 tools/kernel_probes.py
-            [--probes decode,rmsnorm,ssd,fused,norm_bwd]
+            [--probes decode,rmsnorm,ssd,fused,norm_bwd,ssd_bwd]
             [--ssd-other NAME=DIR ...] [--fused-other NAME=DIR ...]
+            [--ssd-bwd-other NAME=DIR ...]
 Needs a CUDA device and nvcc; prints one JSON line per case.
 """
 from __future__ import annotations
@@ -372,6 +383,193 @@ def probe_ssd(out, others=()):
                  f"P=64 G=1 N={N}", "checks": checks,
                  "device_ms_turns": times, "same_output_again": again,
                  "cycles_per_task": per_warp})
+    finally:
+        _build._LIB = saved
+
+
+SSD_BWD_PASSES = ("ssd_bwd_states", "ssd_bwd_walk", "ssd_bwd_chunk",
+                  "ssd_bwd_reduce")
+# (phase, anchor in ssd_scan_bwd.cu's chunk pass, where the mark goes), as
+# SSD_PHASES: each warp's clock64 cycles a task (a head's phase I or J)
+SSD_BWD_PHASES = [
+    ("<init", "  for (int it = 0; it < 2 * nh; ++it) {\n"),
+    ("<next task's loads issued", "    const float last = warp_scan("),
+    ("cumsum", "    const float last = warp_scan(dcur, Ah, Q, lane, cw, wdt, "
+               "ww);\n"),
+    ("<warp 0's global reads", "    mbar_wait(&bar[st], (it >> 1) & 1);\n\n"),
+    ("tiles landed", "    mbar_wait(&bar[st], (it >> 1) & 1);\n\n"),
+    ("<I: state terms", "      // the triangle's tiles j <= i\n"),
+    ("<I: triangle", "      rk0 = quad_sum(rk0);\n"),
+    ("<J: state terms", "      // the triangle's tiles i >= j, from the "
+                        "transposes"),
+    ("<J: triangle", "      // dx + D dy, rounded once\n"),
+    ("<rows out", "    if (it == nh - 1) {   // the unit's dC is complete"),
+    ("dC out, end barrier", "J's rows written\n"),
+    ("warp 0's dcum", "        a.ws_pd[chain * a.nc + un.n] = gs;\n"
+                      "      }\n    }\n"),
+]
+
+
+def _ssd_bwd_caller(lib, src):
+    """A call of ``lib``'s backward on (x, dt, A, B, C, D, dy) as the
+    wrapper makes it: this tree's through ``ssd_scan_bwd`` itself, a tree
+    without the head-set argument with its per-head workspace."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ssd
+    if "int sets" in open(src).read():
+        def call(*args):
+            _build._LIB = lib
+            return ssd.ssd_scan_bwd(*args)
+        return call
+    fn = lib.repro_ssd_scan_bwd
+    sig = list(_build._SIGNATURES["repro_ssd_scan_bwd"][0])
+    fn.argtypes = sig[:20] + sig[21:]
+    fn.restype = ctypes.c_int
+
+    def call(x, dt, A, B, C, D, dy):
+        b, L, H, P = x.shape
+        G, N = B.shape[2], B.shape[3]
+        Q = ssd.chunk_len(L, 128)
+        nc = L // Q
+        dev = x.device
+        outs = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev)
+                     for t in (x, dt, A, B, C, D))
+        work = torch.empty((2 * b * H * nc * N * P + 2 * b * L * H * N
+                            + 3 * b * H * nc,), dtype=torch.float32,
+                           device=dev)
+        st = _build.strides_arg(*x.stride()[:3], *dt.stride(),
+                                *B.stride()[:3], *C.stride()[:3],
+                                *dy.stride()[:3])
+        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                C.data_ptr(), D.data_ptr(), dy.data_ptr(),
+                *[o.data_ptr() for o in outs],
+                b, L, H, G, P, N, Q, st, work.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, "ssd_scan_bwd (other tree)")
+        return outs
+    return call
+
+
+def ssd_bwd_phase_source(csrc) -> str:
+    """``csrc``'s ssd_scan_bwd.cu with each warp of the chunk pass summing
+    its cycles per phase of ``SSD_BWD_PHASES``, written to ``g_ph[block *
+    8 + warp]`` at the end (``probe_phases`` as for the forward)."""
+    src = open(os.path.join(csrc, "ssd_scan_bwd.cu")).read()
+    prelude = SSD_PRELUDE.replace("[8]", "[16]").replace(
+        "{0, 0, 0, 0, 0, 0, 0, 0}", "{}")
+    src = src.replace('#include "hopper.cuh"\n',
+                      '#include "hopper.cuh"\n' + prelude, 1)
+    cut = src.index("// ---- launch 3")
+    head, body = src[:cut], src[cut:]
+    for k, (name, anchor) in enumerate(SSD_BWD_PHASES):
+        if anchor not in body:
+            raise RuntimeError(f"phase anchor of {name!r} not found")
+        mark = "  PH_INIT\n" if k == 0 else f"    PH({k - 1});\n"
+        if name.startswith("<"):
+            body = body.replace(anchor, mark + anchor, 1)
+        else:
+            i = body.index(anchor) + len(anchor)
+            body = body[:i] + mark + body[i:]
+    end = "  write_rows<N>(a, un, t, nt, acc, a.dB, a.ws_db);\n}\n"
+    if end not in body:
+        raise RuntimeError("chunk pass end not found")
+    done = ("  if ((threadIdx.x & 31) == 0)\n"
+            "    for (int k_ = 0; k_ < 16; ++k_)\n"
+            "      g_ph[blockIdx.x * 8 + (threadIdx.x >> 5)][k_] = "
+            "ph_acc[k_];\n")
+    body = body.replace(end, end[:-2] + done + "}\n", 1)
+    return head + body + SSD_EPILOGUE.replace("* 8 * 8 * 8", "* 8 * 16 * 8")\
+        .replace("zero[16384][8]", "zero[16384][16]")
+
+
+def probe_ssd_bwd(out, others=()):
+    """This tree's SSD backward (and each of ``others``, NAME=DIR) held to
+    the plain version and timed in turns at the train step's shapes."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ssd
+    import chip_smoke as cs
+    tmp = tempfile.mkdtemp()
+    staged = os.path.join(tmp, "ssd_bwd_phases.cu")
+    with open(staged, "w") as f:
+        f.write(ssd_bwd_phase_source(str(_build.CSRC)))
+    srcs = {"this tree": os.path.join(str(_build.CSRC), "ssd_scan_bwd.cu"),
+            "phases": staged}
+    for other in others:
+        name, d = other.split("=", 1)
+        srcs[name] = os.path.join(os.path.abspath(d), "ssd_scan_bwd.cu")
+    procs = {k: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+         "-shared", src, "-o", os.path.join(tmp, f"ssd_bwd{i}.so")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i, (k, src) in enumerate(srcs.items())}
+    calls, builds = {}, {}
+    for i, (k, p) in enumerate(procs.items()):
+        log = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed on {k}:\n{log}")
+        builds[k] = cs.ptxas_report(log, ("ssd_bwd_",))
+        lib = _load_lib(os.path.join(tmp, f"ssd_bwd{i}.so"))
+        calls[k] = _ssd_bwd_caller(lib, srcs[k])
+        if k == "phases":
+            lib.probe_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            phase_lib = lib
+    out({"probe": "ssd_bwd", "builds": builds})
+    phase_names = [n.lstrip("<") for n, _ in SSD_BWD_PHASES[1:]]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    saved = _build._LIB
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    try:
+        for what, H, N in (("mamba2-2.7b train, NanoFlow half", 80, 128),
+                           ("zamba2-1.2b train, NanoFlow half", 64, 64)):
+            args = cs.ssd_inputs(g, 1, 2048, H, 64, N)
+            dy = torch.randn((1, 2048, H, 64), generator=g,
+                             device=dev).to(torch.bfloat16)
+            want = ssd.ssd_scan_bwd_plain(*args, dy)
+            checks = {}
+            for k, call in calls.items():
+                got, again = call(*args, dy), call(*args, dy)
+                torch.cuda.synchronize()
+                row = cs.compare_bwd("ssd_scan_bwd", [
+                    (a, w) for a, w in zip(got, want)
+                    if a.dtype == torch.bfloat16])
+                row["f32_rel_l2"] = {n: cs.rel_err(a, w) for n, a, w in zip(
+                    names, got, want) if a.dtype == torch.float32}
+                row["same_bits_twice"] = all(
+                    torch.equal(a, c) for a, c in zip(got, again))
+                checks[k] = row
+            fns = {k: (lambda call=call: call(*args, dy))
+                   for k, call in calls.items() if k != "phases"}
+            order = [k for k in fns if k != "this tree"]
+            turns = order + ["this tree", "this tree"] + order[::-1] \
+                if order else ["this tree", "this tree"]
+            times: dict = {}
+            for k in turns:
+                times.setdefault(k, []).append(cs.device_ms([fns[k]])[0])
+            passes = {k: cs.pass_ms(fn, SSD_BWD_PASSES)
+                      for k, fn in fns.items()}
+            # the chunk pass's cycles per phase, a warp's mean over units
+            # (warp w holds row tile 7 - w or w - 4)
+            phase_lib.probe_phases(None, 0)
+            calls["phases"](*args, dy)
+            torch.cuda.synchronize()
+            Q = ssd.chunk_len(2048, 128)
+            units = ssd.ssd_bwd_geometry(1, 2048, H, 1, N, Q,
+                                         ssd.sm_count(0))["units"]
+            buf = (ctypes.c_longlong * (units * 128))()
+            phase_lib.probe_phases(buf, units)
+            per_warp = {w: {n: sum(buf[(u * 8 + w) * 16 + k]
+                                   for u in range(units)) / units
+                            for k, n in enumerate(phase_names)}
+                        for w in range(8)}
+            out({"probe": "ssd_bwd", "case": f"{what}: b=1 L=2048 H={H} "
+                 f"P=64 G=1 N={N}", "checks": checks,
+                 "device_ms_turns": times, "pass_device_ms": passes,
+                 "chunk_cycles_per_unit": per_warp})
     finally:
         _build._LIB = saved
 
@@ -799,13 +997,17 @@ def probe_norm_bwd(out):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--probes", default="decode,rmsnorm,ssd,fused,norm_bwd")
+    ap.add_argument("--probes",
+                    default="decode,rmsnorm,ssd,fused,norm_bwd,ssd_bwd")
     ap.add_argument("--ssd-other", action="append", default=[],
                     help="NAME=DIR: the ssd_scan.cu of another tree's "
                          "kernels/csrc directory, timed beside this one's")
     ap.add_argument("--fused-other", action="append", default=[],
                     help="NAME=DIR: the fused add+RMSNorm of the tree whose "
                          "root is DIR, timed beside this one's")
+    ap.add_argument("--ssd-bwd-other", action="append", default=[],
+                    help="NAME=DIR: the ssd_scan_bwd.cu of another tree's "
+                         "kernels/csrc directory, timed beside this one's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -826,6 +1028,8 @@ def main(argv=None) -> int:
         probe_fused(out, args.fused_other)
     if "norm_bwd" in probes:
         probe_norm_bwd(out)
+    if "ssd_bwd" in probes:
+        probe_ssd_bwd(out, args.ssd_bwd_other)
     return 0
 
 
