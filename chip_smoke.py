@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
 Runs four models the repository supports at their full published width
-(and trains a fifth, smollm-135m: 30 layers, d_model 576, 9 q / 3 kv
-heads of 64, d_ff 1536, vocab 49152, tied embeddings; 135 M parameters),
+(four more in the phases ``dense_configs``, ``encdec`` and ``vlm``
+below; and trains a fifth, smollm-135m: 30 layers, d_model 576, 9 q / 3
+kv heads of 64, d_ff 1536, vocab 49152, tied embeddings; 135 M
+parameters),
 with random weights drawn from a seeded ``torch.Generator`` on the card:
 chatglm3-6b (28 layers, d_model 4096, 32 q / 2 kv heads, d_ff 13696,
 vocab 65024; ~6.2 B bf16 parameters, 12.5 GB), deepseek-moe-16b (28
@@ -177,6 +179,38 @@ Phases, each printing one JSON line:
             memory and the graph pool, the largest device ops, launches
             (the scan's forward and backward kernels; zamba2's flash and
             fused add+RMSNorm backwards)
+  dense_configs
+            minitron-8b (32 layers, d_model 4096, 32 q / 8 kv heads, d_ff
+            16384, vocab 256000; 9.88 B, 19.76 GB), then
+            deepseek-coder-33b (62 layers, d_model 7168, 56 q / 8 kv
+            heads, d_ff 19200, vocab 32256; 33.34 B, 66.69 GB, alone on
+            the card), each as published: a 2-layer cut on the GPU
+            against the CPU (B=2 S=128), then the serve mix with graphs
+            and with the interpreter (tokens and launch counts equal), the
+            prefill group's and the tier-4 decode graph replayed alone
+  encdec    whisper-tiny as published (4 encoder and 4 decoder layers,
+            d_model 384, 6 heads of 64, vocab 51865, GELU, tied): the
+            whole model on the GPU against the CPU (B=2 S=256); prefill
+            at B=4 S=1500 (random frames and ids), then 16 greedy decode
+            steps at tier 4 against the encoder's states zero-padded to
+            s_max 2048, the prefill and each step one CUDA Graph, tokens
+            equal to the same lowered steps run eagerly and to the
+            interpreter's
+  vlm       qwen2-vl-7b (28 layers, d_model 3584, 28 q / 4 kv heads,
+            M-RoPE sections (16, 24, 24); 7.62 B, 15.23 GB): a 2-layer
+            cut on the GPU against the CPU; as published, prefill at B=4
+            S=2048 (1024 image patches on a 1 x 32 x 32 grid with random
+            ``vis``, then text) and 16 greedy decode steps at s_max 4096
+            as ``encdec`` runs them; ``dynamic`` and ``nanoflow`` against
+            ``sequential`` at that prefill
+  encdec_train / vlm_train
+            whisper-tiny as published (B=8 S=1500, TokenWeave) and
+            qwen2-vl-7b at full width cut to 4 layers (B=2 S=2048,
+            NanoFlow) through ``Program.train_step``'s graphed step as
+            ``ssm_train`` runs it (a cut against the CPU, ``dynamic``
+            against ``sequential``, 8 steps of a falling loss, replays
+            against ``fn.eager`` bit for bit, timings; whisper's MFU
+            counts its encoder and cross-attention in full)
   train     smollm-135m cut to 2 layers at full width: ``Program.
             train_step(2, 512)`` on the card against the CPU (loss, every
             gradient leaf, one step's metrics); smollm-135m as published
@@ -220,7 +254,8 @@ launched on some path.
 Usage:  python3 chip_smoke.py [--phases kernels,frontend,examples,
             reference,transparency,serve,lifecycle,paged,sampling,spec,
             autotune,moe_reference,moe_transparency,moe_serve,moe_train,
-            ssm_reference,ssm_transparency,ssm_serve,ssm_train,train,
+            ssm_reference,ssm_transparency,ssm_serve,ssm_train,
+            dense_configs,encdec,vlm,encdec_train,vlm_train,train,
             streams]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
         torch.profiler breakdown of a warm prefill, eager and replayed
@@ -314,7 +349,8 @@ TOL = {
 }
 SEED = 0
 # phase-name prefix of each model family
-PREFIX = {"dense": "", "moe": "moe_", "ssm": "ssm_", "hybrid": "ssm_"}
+PREFIX = {"dense": "", "moe": "moe_", "ssm": "ssm_", "hybrid": "ssm_",
+          "encdec": "encdec_", "vlm": "vlm_"}
 # the kernels each family's serve path must launch
 SERVE_KERNELS = {
     "dense": ("flash_attention", "decode_attention", "rmsnorm"),
@@ -322,6 +358,8 @@ SERVE_KERNELS = {
     "ssm": ("ssd_scan", "rmsnorm"),
     "hybrid": ("ssd_scan", "rmsnorm", "flash_attention", "decode_attention",
                "fused_add_rmsnorm"),
+    "encdec": ("flash_attention", "decode_attention", "rmsnorm"),
+    "vlm": ("flash_attention", "decode_attention", "rmsnorm"),
 }
 
 
@@ -550,47 +588,53 @@ def phase_kernels(dev, build_log=None):
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
-    def flash(what, B, S, H, Hk, hd=128):
-        q, k, v = randn(B, S, H, hd), randn(B, S, Hk, hd), randn(B, S, Hk, hd)
+    def flash(what, B, S, H, Hk, hd=128, causal=True, Sq=None):
+        """A case at q (B, Sq, H, hd) against K/V (B, S, Hk, hd); Sq
+        defaults to S.  The causal mask is aligned top-left."""
+        Sq = S if Sq is None else Sq
+        q, k, v = randn(B, Sq, H, hd), randn(B, S, Hk, hd), randn(B, S, Hk, hd)
         kvh = (torch.arange(H, device=dev) // (H // Hk)).to(torch.int32)
-        out = fa.flash_attention(q, k, v, causal=True, kv_head=kvh)
-        ref = fa.flash_attention_plain(q, k, v, causal=True, kv_head=kvh)
-        pv = fa.flash_attention_plain(q, k, v.abs(), causal=True, kv_head=kvh)
+        out = fa.flash_attention(q, k, v, causal=causal, kv_head=kvh)
+        ref = fa.flash_attention_plain(q, k, v, causal=causal, kv_head=kvh)
+        pv = fa.flash_attention_plain(q, k, v.abs(), causal=causal,
+                                      kv_head=kvh)
         torch.cuda.synchronize()
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        seq = f"S={S}" if Sq == S else f"Sq={Sq} Sk={S}"
         return dict(
-            shape=f"{what}: B={B} S={S} H={H} Hkv={Hk} hd={hd} causal bf16",
+            shape=f"{what}: B={B} {seq} H={H} Hkv={Hk} hd={hd} "
+                  f"{'causal' if causal else 'non-causal'} bf16",
             **compare("flash_attention", [(out, ref)], pv=pv),
-            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
                                                   kv_head=kvh)),
             plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
-                q, k, v, causal=True, kv_head=kvh), iters=5),
+                q, k, v, causal=causal, kv_head=kvh), iters=5),
             # causal: half the tiles; q, o, k and v once
-            **bound(4.0 * B * S * S * H * hd * 0.5,
+            **bound(4.0 * B * Sq * S * H * hd * (0.5 if causal else 1.0),
                     2 * (2 * q.numel() + k.numel() + v.numel())),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
+                qt, kt, vt, is_causal=causal, enable_gqa=True)),
             **device_times(
-                [lambda: fa.flash_attention(q, k, v, causal=True,
+                [lambda: fa.flash_attention(q, k, v, causal=causal,
                                             kv_head=kvh)],
                 [lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)]))
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)]))
 
-    def flash_bwd(what, B, S, H, Hk, hd):
+    def flash_bwd(what, B, S, H, Hk, hd, causal=True):
         q, k, v = randn(B, S, H, hd), randn(B, S, Hk, hd), randn(B, S, Hk, hd)
         do = randn(B, S, H, hd)
         kvh = (torch.arange(H, device=dev) // (H // Hk)).to(torch.int32)
-        o, lse = fa._flash_fwd(q, k, v, True, kvh, lse=True)
-        lse_ref = fa.flash_attention_lse_plain(q, k, True, kvh)
-        got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+        o, lse = fa._flash_fwd(q, k, v, causal, kvh, lse=True)
+        lse_ref = fa.flash_attention_lse_plain(q, k, causal, kvh)
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                      kv_head=kvh)
-        ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=True,
-                                           kv_head=kvh)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                           causal=causal, kv_head=kvh)
         torch.cuda.synchronize()
         # the yardstick: SDPA's backward alone (its forward graph kept)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                              enable_gqa=True)
         dot = do.transpose(1, 2)
 
@@ -599,13 +643,13 @@ def phase_kernels(dev, build_log=None):
                                        retain_graph=True)
 
         def kernel():
-            return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+            return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                           kv_head=kvh)
         nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
         # a product of 2 S^2 hd FLOP a (batch, head), causal: half the
         # tiles; the function needs 5, the kernel's two passes do 7 (S and
         # dP in both), the dK/dV pass 4 of them and the dQ pass 3
-        product = 2.0 * B * S * S * H * hd * 0.5
+        product = 2.0 * B * S * S * H * hd * (0.5 if causal else 1.0)
         times = device_times([kernel], [sdpa_bwd])
         geo = fa.flash_bwd_geometry(B, H, Hk, S, S, hd,
                                     torch.cuda.get_device_properties(
@@ -617,13 +661,14 @@ def phase_kernels(dev, build_log=None):
         def tflops(flop, ms):
             return None if not ms else flop / ms / 1e9
         return dict(
-            shape=f"{what}: B={B} S={S} H={H} Hkv={Hk} hd={hd} causal bf16",
+            shape=f"{what}: B={B} S={S} H={H} Hkv={Hk} hd={hd} "
+                  f"{'causal' if causal else 'non-causal'} bf16",
             geometry=geo,
             lse_max_abs_err=max_err(lse, lse_ref),
             **compare_bwd("flash_attention_bwd", list(zip(got, ref))),
             ms=cuda_ms(kernel, iters=10),
             plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, o, do, lse, causal=True, kv_head=kvh), iters=3),
+                q, k, v, o, do, lse, causal=causal, kv_head=kvh), iters=3),
             # 2.5 times the forward's products, causal: half the tiles
             **bound(5 * product, nbytes),
             library_ms=cuda_ms(sdpa_bwd, iters=10),
@@ -1044,6 +1089,7 @@ def phase_kernels(dev, build_log=None):
 
     glm, m2, z2 = "chatglm3-6b", "mamba2-2.7b", "zamba2-1.2b"
     sm = "smollm-135m"
+    mt, dc, wt, qw = DENSE_CONFIGS + ("whisper-tiny", "qwen2-vl-7b")
     rows = [
         kernel_row("flash_attention", "cuda",
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1054,13 +1100,31 @@ def phase_kernels(dev, build_log=None):
                     # DBO runs the MoE layers' attention merged at B=4
                     flash("deepseek-moe-16b prefill", 4, 2048, 16, 16),
                     # the train step's forward (it also writes the LSE)
-                    flash(f"{sm} train B=8", 8, 2048, 9, 3, hd=64)]),
+                    flash(f"{sm} train B=8", 8, 2048, 9, 3, hd=64),
+                    # whisper-tiny's encoder self-attention and its
+                    # prefill cross-attention (S_enc = S = 1500: the last
+                    # K/V tile is short), then one decode row against the
+                    # zero-padded encoder states
+                    flash(f"{wt} encoder / cross prefill", 4, 1500, 6, 6,
+                          hd=64, causal=False),
+                    flash(f"{wt} decode cross-attention", 4, 2048, 6, 6,
+                          hd=64, causal=False, Sq=1),
+                    # GQA groups of 7
+                    flash(f"{qw} prefill", 4, 2048, 28, 4),
+                    flash(f"{dc} prefill", 4, 2048, 56, 8)]),
         kernel_row("decode_attention", "cuda",
                    "src/repro_torch/kernels/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:56",
                    [decode(f"{glm} decode", 32, 2),
                     decode(f"{z2} shared block decode", 32, 32),
-                    decode("deepseek-moe-16b decode", 16, 16)]),
+                    decode("deepseek-moe-16b decode", 16, 16),
+                    decode(f"{dc} decode", 56, 8),
+                    decode(f"{qw} decode", 28, 4),
+                    decode(f"{mt} decode", 32, 8),
+                    # the self-attention of whisper-tiny's decode steps,
+                    # past its 1500-token prefill
+                    decode(f"{wt} decode", 6, 6, S=2048, hd=64,
+                           lens=(1516, 1510, 1505, 1501))]),
         # rows: the prefill of B x 2048 tokens, the tier-4 decode step, the
         # verify steps and the chunk steps
         kernel_row("rmsnorm", "cuda",
@@ -1079,7 +1143,13 @@ def phase_kernels(dev, build_log=None):
                     norm(f"{glm} (4, 2048) group", 8192, 4096),
                     norm(f"{glm} final chunk (1, 512)", 512, 4096),
                     # the train step at smollm-135m's B=8 S=2048
-                    norm(f"{sm} train B=8", 16384, 576)]),
+                    norm(f"{sm} train B=8", 16384, 576),
+                    # the prefills of minitron-8b, deepseek-coder-33b,
+                    # whisper-tiny and qwen2-vl-7b
+                    norm(f"{wt} prefill B=4 S=1500", 6000, 384),
+                    norm(f"{qw} prefill B=4", 8192, 3584),
+                    norm(f"{mt} prefill B=4", 8192, 4096),
+                    norm(f"{dc} prefill B=4", 8192, 7168)]),
         # block_rows=256: the TokenWeave choice for >= 4096 tokens (16 and
         # 32 blocks); block_rows=32 fills the card (256 blocks): what the
         # knob costs on one stream
@@ -1091,7 +1161,11 @@ def phase_kernels(dev, build_log=None):
                     fused(f"{z2} shared block B=4, full grid", 8192, 4096,
                           block_rows=32),
                     # TokenWeave in the train step at smollm-135m's B=8
-                    fused(f"{sm} train B=8, TokenWeave", 16384, 576)]),
+                    fused(f"{sm} train B=8, TokenWeave", 16384, 576),
+                    # whisper-tiny is not sequence parallel: ``dynamic``
+                    # fuses its chains under TokenWeave at prefill
+                    fused(f"{wt} prefill B=4 S=1500, TokenWeave", 6000,
+                          384)]),
         # deepseek-moe-16b's 64 experts: the DBO prefill micro-batch
         # (capacity 480 of 4096 tokens), the decode tier (capacity 4),
         # Comet's chunk (a quarter of the 480-row buffer, in place) and
@@ -1136,17 +1210,26 @@ def phase_kernels(dev, build_log=None):
                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                    "src/repro/models/layers.py:563",
                    [flash_bwd(f"{sm} train", 8, 2048, 9, 3, 64),
-                    flash_bwd(f"{glm} train", 2, 2048, 32, 2, 128)]),
+                    flash_bwd(f"{glm} train", 2, 2048, 32, 2, 128),
+                    # whisper-tiny's encoder and cross-attention; qwen2-vl
+                    # GQA group of 7
+                    flash_bwd(f"{wt} train encoder / cross", 8, 1500, 6, 6,
+                              64, causal=False),
+                    flash_bwd(f"{qw} train", 2, 2048, 28, 4, 128)]),
         kernel_row("rmsnorm_bwd", "cuda",
                    "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                    "src/repro/models/layers.py:170",
                    [norm_bwd(f"{sm} train B=8", 16384, 576),
-                    norm_bwd(f"{glm} train B=2", 4096, 4096)]),
+                    norm_bwd(f"{glm} train B=2", 4096, 4096),
+                    norm_bwd(f"{wt} train B=8", 12000, 384),
+                    norm_bwd(f"{qw} train B=2", 4096, 3584)]),
         kernel_row("fused_add_rmsnorm_bwd", "cuda",
                    "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                    "src/repro/kernels/ops.py:63",
                    [fused_bwd(f"{sm} train B=8", 16384, 576),
-                    fused_bwd(f"{glm} train B=2", 4096, 4096)]),
+                    fused_bwd(f"{glm} train B=2", 4096, 4096),
+                    # whisper-tiny's train step under TokenWeave
+                    fused_bwd(f"{wt} train B=8", 12000, 384)]),
         # the train step's update over every leaf, one launch: the JAX
         # package has no Pallas call here (XLA fuses the chain in its
         # jitted step)
@@ -1256,6 +1339,56 @@ def prefill_batch(B, S, vocab, dev, seed):
     return {"ids": ids.to(dev), "positions": pos.contiguous().to(dev)}
 
 
+def mrope_positions(B, S, grid):
+    """M-RoPE's (3, B, S) int32 positions as Qwen2-VL lays them out: image
+    patches on a (t, h, w) grid, each stream a coordinate, then text
+    whose three streams continue equal from the grid's largest position
+    + 1."""
+    import torch
+    t, h, w = grid
+    n = t * h * w
+    img = torch.stack([a.flatten() for a in torch.meshgrid(
+        torch.arange(t), torch.arange(h), torch.arange(w), indexing="ij")])
+    first = int(img.max()) + 1
+    txt = torch.arange(first, first + S - n).expand(3, S - n)
+    pos = torch.cat([img, txt], 1).to(torch.int32)
+    return pos[:, None, :].expand(3, B, S).contiguous()
+
+
+def vlm_grid(S):
+    """The image grid of a VLM input of S positions: 1 x s x s patches,
+    the largest square of at most half the sequence (1 x 32 x 32 at
+    S = 2048)."""
+    side = 1
+    while (side + 1) ** 2 <= S // 2:
+        side += 1
+    return (1, side, side)
+
+
+def model_batch(cfg, B, S, dev, seed, labels=False):
+    """A prefill's inputs (with ``labels``, a train step's) for ``cfg``'s
+    family: ids and positions as ``prefill_batch`` (``train_batch``) draws
+    them; M-RoPE's (3, B, S) positions on ``vlm_grid(S)`` with ``vis``
+    random on the patches and zero on the text (vlm); random ``frames``
+    (encdec), the stub frontends' outputs."""
+    import torch
+    batch = (train_batch(B, S, cfg.vocab, "cpu", seed) if labels
+             else prefill_batch(B, S, cfg.vocab, "cpu", seed))
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    if cfg.rope == "mrope":
+        grid = vlm_grid(S)
+        batch["positions"] = mrope_positions(B, S, grid)
+    if cfg.family == "vlm":
+        n = grid[0] * grid[1] * grid[2]
+        vis = torch.zeros((B, S, cfg.d_model))
+        vis[:, :n] = torch.randn((B, n, cfg.d_model), generator=g)
+        batch["vis"] = vis.to(torch.bfloat16)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, S, cfg.d_model),
+                                      generator=g).to(torch.bfloat16)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
 def ssd_inputs(g, b, L, H, P, N):
     """SSD scan inputs on ``g``'s device: x, B and C as column views of
     one post-conv buffer; dt = softplus(n - 3) and A in [-16, -0.1], so
@@ -1362,18 +1495,24 @@ def phase_reference(dev, totals, arch="chatglm3-6b", B=2, S=128,
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     prog = compile(cfg, policy=policy)
-    params = prog.init_params(SEED, device="cpu")
+    t0 = time.perf_counter()
+    # drawn on the card (the CPU's generator takes tens of seconds at
+    # minitron-8b's 2.6 B parameters) and copied to the CPU
+    gpu_params = prog.init_params(SEED)
+    params = _copy_tree(gpu_params, "cpu")
+    init_s = time.perf_counter() - t0
     step = prog.prefill(B, S)
-    batch = prefill_batch(B, S, cfg.vocab, "cpu", SEED)
+    batch = model_batch(cfg, B, S, "cpu", SEED)
+    t0 = time.perf_counter()
     with recorded_routes() as cpu_routes:
         want = step(params, batch)
-    gpu_params = {k: _to(v, dev) for k, v in params.items()}
+    cpu_s = time.perf_counter() - t0
     gpu_batch = {k: v.to(dev) for k, v in batch.items()}
     with recorded_routes() as gpu_routes:
         got, counts = counted(totals, lambda: step(gpu_params, gpu_batch))
     checks = {}
-    for key in [k for k in want if k == "logits" or k.split(".")[-1]
-                in ("k", "v")]:
+    for key in [k for k in want if k in ("logits", "enc")
+                or k.split(".")[-1] in ("k", "v")]:
         a, b = got[key].cpu(), want[key]
         checks[key] = {"rel_err": rel_err(a, b),
                        "max_abs_err": max_err(a, b),
@@ -1389,7 +1528,7 @@ def phase_reference(dev, totals, arch="chatglm3-6b", B=2, S=128,
            "strategies": step.strategies, "checks": checks,
            "tolerance": "relative L2 error < 2e-2: bf16 round-off of the "
                         "kernels against the plain versions on the CPU",
-           "kernel_launches": counts}
+           "kernel_launches": counts, "init_s": init_s, "cpu_s": cpu_s}
     if cfg.moe is not None:
         share, unexplained = route_check(
             gpu_routes, cpu_routes, [params["layers"]["moe"]["router"]["wr"]],
@@ -1405,12 +1544,6 @@ def phase_reference(dev, totals, arch="chatglm3-6b", B=2, S=128,
         ok = ok and unexplained == 0
     log(dict(out, ok=ok))
     return ok
-
-
-def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -3769,10 +3902,12 @@ def phase_moe_train(dev, gpu, totals):
 # weights, gradients and state) they would take about as much again
 SSM_TRAIN_LAYERS = 16
 SSM_TRAIN_SHAPE, SSM_LOOP_STEPS = (2, 2048), 8
-# (layers, (B, S)) of each model's GPU-against-CPU cut at full width:
-# mamba2-2.7b 2 layers; zamba2-1.2b one group (6 Mamba2 layers and the
-# shared block)
-SSM_TRAIN_CUTS = {"mamba2-2.7b": (2, (2, 512)), "zamba2-1.2b": (6, (1, 256))}
+# (layers kept in each stack, (B, S)) of each model's GPU-against-CPU
+# train cut at full width: mamba2-2.7b 2 layers; zamba2-1.2b one group (6
+# Mamba2 layers and the shared block); whisper-tiny 2 encoder and 2
+# decoder layers; qwen2-vl-7b 2 layers
+TRAIN_CUTS = {"mamba2-2.7b": (2, (2, 512)), "zamba2-1.2b": (6, (1, 256)),
+              "whisper-tiny": (2, (2, 256)), "qwen2-vl-7b": (2, (1, 256))}
 SSM_GRAD_KERNELS = ("ssd_scan", "ssd_scan_bwd", "rmsnorm", "rmsnorm_bwd")
 HYBRID_GRAD_KERNELS = SSM_GRAD_KERNELS + ("flash_attention",
                                           "flash_attention_bwd")
@@ -3804,19 +3939,22 @@ def ssm_train_flops(model, params, B, S):
     return 6.0 * n * B * S + 3 * (scan * cfg.n_layers + attn), n
 
 
-def _ssm_train_cut(dev, totals, arch):
-    """``arch`` at full width cut to ``SSM_TRAIN_CUTS[arch]``:
-    ``Program.train_step`` on the card (kernels) against the same program
-    on the CPU (plain versions): the loss and every gradient leaf."""
+def _train_cut(dev, totals, arch):
+    """``arch`` at full width cut to ``TRAIN_CUTS[arch]``'s layers (in
+    both of whisper's stacks): ``Program.train_step`` on the card
+    (kernels) against the same program on the CPU (plain versions), the
+    loss and every gradient leaf."""
     from repro_torch.api import compile
     from repro_torch.configs import get_config
-    layers, (B, S) = SSM_TRAIN_CUTS[arch]
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    layers, (B, S) = TRAIN_CUTS[arch]
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers,
+                              enc_layers=min(cfg.enc_layers, layers))
     prog = compile(cfg)
     step = prog.train_step(B, S)
-    params = prog.init_params(SEED, device="cpu", phase="train")
-    gpu_params = _copy_tree(params, dev)
-    batch = train_batch(B, S, cfg.vocab, "cpu")
+    gpu_params = prog.init_params(SEED, phase="train")
+    params = _copy_tree(gpu_params, "cpu")
+    batch = model_batch(cfg, B, S, "cpu", SEED, labels=True)
     gpu_batch = {k: v.to(dev) for k, v in batch.items()}
     t0 = time.perf_counter()
     want = step.fn.grads(params, batch)
@@ -3824,13 +3962,15 @@ def _ssm_train_cut(dev, totals, arch):
     got, counts = counted(totals, lambda: step.fn.grads(gpu_params,
                                                         gpu_batch))
     checks, ok = grads_agree(got, want)
-    need = (HYBRID_GRAD_KERNELS if cfg.family == "hybrid"
-            else SSM_GRAD_KERNELS)
+    need = {"ssm": SSM_GRAD_KERNELS,
+            "hybrid": HYBRID_GRAD_KERNELS}.get(cfg.family, GRAD_KERNELS)
     ok = ok and all(counts.get(k, 0) > 0 for k in need)
-    log({"phase": "ssm_train_cut", "arch": arch,
-         "config": f"{arch} at full width, {layers} layers, B={B} S={S}, "
-                   "policy dynamic", "strategies": step.strategies,
-         "grads": checks, "kernel_launches": counts, "cpu_grads_s": cpu_s,
+    log({"phase": PREFIX[cfg.family] + "train_cut", "arch": arch,
+         "config": f"{arch} at full width, {layers} layers"
+                   + (" a stack" if cfg.enc_layers else "")
+                   + f", B={B} S={S}, policy dynamic",
+         "strategies": step.strategies, "grads": checks,
+         "kernel_launches": counts, "cpu_grads_s": cpu_s,
          "tolerance": TRAIN_TOL, "ok": ok})
     del step, params, gpu_params, got, want
     gc.collect()
@@ -3947,7 +4087,7 @@ def phase_ssm_train(dev, gpu, totals):
     against the CPU, then at B=2 S=2048 through the graphed step."""
     ok = True
     for arch in ("mamba2-2.7b", "zamba2-1.2b"):
-        ok = _ssm_train_cut(dev, totals, arch) and ok
+        ok = _train_cut(dev, totals, arch) and ok
         ok = _ssm_train_model(dev, gpu, totals, arch) and ok
     return ok
 
@@ -4524,6 +4664,451 @@ def phase_profile(dev, params, arch="chatglm3-6b"):
 
 
 # ---------------------------------------------------------------------------
+# phases: minitron-8b and deepseek-coder-33b served; whisper-tiny
+# (encoder-decoder) and qwen2-vl-7b (M-RoPE) through prefill, decode and
+# the graphed train step
+# ---------------------------------------------------------------------------
+
+DENSE_CONFIGS = ("minitron-8b", "deepseek-coder-33b")
+GEN_STEPS = 16            # greedy decode steps after a prefill
+# (B, S) of the prefill and s_max of the decode: whisper's 30-second
+# encoder length (its states zero-padded to s_max, as the JAX package's
+# static shapes have it); qwen2-vl-7b's 1 x 32 x 32 image grid, then text
+ENC_SHAPE, ENC_SMAX = (4, 1500), 2048
+VLM_SHAPE, VLM_SMAX = (4, 2048), 4096
+ENC_TRAIN_SHAPE = (8, 1500)
+VLM_TRAIN_LAYERS, VLM_TRAIN_SHAPE = 4, (2, 2048)
+NEW_LOOP_STEPS = 8
+
+
+def serve_mix(dev, params, gpu, totals, arch):
+    """The serve mix (prompts of ``SERVE_LENS``, one (4, 2048) prefill
+    group, then tier-4 decode of ``GEN_STEPS`` greedy tokens) on
+    ``compile(arch)``'s engine with graphs, then on the interpreter's
+    (``lowered=False``, its launches not the main path's): the same
+    tokens and launch counts.  The graphs' engine goes before the
+    interpreter's is built: ``phase_serve`` holds two engines at once,
+    and their caches and pools pass what deepseek-coder-33b's 66.7 GB of
+    weights leave of the card."""
+    import torch
+
+    from repro_torch.api import compile
+    prog = compile(arch)          # policy: dynamic
+    cfg = prog.model.cfg
+    free_gb = torch.cuda.mem_get_info(dev)[0] / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = serve_engine(prog, params, GEN_STEPS)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    done, counts = counted(totals, engine.run)
+    wall = time.perf_counter() - t0
+    reqs = sorted(done, key=lambda r: r.rid)
+    st = engine.stats
+    ok = (len(reqs) == 4 and all(r.ok and len(r.output) == GEN_STEPS
+                                 for r in reqs)
+          and all(0 <= t < cfg.vocab for r in reqs for t in r.output)
+          and all(counts.get(k, 0) > 0 for k in SERVE_KERNELS[cfg.family])
+          and st["graph_replays"] == st["decode_steps"] > 0
+          and st["prefill_graph_replays"] == st["prefill_steps"] > 0)
+    prefill_replay = replay_ms(
+        engine._group_graph("prefill", *PREFILL_GROUP), 3)
+    decode_replay = replay_ms(engine._graph(4), 10)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak_reserved = torch.cuda.max_memory_reserved() / 1e9
+    graphs = {"wall_s": wall,
+              "tokens_per_s": sum(len(r.output) for r in reqs) / wall,
+              "ttft_s": [r.first_token_s - r.submitted_s for r in reqs],
+              "warmup_s": warm_s, "capture_s": st["capture_s"],
+              "prefill_capture_s": st["prefill_capture_s"],
+              "prefill_graph_replay_ms": prefill_replay,
+              "decode_graph_replay_ms": decode_replay,
+              "outputs_head": [r.output[:4] for r in reqs],
+              "launches": counts}
+    tokens = [r.output for r in reqs]
+    del engine, done, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    i_engine = serve_engine(prog, params, GEN_STEPS, lowered=False)
+    t0 = time.perf_counter()
+    i_done, i_counts = counted({}, i_engine.run)
+    i_wall = time.perf_counter() - t0
+    i_tokens = [r.output for r in sorted(i_done, key=lambda r: r.rid)]
+    ok = ok and i_tokens == tokens and i_counts == counts
+    del i_engine, i_done
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"phase": "dense_configs", "arch": arch, "gpu": gpu,
+         "config": f"{arch} as published: {cfg.n_layers} layers, d_model "
+                   f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv} kv heads, "
+                   f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, tp=1",
+         "layers": cfg.n_layers, "free_gb_after_params": free_gb,
+         "prompt_lens": list(SERVE_LENS), "new_tokens": GEN_STEPS,
+         **graphs,
+         "interpreter": {"wall_s": i_wall,
+                         "tokens_per_s": sum(map(len, i_tokens)) / i_wall,
+                         "launches": i_counts},
+         "tokens_equal": i_tokens == tokens,
+         "launches_equal": i_counts == counts,
+         "strategies": {f"{ph}:{b}x{s}" + ("" if lo else ":interpreted"):
+                        fwd.strategies
+                        for (ph, b, s, lo, _g), fwd
+                        in prog._serve_steps.items()},
+         "peak_mem_gb": peak, "peak_reserved_gb": peak_reserved, "ok": ok})
+    return ok
+
+
+def phase_dense_configs(dev, gpu, totals):
+    """minitron-8b, then deepseek-coder-33b (alone on the card: every
+    earlier model's params and graph pools freed first), each as
+    published: a 2-layer cut on the GPU against the CPU, then the serve
+    mix with graphs against the interpreter."""
+    import torch
+    ok = True
+    for arch in DENSE_CONFIGS:
+        ok = phase_reference(dev, totals, arch) and ok
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_params(arch)
+        ok = serve_mix(dev, params, gpu, totals, arch) and ok
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok
+
+
+def generate(prog, params, batch, s_max, mode, totals=None):
+    """A prefill of ``batch`` through ``prog``, then ``GEN_STEPS`` greedy
+    decode steps of its rows at one tier (the prefill's K/V copied into
+    caches of ``s_max`` positions; whisper's encoder states zero-padded
+    to ``s_max``, M-RoPE's three position streams continuing from the
+    prefill's last).  ``mode``: ``"graphs"`` (the prefill and each decode
+    step one CUDA Graph, ``GraphStep``, the step's argmax and its
+    advance of ids, positions and lengths inside the graph; the
+    replays' launches go to ``totals``), ``"eager"`` (the same lowered
+    steps op by op) or ``"interpreter"`` (``lowered=False``).  Returns
+    ((B, GEN_STEPS + 1) tokens on the CPU, timings)."""
+    import torch
+
+    from repro_torch.core.capture import GraphStep
+    from repro_torch.models.base import build_forward
+    model, cfg = prog.model, prog.model.cfg
+    B, S = batch["ids"].shape
+    dev = batch["ids"].device
+    if mode == "interpreter":
+        def built(phase, q, seq):
+            segs, _ = model.build_segments(phase, B, q, s_max=s_max)
+            return build_forward(segs, prog.policy,
+                                 prog._context(phase, B, seq),
+                                 lowered=False,
+                                 op_config=model.op_closure_config())
+        pre, dec = built("prefill", S, S), built("decode", 1, s_max)
+    else:
+        pre = prog.prefill(B, S, s_max=s_max).fn
+        dec = prog.decode_tiers(B, s_max, tiers=(B,))[B].fn
+    rec = {}
+    graphs = mode == "graphs"
+    stream = torch.cuda.Stream(dev) if graphs else None
+
+    def prefill():
+        return pre(params, batch)
+    if graphs:
+        pg = GraphStep(prefill, prefill, stream=stream)
+        out, rec["prefill_launches"] = counted(totals, pg.replay)
+        rec["prefill_capture_s"] = pg.capture_s
+    else:
+        out = prefill()
+    kv = "decoder" if cfg.family == "encdec" else "layers"
+    k = out[f"{kv}.k"]
+    caches = {}
+    for name in ("k", "v"):
+        c = torch.zeros(k.shape[:2] + (s_max,) + k.shape[3:], dtype=k.dtype,
+                        device=dev)
+        c[:, :, :S] = out[f"{kv}.{name}"]
+        caches[f"{name}_cache"] = c
+    first = out["logits"][:, -1].argmax(-1).to(torch.int32)
+    state = {"ids": first[:, None].clone(),
+             "positions": (batch["positions"][..., -1:] + 1).contiguous(),
+             "cache_len": torch.full((B,), S, dtype=torch.int32, device=dev),
+             **caches}
+    if cfg.family == "encdec":
+        enc = torch.zeros((B, s_max, cfg.d_model), dtype=torch.bfloat16,
+                          device=dev)
+        enc[:, :S] = out["enc"]
+        state["enc"] = enc
+    tokens = [first.clone()]
+    del out
+    if graphs:
+        rec["prefill_graph_ms"] = replay_ms(pg, 3)
+        del pg
+
+    def step(st):
+        o = dec(params, dict(st))
+        nxt = o["logits"][:, -1].argmax(-1).to(torch.int32)
+        st["ids"].copy_(nxt[:, None])
+        st["positions"].add_(1)
+        st["cache_len"].add_(1)
+        return nxt
+    if graphs:
+        dg = GraphStep(lambda: step(state),
+                       lambda: step({k: t.clone() for k, t in state.items()}),
+                       stream=stream)
+        rec["decode_capture_s"] = dg.capture_s
+        run = dg.replay
+    else:
+        def run():
+            return step(state)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def loop():
+        start.record()
+        for _ in range(GEN_STEPS):
+            tokens.append(run().clone())
+        end.record()
+    _, rec["decode_launches"] = counted(totals if graphs else {}, loop)
+    loop_ms = start.elapsed_time(end)
+    rec["decode_step_ms"] = loop_ms / GEN_STEPS
+    rec["decode_tokens_per_s"] = B * GEN_STEPS / (loop_ms / 1e3)
+    if graphs:
+        rec["decode_graph_ms"] = replay_ms(dg, 10)
+        del dg
+    return torch.stack(tokens, 1).cpu(), rec
+
+
+def generate_phase(dev, gpu, totals, arch, shape, s_max, params=None):
+    """``generate`` with graphs, eagerly and with the interpreter on the
+    same params and inputs: the tokens of the three equal, in vocab, and
+    the family's kernels launched by the graphs."""
+    import torch
+
+    from repro_torch.api import compile
+    prog = compile(arch)          # policy: dynamic
+    cfg = prog.model.cfg
+    params = prog.init_params(SEED) if params is None else params
+    B, S = shape
+    batch = model_batch(cfg, B, S, dev, SEED + 3)
+    torch.cuda.reset_peak_memory_stats()
+    runs, tokens = {}, {}
+    for mode in ("graphs", "eager", "interpreter"):
+        launches = {}
+        tokens[mode], runs[mode] = generate(prog, params, batch, s_max, mode,
+                                            launches)
+        if mode == "graphs":
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            runs[mode]["launches"] = launches
+            peak = torch.cuda.max_memory_allocated() / 1e9
+    want = tokens["graphs"]
+    same = {m: bool(torch.equal(t, want)) for m, t in tokens.items()}
+    steps = prog.prefill(B, S, s_max=s_max).strategies
+    fused = "tokenweave" in steps.values()
+    launched = runs["graphs"]["launches"]
+    ok = (all(same.values()) and bool(((want >= 0) & (want < cfg.vocab))
+                                      .all())
+          and all(launched.get(k, 0) > 0 for k in SERVE_KERNELS[cfg.family])
+          and (launched.get("fused_add_rmsnorm", 0) > 0) == fused)
+    log({"phase": PREFIX[cfg.family].rstrip("_"), "arch": arch, "gpu": gpu,
+         "config": f"{arch} as published: {cfg.n_layers} layers"
+                   + (f" (+ {cfg.enc_layers} encoder layers)"
+                      if cfg.enc_layers else "")
+                   + f", d_model {cfg.d_model}, {cfg.n_heads} q / "
+                   f"{cfg.n_kv} kv heads of {cfg.hd}; prefill B={B} S={S}, "
+                   f"{GEN_STEPS} greedy decode steps at tier {B}, "
+                   f"s_max {s_max}",
+         "prefill_strategies": steps, "tokens_head": want[:, :6].tolist(),
+         "tokens_equal": same, **runs, "peak_mem_gb": peak, "ok": ok})
+    return ok
+
+
+def phase_encdec(dev, gpu, totals):
+    """whisper-tiny as published: the whole model on the card against
+    the CPU (B=2 S=256), then prefill and greedy decode (``generate``)."""
+    ok = phase_reference(dev, totals, "whisper-tiny", B=2, S=256,
+                         n_layers=4)
+    return generate_phase(dev, gpu, totals, "whisper-tiny", ENC_SHAPE,
+                          ENC_SMAX) and ok
+
+
+def phase_vlm(dev, gpu, totals):
+    """qwen2-vl-7b: a 2-layer cut on the card against the CPU, then as
+    published: prefill and greedy decode (``generate``), and ``dynamic``
+    and ``nanoflow`` against ``sequential`` at prefill."""
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    arch = "qwen2-vl-7b"
+    ok = phase_reference(dev, totals, arch)
+    gc.collect()
+    params = init_params(arch)
+    ok = generate_phase(dev, gpu, totals, arch, VLM_SHAPE, VLM_SMAX,
+                        params) and ok
+    cfg = get_config(arch)
+    B, S = VLM_SHAPE
+    batch = model_batch(cfg, B, S, dev, SEED + 1)
+    want = compile(cfg, policy="sequential").prefill(B, S)(
+        params, batch)["logits"]
+    runs = {}
+    for policy in ("dynamic", "nanoflow"):
+        step = compile(cfg, policy=policy).prefill(B, S)
+        got, counts = counted(totals, lambda: step(params, batch)["logits"])
+        err = rel_err(got, want)
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        finite = bool(torch.isfinite(got.float()).all())
+        this = (finite and err < 5e-2 and agree >= 0.5
+                and step.strategies["layers"] == "nanoflow")
+        runs[policy] = {"strategies": step.strategies,
+                        "rel_err_vs_sequential": err,
+                        "argmax_agree": agree, "finite": finite,
+                        "launches": counts, "ok": this}
+        ok = ok and this
+    log({"phase": "vlm_transparency", "shape": f"B={B} S={S}",
+         "runs": runs, "tolerance": "relative L2 error of the logits < "
+         "5e-2 and the same argmax on at least half the rows",
+         "ok": all(r["ok"] for r in runs.values())})
+    del params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def whisper_train_flops(cfg, params, B, S):
+    """(model FLOPs of one whisper train step, matmul params): 6 per
+    parameter a token — the encoder's against its B S frames, the
+    decoder's and the tied embedding's (the head's matmul) against the B
+    S tokens — plus 3 x 4 B S^2 H hd a layer for the encoder's
+    self-attention and the decoder's cross-attention (full: S_enc = S,
+    neither causal) and half that for the decoder's causal
+    self-attention.  Recomputation under remat is not counted."""
+    from repro_torch.tree import leaves
+    n = sum(t.numel() for t in leaves(params))
+    full = 4.0 * B * S * S * cfg.n_heads * cfg.hd
+    return 6.0 * n * B * S + 3 * full * (cfg.enc_layers
+                                         + 1.5 * cfg.n_layers), n
+
+
+def _train_model(dev, gpu, totals, cfg, shape, flops_fn):
+    """``cfg`` at ``shape`` through the graphed ``TrainStep`` under
+    ``dynamic`` with remat: its gradients against ``sequential``'s, the
+    loss falling over ``NEW_LOOP_STEPS`` steps on one repeated batch, two
+    replays against ``fn.eager`` bit for bit, then the step's timings."""
+    import math
+
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainLoopConfig, TrainStepConfig,
+                                   train_loop)
+    B, S = shape
+    tcfg = TrainStepConfig(optimizer=AdamWConfig(lr=LOOP_LR),
+                           warmup=LOOP_WARMUP, total_steps=NEW_LOOP_STEPS)
+    dyn_prog = compile(cfg, policy="dynamic")
+    dyn = dyn_prog.train_step(B, S, cfg=tcfg)
+    seq = compile(cfg, policy="sequential").train_step(B, S, cfg=tcfg)
+    params = dyn_prog.init_params(SEED, phase="train")
+    batch = model_batch(cfg, B, S, dev, SEED, labels=True)
+    want = seq.fn.grads(params, batch)
+    got, counts = counted(totals, lambda: dyn.fn.grads(params, batch))
+    grads, ok = grads_agree(got, want)
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    strat = dyn.strategies
+    fused = "tokenweave" in strat.values()
+    need = GRAD_KERNELS + (FUSED_PAIR if fused else ())
+    ok = (ok and all(counts.get(k, 0) > 0 for k in need)
+          and all((counts.get(k, 0) > 0) == fused for k in FUSED_PAIR))
+    opt = dyn.init_opt(params)
+    stats0 = dict(dyn.fn.stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, hist = train_loop(
+        dyn.fn, params, opt, RepeatedBatch(batch),
+        TrainLoopConfig(steps=NEW_LOOP_STEPS, log_every=10 ** 9))
+    loop_s = time.perf_counter() - t0
+    capture = {**capture_record(dyn.fn, stats0),
+               "loop_peak_allocated_gb": torch.cuda.max_memory_allocated()
+               / 1e9,
+               "loop_peak_reserved_gb": torch.cuda.max_memory_reserved()
+               / 1e9}
+    losses = [h["loss"] for h in hist]
+    falls = all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    bitwise = graph_vs_eager(dyn.fn, params, opt, batch, NEW_LOOP_STEPS,
+                             steps=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings = step_timings(dyn.fn, params, opt, batch, cfg, totals,
+                           NEW_LOOP_STEPS + bitwise["replays"],
+                           flops=flops_fn(cfg, params, B, S))
+    ok = (ok and falls and bitwise["ok"] and capture["graph_captures"] == 1
+          and all(timings["kernel_launches_one_step"].get(n, 0) > 0
+                  for n in need + ("adamw",)))
+    log({"phase": PREFIX[cfg.family] + "train", "arch": cfg.name,
+         "gpu": gpu,
+         "config": f"{cfg.name} at full width, {cfg.n_layers} layers"
+                   + (f" (+ {cfg.enc_layers} encoder layers)"
+                      if cfg.enc_layers else "")
+                   + f", B={B} S={S}, TrainStepConfig(lr=1e-3, warmup=3, "
+                   "remat), the step one CUDA Graph over per-resource "
+                   "streams",
+         "params": sum(t.numel() for t in _leaves(params)),
+         "strategies": strat, "dynamic_vs_sequential": grads,
+         "first_step_launches": counts, "capture": capture,
+         "loop": {"steps": NEW_LOOP_STEPS, "losses": losses,
+                  "falls": falls, "loop_s": loop_s},
+         "graph_vs_eager": bitwise, **timings,
+         "tolerance": dict(TRAIN_TOL, graph_vs_eager="bitwise"), "ok": ok})
+    del dyn, seq, dyn_prog, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def phase_encdec_train(dev, gpu, totals):
+    """whisper-tiny: a cut against the CPU, then as published at B=8
+    S=1500 through the graphed step (TokenWeave under ``dynamic``)."""
+    from repro_torch.configs import get_config
+    ok = _train_cut(dev, totals, "whisper-tiny")
+    return _train_model(dev, gpu, totals, get_config("whisper-tiny"),
+                            ENC_TRAIN_SHAPE, whisper_train_flops) and ok
+
+
+def phase_vlm_train(dev, gpu, totals):
+    """qwen2-vl-7b: a cut against the CPU, then at full width cut to
+    ``VLM_TRAIN_LAYERS`` layers, B=2 S=2048, with the M-RoPE inputs
+    (NanoFlow under ``dynamic``)."""
+    from repro_torch.configs import get_config
+    ok = _train_cut(dev, totals, "qwen2-vl-7b")
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b"),
+                              n_layers=VLM_TRAIN_LAYERS)
+    return _train_model(
+        dev, gpu, totals, cfg, VLM_TRAIN_SHAPE,
+        lambda c, p, B, S: train_flops(c, p, B, S)) and ok
+
+
+def run_new(phases, dev, gpu, totals):
+    """The phases of the four configurations, each model's params freed
+    before the next's."""
+    import torch
+    ok = True
+    for name, phase in (("dense_configs", phase_dense_configs),
+                        ("encdec", phase_encdec), ("vlm", phase_vlm),
+                        ("encdec_train", phase_encdec_train),
+                        ("vlm_train", phase_vlm_train)):
+        if name in phases:
+            t0 = time.perf_counter()
+            ok = phase(dev, gpu, totals) and ok
+            log({"phase": f"{name}_done", "s": time.perf_counter() - t0})
+            gc.collect()
+            torch.cuda.empty_cache()
+    return ok
+
+
+# ---------------------------------------------------------------------------
 
 
 def init_params(arch):
@@ -4636,7 +5221,8 @@ def main(argv=None) -> int:
                     "reference,transparency,serve,lifecycle,paged,sampling,"
                     "spec,autotune,moe_reference,moe_transparency,moe_serve,"
                     "moe_train,ssm_reference,ssm_transparency,ssm_serve,"
-                    "ssm_train,train,streams")
+                    "ssm_train,dense_configs,encdec,vlm,encdec_train,"
+                    "vlm_train,train,streams")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")
     args = ap.parse_args(argv)
@@ -4679,6 +5265,9 @@ def main(argv=None) -> int:
     gc.collect()          # the MoE params go before the SSM models'
     torch.cuda.empty_cache()
     ok = run_ssm(phases, dev, gpu, totals) and ok
+    gc.collect()          # the SSM models go before the new configurations
+    torch.cuda.empty_cache()
+    ok = run_new(phases, dev, gpu, totals) and ok
     if "train" in phases:
         ok = phase_train(dev, totals) and ok
     if "streams" in phases:

@@ -1,7 +1,7 @@
 """Architecture config registry.  ``get_config(arch_id)`` returns the exact
 published config; ``get_smoke_config(arch_id)`` a reduced same-family config
-for CPU smoke tests.  The port registers the configs of the families it
-has ported; the other families arrive with their slices."""
+for CPU smoke tests.  The port registers every config of the JAX
+package but grok-1-314b, which serves only with FSDP weight sharding."""
 from .base import SHAPES, ArchConfig, MoEConfig, ShapeConfig, SSMConfig  # noqa: F401
 
 _REGISTRY = {}
@@ -32,5 +32,6 @@ def list_archs():
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from . import (chatglm3_6b, deepseek_moe_16b, mamba2_2p7b,  # noqa: F401
-                   smollm_135m, zamba2_1p2b)
+    from . import (chatglm3_6b, deepseek_coder_33b,  # noqa: F401
+                   deepseek_moe_16b, mamba2_2p7b, minitron_8b, qwen2_vl_7b,
+                   smollm_135m, whisper_tiny, zamba2_1p2b)

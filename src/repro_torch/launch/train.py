@@ -66,12 +66,20 @@ def main(argv=None):
                          DataConfig(seq_len=args.seq,
                                     global_batch=args.batch, seed=args.seed))
     pos = torch.arange(args.seq, dtype=torch.int32, device=dev).expand(
-        args.batch, args.seq).contiguous()
+        args.batch, args.seq)
+    if cfg.rope == "mrope":       # the three streams equal: text positions
+        pos = pos.expand(3, args.batch, args.seq)
+    pos = pos.contiguous()
+    # the stub frontends' inputs: no patch or frame embeddings
+    extra = {name: torch.zeros((args.batch, args.seq, cfg.d_model),
+                               dtype=torch.bfloat16, device=dev)
+             for name, family in (("vis", "vlm"), ("frames", "encdec"))
+             if cfg.family == family}
 
     def to_device(b):
         return {"ids": torch.from_numpy(b["ids"]).to(dev),
                 "labels": torch.from_numpy(b["labels"]).to(dev),
-                "positions": pos}
+                "positions": pos, **extra}
 
     sim = (FailureSimulator(crash_steps=(args.crash_at,))
            if args.crash_at >= 0 else None)

@@ -542,19 +542,20 @@ class LMBase:
 
     def batch_inputs(self, phase: str, B_loc: int, S: int,
                      s_max: int = 0) -> dict:
-        """name -> (TensorSpec, batch_dim) for non-cache inputs."""
-        if self.cfg.rope == "mrope":
-            raise NotImplementedError("M-RoPE is not ported yet")
+        """name -> (TensorSpec, batch_dim) for non-cache inputs.  M-RoPE's
+        positions are three streams (t, h, w), ``(3, B, S)`` with the
+        batch at dim 1, in every phase."""
         spec = TensorSpec((B_loc, S), I32)
+        pos = (TensorSpec((3, B_loc, S), I32), 1) \
+            if self.cfg.rope == "mrope" else (spec, 0)
         if phase == "train":
-            return {"ids": (spec, 0), "labels": (spec, 0),
-                    "positions": (spec, 0)}
+            return {"ids": (spec, 0), "labels": (spec, 0), "positions": pos}
         if phase == "prefill":
-            return {"ids": (spec, 0), "positions": (spec, 0)}
+            return {"ids": (spec, 0), "positions": pos}
         if phase == "decode":
             # S == 1 is the classic single-token decode; S > 1 runs the
             # same cached-attention graph over a chunk of S positions
-            return {"ids": (spec, 0), "positions": (spec, 0),
+            return {"ids": (spec, 0), "positions": pos,
                     "cache_len": (TensorSpec((B_loc,), I32), 0)}
         raise NotImplementedError(f"phase {phase!r} is not ported yet")
 

@@ -10,8 +10,9 @@ Layouts follow the JAX package: linear weights are (d_in, d_out) and used
 as ``x @ w``; activations are (B, S, d); attention heads (B, S, H, hd).
 Attention, decode attention and RMSNorm go through ``kernels.ops`` — the
 Hopper kernels on a CUDA tensor, their plain versions on the CPU.
-The MoE ops live in ``moe.py``, the Mamba2 ops in ``mamba2.py`` and the
-hybrid's shared block in ``hybrid.py``; FSDP weight gathers arrive with a
+The MoE ops live in ``moe.py``, the Mamba2 ops in ``mamba2.py``, the
+hybrid's shared block in ``hybrid.py`` and Whisper's encoder-decoder
+ops in ``whisper.py``; FSDP weight gathers arrive with a
 later slice.  The training head (``HeadLossOp``) computes its loss and
 its gradient chunk by chunk (``HeadLoss``), so no step holds more than one
 chunk's logits.
@@ -140,6 +141,20 @@ class SwiGLUOp(Op):
         return F.silu(gate.float()).to(gate.dtype) * up
 
 
+class GELUOp(Op):
+    """GELU in f32 (memory-bound): the tanh form, ``jax.nn.gelu``'s
+    default, where ``F.gelu``'s own default is the erf form."""
+
+    resource = "memory"
+
+    def __init__(self, name="gelu"):
+        super().__init__()
+        self.named(name)
+
+    def kernel(self, p, x):
+        return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # collectives as schedulable network ops
 # ---------------------------------------------------------------------------
@@ -260,7 +275,33 @@ def rope_partial(q, k, positions, fraction=0.5, base=10000.0):
     return app(q), app(k)
 
 
-ROPE_FNS = {"full": rope_full, "partial2d": rope_partial}
+def rope_mrope(q, k, positions3, sections=(16, 24, 24), base=10000.0):
+    """Qwen2-VL M-RoPE: the head dim's halves split into (t, h, w)
+    sections, each rotated by its own position stream.  The inverse
+    frequencies run over the whole head dim and are sliced by section.
+    positions3 (3, B, S)."""
+    hd = q.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    inv = 1.0 / (base ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                       device=q.device) / hd))
+    cos_parts, sin_parts = [], []
+    offset = 0
+    for sec, pos in zip(sections, positions3):
+        ang = pos.float()[..., None] * inv[offset:offset + sec]
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        offset += sec
+    cos = torch.cat(cos_parts, -1).to(q.dtype)[:, :, None, :]
+    sin = torch.cat(sin_parts, -1).to(q.dtype)[:, :, None, :]
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+
+def _rope_none(q, k, positions, **kw):
+    return q, k
+
+
+ROPE_FNS = {"full": rope_full, "partial2d": rope_partial,
+            "mrope": rope_mrope, "none": _rope_none}
 
 
 # ---------------------------------------------------------------------------
@@ -766,17 +807,18 @@ class TakeLastOp(Op):
 
 
 class MLPBlock(Module):
-    """SwiGLU MLP, column/row parallel (+SP reduce-scatter outside)."""
+    """SwiGLU (or, with any other ``act``, GELU) MLP, column/row parallel
+    (+SP reduce-scatter outside).  SwiGLU's ``wi`` holds gate and up,
+    ``d -> 2 d_ff``; GELU's ``d -> d_ff``."""
 
     def __init__(self, d, d_ff, mesh: MeshInfo, name="mlp",
                  dtype=torch.bfloat16, act="swiglu"):
         super().__init__()
         assert d_ff % mesh.tp == 0, (d_ff, mesh.tp)
-        if act != "swiglu":
-            raise NotImplementedError(f"activation {act!r} is not ported yet")
         ff_loc = d_ff // mesh.tp
-        self.wi = ShardedLinear(d, 2 * ff_loc, "mlp_in", mesh, dtype=dtype)
-        self.act = SwiGLUOp()
+        mult = 2 if act == "swiglu" else 1
+        self.wi = ShardedLinear(d, mult * ff_loc, "mlp_in", mesh, dtype=dtype)
+        self.act = SwiGLUOp() if act == "swiglu" else GELUOp()
         self.wo = ShardedLinear(ff_loc, d, "mlp_out", mesh,
                                 pspec=(("model",), ()), dtype=dtype)
         self.named(name)

@@ -10,10 +10,11 @@ def build_model(cfg: ArchConfig, mesh: MeshInfo):
     from .mamba2 import Mamba2LM
     from .moe import MoELM
     from .transformer import DenseLM
+    from .vlm import VLM
+    from .whisper import WhisperLM
 
     fam = {"dense": DenseLM, "moe": MoELM, "ssm": Mamba2LM,
-           "hybrid": HybridLM}
+           "hybrid": HybridLM, "encdec": WhisperLM, "vlm": VLM}
     if cfg.family not in fam:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (have {sorted(fam)})")
+        raise KeyError(f"unknown family {cfg.family!r}")
     return fam[cfg.family](cfg, mesh)

@@ -304,6 +304,18 @@ def _graphs_of(serial: int):
     return lambda key: len(key) > 1 and key[1] == mine
 
 
+# families whose steps take inputs the engine does not feed (it stages
+# ids, (B, S) positions and the caches only): the JAX package's engine
+# fails on both too, the encoder-decoder at construction and the VLM at
+# its first prefill
+UNSERVED_FAMILIES = {
+    "encdec": "its prefill takes `frames` and its decode the encoder "
+              "states `enc`",
+    "vlm": "its prefill takes `vis` and its positions are M-RoPE's "
+           "(3, B, S) streams",
+}
+
+
 class ServeEngine:
     """``scheduler`` accepts an ``OpSchedulerBase``, a ``StrategyPolicy``
     or a strategy name (resolved per step context by ``build_forward``).
@@ -317,6 +329,11 @@ class ServeEngine:
     def __init__(self, model, params, scheduler, cfg: ServeConfig,
                  device=None, step_cache: Optional[dict] = None,
                  plan_store: Optional[PlanStore] = None):
+        family = model.cfg.family
+        if family in UNSERVED_FAMILIES:
+            raise NotImplementedError(
+                f"ServeEngine does not serve the {family!r} family "
+                f"({model.cfg.name}): {UNSERVED_FAMILIES[family]}")
         self.model = model
         self.params = params
         if isinstance(scheduler, str):

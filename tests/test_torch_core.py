@@ -1,9 +1,10 @@
 """The port's scheduling core (src/repro_torch/core) against the JAX
 package's.
 
-For the traced smoke graphs of smollm-135m, chatglm3-6b,
-deepseek-moe-16b, mamba2-2.7b and zamba2-1.2b, in the prefill and decode
-phases, under sequential /
+For the traced smoke graphs of every config the port registers
+(smollm-135m, chatglm3-6b, deepseek-moe-16b, mamba2-2.7b, zamba2-1.2b,
+minitron-8b, deepseek-coder-33b, whisper-tiny, qwen2-vl-7b), in the
+prefill and decode phases, under sequential /
 sbo / nanoflow / tokenweave / dbo / comet / dynamic, the port must
 produce the same trace (node names,
 resources, edges, shapes, dtypes, batch dims, cost estimates), the same
@@ -37,7 +38,8 @@ from repro_torch.models.layers import MeshInfo as TMeshInfo
 from repro_torch.models.registry import build_model as tbuild_model
 
 ARCHS = ["smollm-135m", "chatglm3-6b", "deepseek-moe-16b", "mamba2-2.7b",
-         "zamba2-1.2b"]
+         "zamba2-1.2b", "minitron-8b", "deepseek-coder-33b", "whisper-tiny",
+         "qwen2-vl-7b"]
 POLICIES = ["sequential", "sbo", "nanoflow", "tokenweave", "dbo", "comet",
             "dynamic"]
 # (phase, local batch, seq) — contexts that reach every dynamic branch:

@@ -231,6 +231,82 @@ def test_ssd_scan_kernel_replays_bitwise(cuda, b, H, N):
     _replay_equals_eager("ssd_scan", tssd.ssd_scan, *_inputs_twice(make))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,Sq", [(False, 1500), (False, 1)])
+def test_flash_kernel_replays_bitwise_non_causal(cuda, causal, Sq):
+    """whisper-tiny's encoder (1500 keys) and its decode cross-attention
+    (one row against 2048 encoder rows)."""
+    B, Sk, H, hd = 4, 1500 if Sq > 1 else 2048, 6, 64
+
+    def make(seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        return [_randn(g, B, Sq, H, hd), _randn(g, B, Sk, H, hd),
+                _randn(g, B, Sk, H, hd)]
+    _replay_equals_eager(
+        "flash_attention",
+        lambda q, k, v: tfa.flash_attention(q, k, v, causal=causal),
+        *_inputs_twice(make))
+
+
+@pytest.mark.cuda
+def test_whisper_decode_step_replays_the_eager_steps(cuda):
+    """whisper-tiny as published (6 heads of 64): its decode step captured
+    as one graph — the decode forward with its cross-attention over all
+    ``s_max`` encoder rows, the argmax and the advance of ids, positions
+    and lengths — replays bitwise the same steps run eagerly, leaves the
+    same caches, and counts one flash and one decode launch a layer."""
+    from repro_torch.api import compile
+    prog = compile("whisper-tiny")
+    cfg = prog.model.cfg
+    params = prog.init_params(0)
+    B, S, s_max = 2, 200, 512
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"frames": _randn(g, B, S, cfg.d_model),
+             "ids": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                  device=cuda, dtype=torch.int32),
+             "positions": torch.arange(S, device=cuda, dtype=torch.int32
+                                       ).expand(B, S).contiguous()}
+    out = prog.prefill(B, S)(params, batch)
+    dec = prog.decode_tiers(B, s_max, tiers=(B,))[B]
+
+    def state():
+        st = {"ids": out["logits"][:, -1].argmax(-1, keepdim=True).int(),
+              "positions": torch.full((B, 1), S, dtype=torch.int32,
+                                      device=cuda),
+              "cache_len": torch.full((B,), S, dtype=torch.int32,
+                                      device=cuda)}
+        for name, src, dim in (("k_cache", "decoder.k", 2),
+                               ("v_cache", "decoder.v", 2),
+                               ("enc", "enc", 1)):
+            t = out[src]
+            pad = list(t.shape)
+            pad[dim] = s_max - S
+            st[name] = torch.cat([t, t.new_zeros(pad)], dim)
+        return st
+
+    def step(st):
+        o = dec(params, dict(st))
+        nxt = o["logits"][:, -1].argmax(-1).int()
+        st["ids"].copy_(nxt[:, None])
+        st["positions"].add_(1)
+        st["cache_len"].add_(1)
+        return nxt
+
+    live, ref = state(), state()
+    graph = GraphStep(lambda: step(live),
+                      lambda: step({k: t.clone() for k, t in live.items()}),
+                      stream=torch.cuda.Stream())
+    assert graph.launches["flash_attention"] == cfg.n_layers
+    assert graph.launches["decode_attention"] == cfg.n_layers
+    for _ in range(4):
+        got = graph.replay().clone()
+        want = step(ref)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    for k in live:
+        assert torch.equal(live[k], ref[k]), k
+
+
 # ---------------------------------------------------------------------------
 # the serve engine's decode graphs
 # ---------------------------------------------------------------------------

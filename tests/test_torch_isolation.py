@@ -78,6 +78,24 @@ def test_port_imports_without_jax():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_importing_the_port_makes_cublas_sum_in_f32():
+    """PyTorch's default lets cuBLAS reduce a 16-bit product's split-K
+    partial sums in 16 bits; the port's products, like the JAX package's,
+    sum in f32 to the end (``repro_torch/__init__.py``)."""
+    code = ("import torch\n"
+            "m = torch.backends.cuda.matmul\n"
+            "assert m.allow_bf16_reduced_precision_reduction\n"
+            "import repro_torch\n"
+            "assert not m.allow_bf16_reduced_precision_reduction\n"
+            "assert not m.allow_fp16_reduced_precision_reduction\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_entry_points_default_to_the_gpu():
     from repro_torch.api import compile, resolve_device
     prog = compile("smollm-135m", smoke=True)

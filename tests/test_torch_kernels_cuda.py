@@ -81,7 +81,12 @@ def _flash_close(got, q, k, v, **kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd,causal", [
     (2, 256, 256, 8, 2, 128, True), (1, 200, 200, 4, 4, 64, True),
-    (2, 96, 160, 4, 1, 64, False), (1, 130, 70, 2, 2, 128, True)])
+    (2, 96, 160, 4, 1, 64, False), (1, 130, 70, 2, 2, 128, True),
+    # whisper-tiny: the encoder and the prefill's cross-attention (1500
+    # keys, the last tile short), one decode row against 2048 encoder rows
+    (4, 1500, 1500, 6, 6, 64, False), (4, 1, 2048, 6, 6, 64, False),
+    # GQA groups of 7 (qwen2-vl-7b, deepseek-coder-33b)
+    (1, 2048, 2048, 28, 4, 128, True), (1, 2048, 2048, 56, 8, 128, True)])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, Hk, hd, causal):
     q, k, v = _dev(0, cuda, (B, Sq, H, hd), (B, Sk, Hk, hd), (B, Sk, Hk, hd))
     slot = (torch.arange(H, device=cuda) // (H // Hk)).int()
@@ -157,7 +162,7 @@ def _decode_inputs(seed, dev, B, S, H, Hk, hd, lens):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1100, 8500])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("G", [1, 2, 8, 16, 24])
+@pytest.mark.parametrize("G", [1, 2, 7, 8, 16, 24])
 def test_decode_kernel_groups_and_chunk_edges(cuda, G, hd, S):
     """Every GQA group size a block serves (24: two tiles of 16 heads),
     at lengths of 1, a chunk -1, +0 and +1, S and past S (S=8500 takes
@@ -171,6 +176,21 @@ def test_decode_kernel_groups_and_chunk_edges(cuda, G, hd, S):
     n = LAUNCHES["decode_attention"]
     got = tdec.decode_attention(q, kc, vc, clen, kv_head=slot)
     assert LAUNCHES["decode_attention"] == n + 1
+    _close(got, tdec.decode_attention_plain(q, kc, vc, clen, kv_head=slot),
+           DECODE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hk,hd,S", [(56, 8, 128, 4096), (28, 4, 128, 4096),
+                                      (32, 8, 128, 4096), (6, 6, 64, 2048)])
+def test_decode_kernel_at_the_configs_heads(cuda, H, Hk, hd, S):
+    """deepseek-coder-33b's and qwen2-vl-7b's groups of 7, minitron-8b's 4
+    at 8 K/V heads, whisper-tiny's 6 heads of 64, at their decode tiers'
+    cache lengths."""
+    lens = [S, S - 1, S // 2 + 1, 17] if S == 4096 else [1516, 1510, 1505,
+                                                          1501]
+    q, kc, vc, slot, clen = _decode_inputs(21, cuda, 4, S, H, Hk, hd, lens)
+    got = tdec.decode_attention(q, kc, vc, clen, kv_head=slot)
     _close(got, tdec.decode_attention_plain(q, kc, vc, clen, kv_head=slot),
            DECODE)
 
@@ -219,7 +239,8 @@ def test_decode_kernel_rows_are_batch_invariant(cuda, H, Hk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 4, 7, 4096])
-@pytest.mark.parametrize("d", [40, 576, 2048, 2560, 4096, 8192])
+@pytest.mark.parametrize("d", [40, 384, 576, 2048, 2560, 3584, 4096, 7168,
+                               8192])
 def test_rmsnorm_kernel_at_model_widths(cuda, n, d):
     x, g = _dev(23, cuda, (n, d), (d,))
     k = LAUNCHES["rmsnorm"]
@@ -359,7 +380,7 @@ def test_fused_kernel_dtypes(cuda, xt, gt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 40, 576, 2048, 8192])
+@pytest.mark.parametrize("d", [8, 40, 384, 576, 2048, 3584, 7168, 8192])
 def test_fused_kernel_at_widths_and_empty_input(cuda, d):
     """Every pack count at its width, and n == 0: empty outputs of the
     right types and no launch."""

@@ -30,7 +30,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import FULL, ScheduleContext, Realizer
 from repro_torch.models.base import build_forward as tbuild_forward
 
-ARCHS = ["smollm-135m", "chatglm3-6b"]
+ARCHS = ["smollm-135m", "chatglm3-6b", "minitron-8b", "deepseek-coder-33b"]
 BF16 = dict(atol=3e-2, rtol=3e-2)
 
 

@@ -1,7 +1,8 @@
 """The port's serving engine against the JAX package's.
 
-Smoke smollm-135m and smoke deepseek-moe-16b (a dense first layer and
-one MoE layer, whose decode caches are two stacks) on the same
+Smoke smollm-135m, smoke minitron-8b and smoke deepseek-moe-16b (a
+dense first layer and one MoE layer, whose decode caches are two
+stacks) on the same
 parameters (``params_from_numpy`` of
 ``repro``'s ``init_params(PRNGKey(0))``), a batch of mixed prompt
 lengths that exercises batched bucketed prefill (full and padded
@@ -42,7 +43,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.serve import (ChunkingDisabled, EmptyPrompt, PromptOverflow,
                                Request, ServeConfig)
 
-ARCHS = ["smollm-135m", "deepseek-moe-16b"]
+ARCHS = ["smollm-135m", "deepseek-moe-16b", "minitron-8b"]
 BF16 = dict(atol=3e-2, rtol=3e-2)
 PROMPT_LENS = (3, 8, 13, 16, 30, 5)
 NEW_TOKENS = 6
@@ -177,6 +178,35 @@ def test_engine_refuses_oversized_and_cross_device_input(served):
     with pytest.raises(ValueError):
         prog.serve(params, ServeConfig(**CFG))
     assert torch.device("cpu") == eng.device
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-7b"])
+def test_engine_refuses_the_families_neither_engine_serves(arch):
+    """The JAX package's engine feeds only ids, (B, S) positions and the
+    caches: it fails on the encoder-decoder at construction and fails
+    the VLM's first prefill (no ``vis``).  The port's engine refuses both
+    at construction, naming the family; their steps run through
+    ``Program.prefill`` / ``decode_tiers`` (tests/test_torch_encdec.py,
+    tests/test_torch_vlm.py)."""
+    jm = jbuild_model(jget_smoke(arch), JMeshInfo())
+    jparams = jm.init_params(jax.random.PRNGKey(0), phase="prefill")
+    cfg = dict(max_batch=2, s_max=64, prefill_buckets=(16,))
+    if jm.cfg.family == "encdec":
+        with pytest.raises(NotImplementedError):
+            JServeEngine(jm, jparams, "sequential",
+                         JServeConfig(lowered=False, **cfg))
+    else:
+        ref = JServeEngine(jm, jparams, "sequential",
+                           JServeConfig(lowered=False, **cfg))
+        ref.submit(JRequest(0, np.arange(1, 6, dtype=np.int32),
+                            max_new_tokens=3))
+        (r,) = ref.run()
+        assert not r.output and "'vis'" in r.result.reason
+    prog = tcompile(arch, smoke=True, device="cpu")
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
+    with pytest.raises(NotImplementedError, match=repr(jm.cfg.family)):
+        prog.serve(tparams, ServeConfig(**cfg))
 
 
 # ---------------------------------------------------------------------------

@@ -546,7 +546,10 @@ def _flash_case(cuda, seed, B, Sq, Sk, H, Hk, hd, kv_head=None):
     # Sq != Sk, both ways
     (2, 100, 260, 4, 2, 64, None), (1, 260, 100, 4, 1, 128, None),
     # a map that is not contiguous groups, split over units
-    (1, 150, 150, 8, 2, 128, [1, 0, 1, 1, 0, 1, 1, 1])])
+    (1, 150, 150, 8, 2, 128, [1, 0, 1, 1, 0, 1, 1, 1]),
+    # whisper-tiny's train step (1500 keys: the last tile short), and
+    # qwen2-vl-7b's group of 7
+    (8, 1500, 1500, 6, 6, 64, None), (2, 2048, 2048, 28, 4, 128, None)])
 def test_flash_bwd_kernel_shapes(cuda, B, Sq, Sk, H, Hk, hd, kv_head, causal):
     """The kernel against its plain version where the work splits over
     heads, rows and keys run past every tile, Sq != Sk and kv_head is any
@@ -575,7 +578,8 @@ def test_flash_bwd_kernel_shapes(cuda, B, Sq, Sk, H, Hk, hd, kv_head, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d", [(1, 576), (333, 576), (16384, 576),
                                  (1001, 2048), (4096, 4096), (77, 4096),
-                                 (130, 8192), (5, 1000)])
+                                 (130, 8192), (5, 1000), (12000, 384),
+                                 (4096, 3584)])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, n, d):
     """Both row geometries (1 warp a row up to 1024, 4 and 8 beyond), row
     counts that leave a block's run short, and dg the same bits twice."""
@@ -598,7 +602,8 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, n, d):
                                      (16384, 576, 0), (1001, 2048, 0),
                                      (4096, 4096, 0), (77, 4096, 0),
                                      (130, 8192, 0), (5, 1000, 0),
-                                     (300, 576, 64)])
+                                     (300, 576, 64), (12000, 384, 0),
+                                     (4096, 3584, 0)])
 def test_fused_add_rmsnorm_bwd_kernel_matches_plain(cuda, n, d, pad):
     """The fused backward at both row geometries, runs shorter than a
     block, d = 8192 and d = 1000, and (pad > 0) rows read in place as
