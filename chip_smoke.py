@@ -246,6 +246,26 @@ Phases, each printing one JSON line:
             params, m, v and metrics after 3 steps bit for bit, the step
             time in turns, the overlap, the pool bytes
 
+  mesh      the launch layer: ``python -m repro_torch.launch.serve``'s
+            ``main()`` in this process for chatglm3-6b at full width (the
+            JAX package's default flags: 8 requests of 4-29 tokens, 16
+            greedy tokens each, max_batch 4, s_max 128), its tokens equal
+            to ``compile("chatglm3-6b").serve``'s on the same params and
+            prompts, its tokens/s and TTFT; a one-rank mesh over NCCL
+            (``launch.mesh.make_mesh((1, 1), ("data", "model"))``, an
+            in-memory store): ``compile("chatglm3-6b", mesh=mesh)``'s
+            ``prefill(2, 2048)`` logits and ``decode_tiers(4, 4096)``
+            outputs bit-equal to the no-mesh program's, each timed in
+            turns; then grok-1-314b at full width cut to 2 of its 64
+            layers (every earlier model freed; ~23 GB of bf16 weights) on
+            that mesh with FSDP as ``fsdp_serve`` asks: prefill built with
+            ``MeshInfo(fsdp=True)`` (weight gathers and zero3 experts on
+            the network stream), decode with ``fsdp_resident`` (resident
+            linears, ff-sharded experts), a B=1 S=2048 prefill and 16
+            greedy decode steps inside captured graphs, logits and tokens
+            bit-equal to the same cut built without FSDP; the group is
+            destroyed at the end of the phase
+
 Each model phase zeroes the launch counts just before the run it checks
 and reads them just after; the ``kernels`` line reports their sum over
 the phases that ran (null when none did), and every kernel must have
@@ -255,7 +275,7 @@ Usage:  python3 chip_smoke.py [--phases kernels,frontend,examples,
             reference,transparency,serve,lifecycle,paged,sampling,spec,
             autotune,moe_reference,moe_transparency,moe_serve,moe_train,
             ssm_reference,ssm_transparency,ssm_serve,ssm_train,
-            dense_configs,encdec,vlm,encdec_train,vlm_train,train,
+            dense_configs,encdec,vlm,encdec_train,vlm_train,mesh,train,
             streams]
         (add ``profile`` / ``moe_profile`` / ``ssm_profile`` for a
         torch.profiler breakdown of a warm prefill, eager and replayed
@@ -363,7 +383,14 @@ SERVE_KERNELS = {
 }
 
 
+START = time.perf_counter()
+
+
 def log(obj):
+    """One JSON line; a phase's line also carries ``at_s``, the seconds
+    since the script started, so the run's time splits by phase."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -829,14 +856,18 @@ def phase_kernels(dev, build_log=None):
                 name="composition"),
             library_device_ms=None)
 
-    def ffn(what, N, E=64, D=2048, Fd=1408, rows_of=None):
+    def ffn_weights(E, D, Fd):
+        return ((randn(E, D, Fd).float() * D ** -0.5).to(torch.bfloat16),
+                (randn(E, D, Fd).float() * D ** -0.5).to(torch.bfloat16),
+                (randn(E, Fd, D).float() * Fd ** -0.5).to(torch.bfloat16))
+
+    def ffn(what, N, E=64, D=2048, Fd=1408, rows_of=None, weights=None):
         # rows_of: x is rows [N, 2N) of a (E, rows_of, D) buffer, read in
-        # place (a Comet chunk of the dispatch buffer)
+        # place (a Comet chunk of the dispatch buffer); weights: shared
+        # between cases (grok's 9.7 GB)
         x = randn(E, N, D) if rows_of is None else randn(E, rows_of, D)[
             :, N:2 * N]
-        w1 = (randn(E, D, Fd).float() * D ** -0.5).to(torch.bfloat16)
-        w3 = (randn(E, D, Fd).float() * D ** -0.5).to(torch.bfloat16)
-        w2 = (randn(E, Fd, D).float() * Fd ** -0.5).to(torch.bfloat16)
+        w1, w3, w2 = weights or ffn_weights(E, D, Fd)
         out = gm.grouped_ffn(x, w1, w3, w2)
         ref = gm.grouped_ffn_plain(x, w1, w3, w2)
         xf = x.float()
@@ -862,6 +893,22 @@ def phase_kernels(dev, build_log=None):
                                               * torch.bmm(x, w3), w2)],
                            name="composition"),
             library_device_ms=None)
+
+    def grok_ffn():
+        # grok-1-314b's 8 experts at D=6144, F=32768 (the mesh phase's
+        # one rank: zero3 prefill and ff-sharded decode both run the
+        # whole F): the B=1 S=2048 prefill's capacity 640 and the B=1
+        # decode's 4, on one set of weights
+        g = "grok-1-314b (mesh phase, one rank)"
+        w = ffn_weights(8, 6144, 32768)
+        cases = [ffn(f"{g} prefill B=1 S=2048, zero3", 640, E=8, D=6144,
+                     Fd=32768, weights=w),
+                 ffn(f"{g} decode B=1, ff-sharded", 4, E=8, D=6144,
+                     Fd=32768, weights=w)]
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+        return cases
 
     def gate_bwd(what, N, E=64, D=2048, Fd=1408):
         h1, h3, dh = randn(E, N, Fd), randn(E, N, Fd), randn(E, N, Fd)
@@ -1179,7 +1226,8 @@ def phase_kernels(dev, build_log=None):
                     # a 3000-token prompt's chunk steps: 2048 and 1024
                     # tokens through the decode graph (capacity 240, 120)
                     ffn("deepseek-moe-16b chunk (1, 2048)", 240),
-                    ffn("deepseek-moe-16b chunk (1, 1024)", 120)]),
+                    ffn("deepseek-moe-16b chunk (1, 1024)", 120)]
+                   + grok_ffn()),
         # the MoE train step's gate backward (deepseek-moe-16b B=2
         # S=2048): capacity 480 of 4096 tokens (sequential), 240 of a
         # DBO micro-batch's 2048
@@ -4777,7 +4825,7 @@ def phase_dense_configs(dev, gpu, totals):
     return ok
 
 
-def generate(prog, params, batch, s_max, mode, totals=None):
+def generate(prog, params, batch, s_max, mode, totals=None, dec=None):
     """A prefill of ``batch`` through ``prog``, then ``GEN_STEPS`` greedy
     decode steps of its rows at one tier (the prefill's K/V copied into
     caches of ``s_max`` positions; whisper's encoder states zero-padded
@@ -4787,7 +4835,9 @@ def generate(prog, params, batch, s_max, mode, totals=None):
     advance of ids, positions and lengths inside the graph; the
     replays' launches go to ``totals``), ``"eager"`` (the same lowered
     steps op by op) or ``"interpreter"`` (``lowered=False``).  Returns
-    ((B, GEN_STEPS + 1) tokens on the CPU, timings)."""
+    ((B, GEN_STEPS + 1) tokens on the CPU, timings).  ``dec``: the
+    (program, params) of the decode steps where they are not ``prog``'s
+    (grok's FSDP layouts differ between prefill and decode)."""
     import torch
 
     from repro_torch.core.capture import GraphStep
@@ -4804,8 +4854,12 @@ def generate(prog, params, batch, s_max, mode, totals=None):
                                  op_config=model.op_closure_config())
         pre, dec = built("prefill", S, S), built("decode", 1, s_max)
     else:
+        dprog, dparams = dec or (prog, params)
         pre = prog.prefill(B, S, s_max=s_max).fn
-        dec = prog.decode_tiers(B, s_max, tiers=(B,))[B].fn
+        dfn = dprog.decode_tiers(B, s_max, tiers=(B,))[B].fn
+
+        def dec(_, batch):
+            return dfn(dparams, batch)
     rec = {}
     graphs = mode == "graphs"
     stream = torch.cuda.Stream(dev) if graphs else None
@@ -5109,6 +5163,273 @@ def run_new(phases, dev, gpu, totals):
 
 
 # ---------------------------------------------------------------------------
+# phase: mesh — launch/serve.py, a one-rank mesh over NCCL, grok-1-314b
+# ---------------------------------------------------------------------------
+
+MESH_PREFILL = (2, 2048)
+MESH_DECODE = (4, 4096)       # (max_batch, s_max) of decode_tiers
+GROK_LAYERS = 2               # of 64: ~23 GB of bf16 weights
+GROK_PREFILL = (1, 2048)
+GROK_S_MAX = 4096
+
+
+def phase_cli(dev, gpu, totals):
+    """``launch.serve.main`` with the JAX package's default flags, then
+    ``compile(arch).serve`` on the same params and prompts."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.launch import serve as cli
+    from repro_torch.serve import Request, ServeConfig
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        done, counts = counted(totals, lambda: cli.main([]))
+    lines = out.getvalue().splitlines()
+    served = next(ln for ln in lines if ln.startswith("served "))
+    prog = compile("chatglm3-6b")
+    params = prog.init_params(0)
+    eng = prog.serve(params, ServeConfig(max_batch=4, s_max=128,
+                                         prefill_buckets=(16, 32, 64),
+                                         prefill_batch=4))
+    for r in sorted(done, key=lambda r: r.rid):
+        eng.submit(Request(r.rid, np.asarray(r.prompt), max_new_tokens=16))
+    want = {r.rid: list(r.output) for r in eng.run()}
+    eng.shutdown()
+    prog.close()
+    got = {r.rid: list(r.output) for r in done}
+    ttft = [r.first_token_s - r.submitted_s for r in done]
+    toks = sum(len(v) for v in got.values())
+    ok = (got == want and len(got) == 8 and toks == 8 * 16
+          and all(counts.get(k, 0) > 0 for k in SERVE_KERNELS["dense"]))
+    log({"phase": "mesh_cli", "gpu": gpu,
+         "command": "python -m repro_torch.launch.serve (defaults: "
+                    "chatglm3-6b, 8 requests, 16 tokens, max_batch 4, "
+                    "s_max 128, dynamic)",
+         "printed": [served.split("  stats=")[0]] + lines[-2:],
+         "tokens": toks, "tokens_equal_compile_serve": got == want,
+         "ttft_ms": {"p50": float(np.percentile(ttft, 50)) * 1e3,
+                     "p99": float(np.percentile(ttft, 99)) * 1e3},
+         "launches": counts, "ok": ok})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _bits_equal_trees(a: dict, b: dict) -> dict:
+    import torch
+    return {k: bool(torch.equal(a[k], b[k])) for k in a}
+
+
+def graphs_ms_in_turns(fns: dict, reps: int) -> dict:
+    """Each step of ``fns`` (name -> no-argument callable) captured as a
+    CUDA Graph and replayed ``reps`` times, in turns: a, b, b, a."""
+    import torch
+
+    from repro_torch.core.capture import GraphStep
+    stream = torch.cuda.Stream()
+    graphs = {k: GraphStep(fn, fn, stream=stream) for k, fn in fns.items()}
+    a, b = list(fns)
+    out: dict = {}
+    for name in (a, b, b, a):
+        out.setdefault(name, []).append(replay_ms(graphs[name], reps))
+    del graphs
+    return out
+
+
+def phase_mesh_one_rank(dev, gpu, totals, mesh):
+    """chatglm3-6b on a one-rank mesh against no mesh: prefill logits and
+    every decode tier's outputs bit for bit; the prefill and the tier-4
+    step each captured and replayed in turns."""
+    import torch
+
+    from repro_torch.api import compile
+    plain = compile("chatglm3-6b")
+    meshed = compile("chatglm3-6b", mesh=mesh)
+    params = plain.init_params(SEED)
+    B, S = MESH_PREFILL
+    batch = prefill_batch(B, S, plain.model.cfg.vocab, dev, SEED + 11)
+    steps = {"no_mesh": plain.prefill(B, S).fn,
+             "mesh": meshed.prefill(B, S).fn}
+    outs, launches = {}, {}
+    for name, fn in steps.items():
+        outs[name], launches[f"prefill_{name}"] = counted(
+            totals, lambda: fn(params, batch))
+    pre_equal = _bits_equal_trees(outs["mesh"], outs["no_mesh"])
+    del outs
+    pre_ms = graphs_ms_in_turns(
+        {k: (lambda fn=fn: fn(params, batch)) for k, fn in steps.items()}, 5)
+    max_batch, s_max = MESH_DECODE
+    tiers = {"no_mesh": plain.decode_tiers(max_batch, s_max),
+             "mesh": meshed.decode_tiers(max_batch, s_max)}
+    cfg = plain.model.cfg
+    dec_equal, dec_ms = {}, {}
+    for tier in sorted(tiers["mesh"]):
+        g = torch.Generator(device=dev).manual_seed(SEED + tier)
+        inputs = {"ids": torch.randint(0, cfg.vocab, (tier, 1), device=dev,
+                                       generator=g, dtype=torch.int32),
+                  "positions": torch.full((tier, 1), s_max // 4,
+                                          device=dev, dtype=torch.int32),
+                  "cache_len": torch.full((tier,), s_max // 4, device=dev,
+                                          dtype=torch.int32)}
+        for k, spec in plain.model.decode_cache_env(tier, s_max).items():
+            inputs[k] = (torch.randn(spec.shape, device=dev, generator=g)
+                         * 0.5).to(spec.dtype)
+        res = {}
+        for name in ("no_mesh", "mesh"):
+            fn = tiers[name][tier].fn
+            res[name], n = counted(totals, lambda: fn(
+                params, {k: v.clone() for k, v in inputs.items()}))
+            acc = launches.setdefault(f"decode_{name}", {})
+            for k, v in n.items():
+                acc[k] = acc.get(k, 0) + v
+        dec_equal[tier] = _bits_equal_trees(res["mesh"], res["no_mesh"])
+        if tier == max_batch:
+            dec_ms = graphs_ms_in_turns(
+                {k: (lambda fn=t[tier].fn: fn(params, inputs))
+                 for k, t in tiers.items()}, 20)
+        del res, inputs
+    # the mesh steps went through the kernels: flash attention and
+    # RMSNorm in the prefill, decode attention and RMSNorm in the tiers
+    mesh_launched = all(
+        launches["prefill_mesh"].get(k, 0)
+        + launches["decode_mesh"].get(k, 0) > 0
+        for k in SERVE_KERNELS["dense"])
+    ok = (all(pre_equal.values()) and mesh_launched
+          and all(all(v.values()) for v in dec_equal.values()))
+    log({"phase": "mesh_one_rank", "gpu": gpu,
+         "mesh": {"shape": [1, 1], "axes": ["data", "model"],
+                  "backend": torch.distributed.get_backend()},
+         "prefill": f"chatglm3-6b B={B} S={S}",
+         "prefill_bits_equal": pre_equal,
+         "prefill_graph_ms_in_turns": pre_ms,
+         "decode": f"chatglm3-6b decode_tiers({max_batch}, {s_max})",
+         "decode_bits_equal": dec_equal,
+         "decode_tier4_graph_ms_in_turns": dec_ms,
+         "launches": launches, "mesh_launched_dense_kernels": mesh_launched,
+         "ok": ok})
+    del params, tiers, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def gather_streams(step) -> dict:
+    """Stream index -> the FSDP weight gathers (``WeightGatherOp``,
+    ``ParamGatherOp``) a built step's lowered plans put on it."""
+    out: dict = {}
+    for rz in step.fn.fwd.realizers.values():
+        lp = rz.lowered
+        for ins, st in zip(lp.instrs, lp.streams.streams):
+            if ins.label.endswith("gather"):
+                out[st] = out.get(st, 0) + 1
+    return out
+
+
+def _modes(model, phase):
+    layer = model.layer_stacks(phase)[0][1]
+    return {"ShardedLinear": layer.qkv.proj.mode,
+            "ExpertFFN": layer.moe.experts.mode}
+
+
+def phase_grok(dev, gpu, totals, mesh):
+    """grok-1-314b at full width cut to ``GROK_LAYERS`` layers, served
+    with FSDP on the one-rank mesh against the same cut without FSDP."""
+    import torch
+
+    from repro_torch.api import compile
+    from repro_torch.configs import get_config
+    from repro_torch.core.streams import RESOURCE_STREAM
+    from repro_torch.launch.sharding import fsdp_gathered_tree
+    from repro_torch.models.layers import MeshInfo
+    cfg = dataclasses.replace(get_config("grok-1-314b"), n_layers=GROK_LAYERS)
+    plain = compile(cfg)
+    t0 = time.perf_counter()
+    params = plain.init_params(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    pre_prog = compile(cfg, mesh=mesh, mesh_info=MeshInfo(fsdp=True))
+    dec_prog = compile(cfg, mesh=mesh,
+                       mesh_info=MeshInfo(fsdp=True, fsdp_resident=True))
+    modes = {"prefill": _modes(pre_prog.model, "prefill"),
+             "decode": _modes(dec_prog.model, "decode")}
+    print(json.dumps({"phase": "mesh_grok_modes", **modes}), flush=True)
+    pre_params = fsdp_gathered_tree(params, pre_prog.model)
+    B, S = GROK_PREFILL
+    batch = prefill_batch(B, S, cfg.vocab, dev, SEED + 13)
+    pre_step = pre_prog.prefill(B, S)
+    gathers = gather_streams(pre_step)
+    logits = {
+        "fsdp": pre_step.fn(pre_params, batch)["logits"],
+        "no_fsdp": plain.prefill(B, S).fn(params, batch)["logits"]}
+    logits_equal = bool(torch.equal(logits["fsdp"], logits["no_fsdp"]))
+    finite = bool(torch.isfinite(logits["fsdp"].float()).all())
+    del logits, pre_step
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    tokens, rec = generate(pre_prog, pre_params, batch, GROK_S_MAX,
+                           "graphs", launches, dec=(dec_prog, params))
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want, rec_plain = generate(plain, params, batch, GROK_S_MAX, "eager")
+    same = bool(torch.equal(tokens, want))
+    ok = (logits_equal and same and finite
+          and bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
+          and modes == {"prefill": {"ShardedLinear": "gather",
+                                    "ExpertFFN": "zero3"},
+                        "decode": {"ShardedLinear": "resident",
+                                   "ExpertFFN": "ff_sharded"}}
+          and all(launches.get(k, 0) > 0 for k in SERVE_KERNELS["moe"])
+          # two linears and three expert weights a layer, all on the
+          # network stream
+          and gathers == {RESOURCE_STREAM["network"]: 5})
+    log({"phase": "mesh_grok", "gpu": gpu,
+         "config": f"grok-1-314b at full width cut to {GROK_LAYERS} of 64 "
+                   f"layers: d_model {cfg.d_model}, {cfg.n_heads} q / "
+                   f"{cfg.n_kv} kv heads of {cfg.hd}, {cfg.moe.n_experts} "
+                   f"experts of {cfg.moe.d_ff_expert} top-"
+                   f"{cfg.moe.top_k}, vocab {cfg.vocab}; prefill B={B} "
+                   f"S={S}, {GEN_STEPS} greedy decode steps, s_max "
+                   f"{GROK_S_MAX}",
+         "params_gb": gb, "init_s": init_s, "modes": modes,
+         "prefill_gathers_by_stream": gathers,
+         "prefill_logits_equal_no_fsdp": logits_equal,
+         "tokens_equal_no_fsdp": same, "tokens_head": tokens[:, :6].tolist(),
+         "graphs": rec, "eager_no_fsdp": rec_plain,
+         "prefill_tokens_per_s": B * S / (rec["prefill_graph_ms"] / 1e3),
+         "peak_mem_gb": peak, "launches": launches, "ok": ok})
+    del params, pre_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def phase_mesh(dev, gpu, totals):
+    """The CLI, then the one-rank NCCL mesh's two checks; the group is
+    destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, unbind_mesh
+    ok = phase_cli(dev, gpu, totals)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        ok = phase_mesh_one_rank(dev, gpu, totals, mesh) and ok
+        gc.collect()
+        torch.cuda.empty_cache()
+        ok = phase_grok(dev, gpu, totals, mesh) and ok
+    finally:
+        unbind_mesh(mesh)
+        dist.destroy_process_group()
+    return ok
+
+
+# ---------------------------------------------------------------------------
 
 
 def init_params(arch):
@@ -5222,7 +5543,7 @@ def main(argv=None) -> int:
                     "spec,autotune,moe_reference,moe_transparency,moe_serve,"
                     "moe_train,ssm_reference,ssm_transparency,ssm_serve,"
                     "ssm_train,dense_configs,encdec,vlm,encdec_train,"
-                    "vlm_train,train,streams")
+                    "vlm_train,mesh,train,streams")
     ap.add_argument("--build-log", default=None,
                     help="write nvcc/ptxas output of the kernel build here")
     args = ap.parse_args(argv)
@@ -5268,6 +5589,12 @@ def main(argv=None) -> int:
     gc.collect()          # the SSM models go before the new configurations
     torch.cuda.empty_cache()
     ok = run_new(phases, dev, gpu, totals) and ok
+    gc.collect()          # the new configurations go before grok-1-314b
+    torch.cuda.empty_cache()
+    if "mesh" in phases:
+        ok = phase_mesh(dev, gpu, totals) and ok
+        gc.collect()
+        torch.cuda.empty_cache()
     if "train" in phases:
         ok = phase_train(dev, totals) and ok
     if "streams" in phases:

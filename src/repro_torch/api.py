@@ -68,12 +68,19 @@ class ProgramBundleError(ValueError):
 
 @dataclasses.dataclass
 class CompiledStep:
-    """A built step function plus the input specs to feed it."""
+    """A built step function plus the input specs to feed it.  Steps of a
+    program compiled with ``mesh=`` are rank-local (``launch/steps.py``)
+    and also carry the global ``in_specs`` and the ``in_placements`` /
+    ``out_placements`` of their arguments and results
+    (``launch/sharding.py``)."""
 
     fn: Callable
     segments: Any = None
     batch_inputs: Any = None
     init_opt: Optional[Callable] = None    # train steps: the optimizer state
+    in_specs: Any = None
+    in_placements: Any = None
+    out_placements: Any = None
 
     def __call__(self, *args, **kwargs):
         return self.fn(*args, **kwargs)
@@ -87,7 +94,8 @@ class CompiledStep:
 def compile(model, policy=None, smoke: bool = False, device=None,
             verify: str = "warn", plan_store: Optional[PlanStore] = None,
             plan_store_path: Optional[str] = None,
-            cache=None, example_inputs=None) -> "Program":
+            cache=None, example_inputs=None, mesh=None,
+            mesh_info=None) -> "Program":
     """Build a :class:`Program`.
 
     ``model``  — an arch name (``"chatglm3-6b"``), an ``ArchConfig``, a
@@ -116,6 +124,15 @@ def compile(model, policy=None, smoke: bool = False, device=None,
                  ``Program.save`` bundles.
     ``example_inputs`` — name -> ``TensorSpec``, required when ``model``
                  is an untraced ``Module``.
+    ``mesh``   — ``None`` (one device), a ``models.layers.MeshInfo`` (one
+                 device, explicit tp/dp for model construction), or a
+                 ``DeviceMesh`` from ``launch.mesh.make_mesh``: the
+                 program's steps are then rank-local over its groups
+                 (``launch/steps.py``), ``init_params`` gives this rank's
+                 shard, and ``serve`` / ``save`` refuse.
+    ``mesh_info`` — the ``MeshInfo`` to build the model with under a
+                 ``DeviceMesh`` when ``launch.mesh.make_mesh_info``'s
+                 default (no FSDP) is not wanted, e.g. ``fsdp=True``.
     """
     from .models.layers import MeshInfo
     if verify not in ("strict", "warn", "off"):
@@ -150,14 +167,25 @@ def compile(model, policy=None, smoke: bool = False, device=None,
     if isinstance(model, OpGraph):
         return Program(graph=model, policy=policy, store=store,
                        verify=verify, device=device)
+    device_mesh = None if mesh is None or isinstance(mesh, MeshInfo) \
+        else mesh
+    if mesh_info is None:
+        mesh_info = mesh if isinstance(mesh, MeshInfo) else None
+    if mesh_info is None:
+        if device_mesh is not None:
+            from .launch.mesh import make_mesh_info
+            mesh_info = make_mesh_info(device_mesh)
+        else:
+            mesh_info = MeshInfo(tp=1, dp=1)
     if isinstance(model, str):
         from .configs import get_config, get_smoke_config
         model = get_smoke_config(model) if smoke else get_config(model)
     if not hasattr(model, "build_segments"):       # ArchConfig -> LM
         from .models.registry import build_model
-        model = build_model(model, MeshInfo(tp=1, dp=1))
+        model = build_model(model, mesh_info)
     return Program(model, policy, device=device, store=store,
-                   policy_spec=policy_spec, verify=verify, cache=cache)
+                   policy_spec=policy_spec, verify=verify, cache=cache,
+                   mesh=device_mesh)
 
 
 def _is_default_auto(policy) -> bool:
@@ -174,9 +202,10 @@ class Program:
     def __init__(self, model=None, policy=None, device=None,
                  store: Optional[PlanStore] = None,
                  policy_spec: Optional[str] = None, verify: str = "warn",
-                 cache=None, graph: Optional[OpGraph] = None):
+                 cache=None, graph: Optional[OpGraph] = None, mesh=None):
         self.model = model
         self.graph = graph
+        self.mesh = mesh                # a DeviceMesh, or None
         self.policy = policy
         self.device = device
         self.store = store if store is not None else PlanStore()
@@ -268,6 +297,11 @@ class Program:
         artifact, atomically.  Returns the number of persisted plan
         entries."""
         self._require_lm("save")
+        if self.mesh is not None:
+            raise ProgramBundleError(
+                "Program.save is single-host: a DeviceMesh is "
+                "process-local; load() the bundle and recompile with "
+                "mesh= instead")
         header = {
             "magic": PROGRAM_MAGIC,
             "format_version": PROGRAM_FORMAT_VERSION,
@@ -395,15 +429,33 @@ class Program:
     def init_params(self, seed: int = 0, device=None,
                     phase: str = "prefill") -> dict:
         """Random parameter tree from ``seed`` on ``device`` (default: the
-        program's device, else the GPU), drawn for ``phase``'s segments
-        (every phase's tree has the same layout)."""
+        program's device, else the GPU), drawn for ``phase``'s segments.
+        Without FSDP every phase's tree has the same layout; with it the
+        gathered layout (prefill, train) keys its weights apart from the
+        resident decode layout (``launch.sharding.fsdp_gathered_tree``
+        carries one tree over to the other).  Under a mesh: this rank's
+        shard of the global tree drawn from ``seed``, whose values do not
+        depend on the mesh; each layer is drawn whole and cut at once, so
+        the peak is one global layer beside the local shards."""
         self._require_lm("init_params")
         dev = resolve_device(device if device is not None else self.device)
-        return self.model.init_params(seed, device=dev, phase=phase)
+        shard = None
+        if self.mesh is not None:
+            from .launch.sharding import shard_tree, spec_to_placements
+            from .tree import tree_map
+
+            def shard(tree, pspecs):
+                return shard_tree(tree, tree_map(spec_to_placements, pspecs),
+                                  self.mesh)
+        return self.model.init_params(seed, device=dev, phase=phase,
+                                      shard=shard)
+
+    def _step_args(self) -> dict:
+        return {"plan_store": self.store, **self._verify_args()}
 
     def train_step(self, global_batch: int, seq_len: int, *, cfg=None,
                    remat_policy: str = "full") -> CompiledStep:
-        """Build the train step for a (batch, seq) bucket on one device.
+        """Build the train step for a (batch, seq) bucket.
 
         Returns a :class:`CompiledStep` whose ``fn(params, opt, batch,
         step) -> (params, opt, metrics)`` updates ``params`` and ``opt``
@@ -412,55 +464,42 @@ class Program:
         as one CUDA Graph, captured at its first call for each set of
         param and optimizer storages (``fn.stats``); its metrics are then
         the graph's outputs, rewritten by the next call.  ``fn.eager`` is
-        the same step run op by op, the path the CPU takes.  Its plans lower through the program's PlanStore
-        and are verified under the program's ``verify`` mode, like
-        ``prefill``'s.  ``cfg``: a ``TrainStepConfig`` (default: remat
-        under ``remat_policy``)."""
+        the same step run op by op, the path the CPU takes.  Its plans
+        lower through the program's PlanStore and are verified under the
+        program's ``verify`` mode, like ``prefill``'s.  ``cfg``: a
+        ``TrainStepConfig`` (default: remat under ``remat_policy``).
+        Under a mesh the step is rank-local (``launch/steps.py``)."""
         self._require_lm("train_step")
-        from .train.step import TrainStepConfig, _build_train_step
+        from .launch.steps import build_train_step
+        from .train.step import TrainStepConfig
         tcfg = cfg or TrainStepConfig(remat=True, remat_policy=remat_policy)
-        fn, segs, binputs, init_opt = _build_train_step(
-            self.model, self.policy, global_batch, seq_len, tcfg,
-            self._context("train", global_batch, seq_len),
-            plan_store=self.store, **self._verify_args())
+        step = build_train_step(self.model, self.policy, global_batch,
+                                seq_len, self.mesh, tcfg, **self._step_args())
         self.checkpoint()
-        return CompiledStep(fn=fn, segments=segs, batch_inputs=binputs,
-                            init_opt=init_opt)
+        return step
 
     def prefill(self, global_batch: int, seq_len: int, *,
                 s_max: Optional[int] = None) -> CompiledStep:
-        """Build the prefill step for a (batch, seq-bucket) shape."""
+        """Build the prefill step for a (batch, seq-bucket) shape (under a
+        mesh: rank-local, ``launch/steps.py``)."""
         self._require_lm("prefill")
-        from .models.base import build_forward
-        segs, binputs = self.model.build_segments(
-            "prefill", global_batch, seq_len, s_max=s_max or seq_len)
-        fwd = build_forward(segs, self.policy,
-                            self._context("prefill", global_batch, seq_len),
-                            plan_cache=self.store,
-                            op_config=self.model.op_closure_config(),
-                            **self._verify_args())
+        from .launch.steps import build_prefill_step
+        step = build_prefill_step(self.model, self.policy, global_batch,
+                                  seq_len, self.mesh, s_max or seq_len,
+                                  **self._step_args())
         self.checkpoint()
-        return CompiledStep(fn=fwd, segments=segs, batch_inputs=binputs)
+        return step
 
     def decode_tiers(self, max_batch: int, s_max: int,
                      tiers=None) -> dict:
         """Decode steps at every batch tier against the program's store:
-        the first tier lowers, the rest specialize.  Returns
-        ``{tier: CompiledStep}``."""
+        the first tier lowers, the rest specialize (under a mesh:
+        rank-local, ``launch/steps.py``).  Returns ``{tier:
+        CompiledStep}``."""
         self._require_lm("decode_tiers")
-        from .models.base import build_forward
-        from .serve.engine import pow2_tiers
-        out = {}
-        for tier in tuple(tiers or pow2_tiers(max_batch)):
-            segs, binputs = self.model.build_segments(
-                "decode", tier, 1, s_max=s_max)
-            fwd = build_forward(segs, self.policy,
-                                self._context("decode", tier, s_max),
-                                plan_cache=self.store,
-                                op_config=self.model.op_closure_config(),
-                                **self._verify_args())
-            out[tier] = CompiledStep(fn=fwd, segments=segs,
-                                     batch_inputs=binputs)
+        from .launch.steps import build_decode_tiers
+        out = build_decode_tiers(self.model, self.policy, max_batch, s_max,
+                                 self.mesh, tiers, **self._step_args())
         self.checkpoint()
         return out
 
@@ -475,6 +514,11 @@ class Program:
         program's cache backend is the default; ``ServeConfig.cache``
         wins over it."""
         self._require_lm("serve")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "Program.serve is single-host (the engine's host loop); "
+                "use decode_tiers()/prefill() for mesh-global serving "
+                "steps")
         from .serve.engine import ServeConfig, ServeEngine
         if cfg is None:
             cfg = ServeConfig(**overrides)

@@ -1,7 +1,8 @@
 """Architecture config registry.  ``get_config(arch_id)`` returns the exact
 published config; ``get_smoke_config(arch_id)`` a reduced same-family config
 for CPU smoke tests.  The port registers every config of the JAX
-package but grok-1-314b, which serves only with FSDP weight sharding."""
+package, grok-1-314b (which serves only with FSDP weight sharding)
+included."""
 from .base import SHAPES, ArchConfig, MoEConfig, ShapeConfig, SSMConfig  # noqa: F401
 
 _REGISTRY = {}
@@ -33,5 +34,5 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from . import (chatglm3_6b, deepseek_coder_33b,  # noqa: F401
-                   deepseek_moe_16b, mamba2_2p7b, minitron_8b, qwen2_vl_7b,
-                   smollm_135m, whisper_tiny, zamba2_1p2b)
+                   deepseek_moe_16b, grok1_314b, mamba2_2p7b, minitron_8b,
+                   qwen2_vl_7b, smollm_135m, whisper_tiny, zamba2_1p2b)

@@ -169,13 +169,14 @@ class Module:
         object.__setattr__(self, k, v)
 
     # -- params -----------------------------------------------------------
-    def init(self, seed: int, device=None) -> dict:
+    def init(self, seed: int, device=None, global_: bool = False) -> dict:
         """Build the nested param dict mirroring the module tree, on
         ``device`` (default: the GPU).
 
         Seeds are folded in from the child *name* (stable across phases:
         prefill/decode variants of a layer that share param names get
-        identical weights).
+        identical weights).  ``global_=True`` draws the *global*
+        (unsharded) tensors declared by ``Param.global_shape``.
         """
         device = resolve_device(device)
         out = {}
@@ -183,13 +184,26 @@ class Module:
         for name, item in items:
             s = fold_seed(seed, name)
             if isinstance(item, Param):
+                shape = (item.global_shape if global_ and item.global_shape
+                         else item.shape)
                 gen = torch.Generator(device=device).manual_seed(s)
-                out[name] = item.initializer()(gen, tuple(item.shape),
+                out[name] = item.initializer()(gen, tuple(shape),
                                                item.dtype, device)
             else:
-                sub = item.init(s, device=device)
+                sub = item.init(s, device=device, global_=global_)
                 if sub:
                     out[name] = sub
+        return out
+
+    def global_param_shapes(self) -> dict:
+        """TensorSpecs of the global param tensors (dry-run stand-ins)."""
+        out = {}
+        for name, p in self._params.items():
+            out[name] = TensorSpec(tuple(p.global_shape or p.shape), p.dtype)
+        for name, c in self._children.items():
+            sub = c.global_param_shapes()
+            if sub:
+                out[name] = sub
         return out
 
     def param_shapes(self) -> dict:

@@ -2,32 +2,39 @@
 ``torch.distributed`` collectives once a mesh axis is bound.
 
 Model code calls these unconditionally.  A named axis is *bound* when the
-launch layer registers a process group for it with ``bind_axis``; until
-then (one GPU, the CPU tests, symbolic tracing) every collective
-degenerates to its single-participant identity: ``psum`` -> x,
-``all_gather`` -> x, ``axis_index`` -> 0, ``axis_size`` -> 1.  This keeps
-the same model source runnable on one card and on a mesh without edits
-(the paper's transparency requirement).
+launch layer registers a process group of more than one rank for it with
+``bind_axis`` (``launch/mesh.py:make_mesh``); until then (one GPU, the
+CPU tests, symbolic tracing) every collective degenerates to its
+single-participant identity: ``psum`` -> x, ``all_gather`` -> x,
+``axis_index`` -> 0, ``axis_size`` -> 1.  This keeps the same model
+source runnable on one card and on a mesh without edits (the paper's
+transparency requirement).  Bound, every collective the model
+differentiates through is an autograd Function (see below), and
+``ppermute`` is point-to-point send/recv.
 """
 from __future__ import annotations
 
 import torch
 
 _AXES: dict = {}     # axis name -> torch.distributed process group
+_SIZES: dict = {}    # axis name -> its group's size, read once at binding
 
 
 def bind_axis(axis: str, group) -> None:
-    """Route collectives over ``axis`` through ``group``."""
+    """Route collectives over ``axis`` through ``group`` (``None``
+    unbinds it)."""
+    if group is None:
+        _AXES.pop(axis, None)
+        _SIZES.pop(axis, None)
+        return
+    import torch.distributed as dist
     _AXES[axis] = group
+    _SIZES[axis] = dist.get_world_size(group)
 
 
 def _bound(axis: str) -> bool:
     """True iff ``axis`` has a process group with more than one rank."""
-    group = _AXES.get(axis)
-    if group is None:
-        return False
-    import torch.distributed as dist
-    return dist.get_world_size(group) > 1
+    return _SIZES.get(axis, 1) > 1
 
 
 def _dist():
@@ -36,9 +43,7 @@ def _dist():
 
 
 def axis_size(axis: str) -> int:
-    if not _bound(axis):
-        return 1
-    return _dist().get_world_size(_AXES[axis])
+    return _SIZES.get(axis, 1)
 
 
 def axis_index(axis: str) -> int:
@@ -47,54 +52,173 @@ def axis_index(axis: str) -> int:
     return _dist().get_rank(_AXES[axis])
 
 
-def psum(x, axis: str):
-    if not _bound(axis):
-        return x
-    out = x.clone()
-    _dist().all_reduce(out, group=_AXES[axis])
-    return out
-
-
-def pmax(x, axis: str):
-    if not _bound(axis):
-        return x
+def _all_reduce(x, axis: str, op=None):
     dist = _dist()
     out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_AXES[axis])
+    if op is None:
+        dist.all_reduce(out, group=_AXES[axis])
+    else:
+        dist.all_reduce(out, op=op, group=_AXES[axis])
     return out
 
 
-def all_gather(x, axis: str, dim: int = 0):
-    if not _bound(axis):
-        return x
+def _all_gather(x, axis: str, dim: int):
     n = axis_size(axis)
     parts = [torch.empty_like(x) for _ in range(n)]
     _dist().all_gather(parts, x.contiguous(), group=_AXES[axis])
     return torch.cat(parts, dim=dim)
 
 
-def reduce_scatter(x, axis: str, dim: int = 0):
-    if not _bound(axis):
-        return x
+def _reduce_scatter(x, axis: str, dim: int):
     dist, group = _dist(), _AXES[axis]
     n = axis_size(axis)
     if dist.get_backend(group) == "gloo":
         # gloo has no reduce-scatter: all-reduce, keep this rank's chunk
-        return psum(x, axis).chunk(n, dim=dim)[axis_index(axis)].contiguous()
+        return _all_reduce(x, axis).chunk(n, dim=dim)[
+            axis_index(axis)].contiguous()
     parts = [p.contiguous() for p in x.chunk(n, dim=dim)]
     out = torch.empty_like(parts[0])
     dist.reduce_scatter(out, parts, group=group)
     return out
 
 
-def all_to_all(x, axis: str, split_dim: int, concat_dim: int):
-    if not _bound(axis):
-        return x
+def _all_to_all(x, axis: str, split_dim: int, concat_dim: int):
     n = axis_size(axis)
     ins = [p.contiguous() for p in x.chunk(n, dim=split_dim)]
     outs = [torch.empty_like(p) for p in ins]
     _dist().all_to_all(outs, ins, group=_AXES[axis])
     return torch.cat(outs, dim=concat_dim)
+
+
+def _ppermute(x, axis: str, perm):
+    """Point-to-point: this rank sends ``x`` to every ``dst`` of a pair
+    ``(me, dst)`` and receives from the ``src`` of ``(src, me)``; a rank
+    nobody sends to gets zeros (``lax.ppermute``'s rule)."""
+    dist, group = _dist(), _AXES[axis]
+    me = axis_index(axis)
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            out.copy_(x)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, x,
+                                  dist.get_global_rank(group, dst), group))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, out,
+                                  dist.get_global_rank(group, src), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+# Each collective the model differentiates through is an autograd
+# Function whose backward is the transpose the JAX package's step takes
+# under ``shard_map(check_vma=False)``: psum -> psum, all_gather ->
+# reduce_scatter, reduce_scatter -> all_gather, all_to_all -> the
+# all_to_all with split and concat swapped, ppermute -> the inverse
+# permutation.  (psum's transpose is psum there, not the identity: a
+# replicated cotangent comes back multiplied by the axis size.)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.axis, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.axis, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_dim, concat_dim):
+        ctx.args = (axis, split_dim, concat_dim)
+        return _all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, split_dim, concat_dim = ctx.args
+        return _all_to_all(g, axis, concat_dim, split_dim), None, None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, perm):
+        ctx.axis, ctx.perm = axis, perm
+        return _ppermute(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = tuple((dst, src) for src, dst in ctx.perm)
+        return _ppermute(g, ctx.axis, inv), None, None
+
+
+def psum(x, axis: str):
+    if not _bound(axis):
+        return x
+    return _Psum.apply(x, axis)
+
+
+def pmax(x, axis: str):
+    """Not differentiated (the callers pass a stability max or a scale
+    with no gradient)."""
+    if not _bound(axis):
+        return x
+    return _all_reduce(x.detach(), axis, _dist().ReduceOp.MAX)
+
+
+def all_gather(x, axis: str, dim: int = 0):
+    if not _bound(axis):
+        return x
+    return _AllGather.apply(x, axis, dim)
+
+
+def reduce_scatter(x, axis: str, dim: int = 0):
+    if not _bound(axis):
+        return x
+    return _ReduceScatter.apply(x, axis, dim)
+
+
+def all_to_all(x, axis: str, split_dim: int, concat_dim: int):
+    if not _bound(axis):
+        return x
+    return _AllToAll.apply(x, axis, split_dim, concat_dim)
+
+
+def ppermute(x, axis: str, perm):
+    """Send ``x`` along ``perm``, pairs ``(src, dst)`` of axis indices,
+    by point-to-point send/recv (``batch_isend_irecv``); the identity
+    when ``axis`` is unbound."""
+    if not _bound(axis):
+        return x
+    return _Ppermute.apply(x, axis, tuple((int(s), int(d)) for s, d in perm))
 
 
 def compressed_psum(x, axis: str, err=None):

@@ -522,7 +522,7 @@ class LMBase:
         m, c = self.mesh, self.cfg
         return (("arch", c.name),
                 ("tp", m.tp), ("dp", m.dp), ("pods", m.pods),
-                ("fsdp", m.fsdp),
+                ("fsdp", m.fsdp), ("fsdp_resident", m.fsdp_resident),
                 ("seq_parallel", bool(c.seq_parallel)),
                 ("act_dtype", "bfloat16"),
                 ("rope", c.rope), ("act", c.act),
@@ -690,28 +690,58 @@ class LMBase:
             out[seg.name] = ps
         return out
 
+    def param_shapes(self, segs, global_: bool = True) -> dict:
+        """TensorSpec tree of the params (stacked for layer segments):
+        the global (unsharded) shapes, or with ``global_=False`` this
+        rank's local ones."""
+        out = {}
+        for seg in segs:
+            if seg.name in out:
+                continue
+            shapes = (seg.module.global_param_shapes() if global_
+                      else seg.module.param_shapes())
+            if not shapes:
+                continue
+            if seg.count > 1:
+                shapes = tree_map(
+                    lambda t, n=seg.count: TensorSpec((n,) + tuple(t.shape),
+                                                      t.dtype), shapes)
+            out[seg.name] = shapes
+        return out
+
     def init_params(self, seed: int = 0, device=None,
-                    phase: str = "prefill") -> dict:
+                    phase: str = "prefill", shard=None) -> dict:
         """Random parameter tree from ``seed``, drawn on ``device`` (default:
         the GPU).  Layer stacks are ``(n_layers, ...)`` tensors filled layer
-        by layer (one layer's worth of temporaries at a time)."""
+        by layer (one layer's worth of temporaries at a time).
+        ``shard(tree, pspecs) -> local tree`` (a mesh's rank): each
+        segment, and each layer of a stack, is drawn global (unsharded),
+        whose values do not depend on the mesh, and cut to this rank's
+        shard at once (``api.Program.init_params``), so no more than one
+        global layer is ever held."""
         device = resolve_device(device)
         segs, _ = self.build_segments(phase, 2, 2 * self.mesh.tp
                                       if self.cfg.seq_parallel else 2,
                                       s_max=4)
+        global_ = shard is not None
+
+        def draw(module, s):
+            p = module.init(s, device=device, global_=global_)
+            return shard(p, module.param_pspecs()) if p and global_ else p
+
         out = {}
         for seg in segs:
             s = fold_seed(seed, seg.name)
             if seg.name in out:  # shared-weight segment (same params reused)
                 continue
             if seg.count == 1:
-                p = seg.module.init(s, device=device)
+                p = draw(seg.module, s)
                 if p:
                     out[seg.name] = p
                 continue
             stacked = None
             for i in range(seg.count):
-                layer = seg.module.init(fold_seed(s, str(i)), device=device)
+                layer = draw(seg.module, fold_seed(s, str(i)))
                 if stacked is None:
                     stacked = tree_map(
                         lambda t: torch.empty((seg.count,) + tuple(t.shape),

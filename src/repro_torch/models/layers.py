@@ -12,10 +12,12 @@ Attention, decode attention and RMSNorm go through ``kernels.ops`` — the
 Hopper kernels on a CUDA tensor, their plain versions on the CPU.
 The MoE ops live in ``moe.py``, the Mamba2 ops in ``mamba2.py``, the
 hybrid's shared block in ``hybrid.py`` and Whisper's encoder-decoder
-ops in ``whisper.py``; FSDP weight gathers arrive with a
-later slice.  The training head (``HeadLossOp``) computes its loss and
-its gradient chunk by chunk (``HeadLoss``), so no step holds more than one
-chunk's logits.
+ops in ``whisper.py``.  Under ``mesh.fsdp`` a ``ShardedLinear`` stores
+its weight data-sharded and gathers it with a schedulable network op
+(``WeightGatherOp``), or under ``fsdp_resident`` keeps it sharded and
+psums the partial product (``DataShardedLinearOp``).  The training head
+(``HeadLossOp``) computes its loss and its gradient chunk by chunk
+(``HeadLoss``), so no step holds more than one chunk's logits.
 """
 from __future__ import annotations
 
@@ -37,12 +39,23 @@ from ..dist import collectives as col
 
 @dataclasses.dataclass
 class MeshInfo:
-    """Static mesh-shape info modules need at construction time."""
+    """Static mesh-shape info modules need at construction time.
+
+    The JAX package's ``attn_impl`` execution hint is left out: the
+    port's attention route is fixed by the kernels it dispatches to
+    (``models/base.py:KERNEL_SET``)."""
 
     tp: int = 1        # 'model' axis size
     dp: int = 1        # 'data' axis size
     pods: int = 1      # 'pod' axis size (1 = single pod)
     fsdp: bool = False  # ZeRO-3: shard params over 'data' too
+    fsdp_resident: bool = False  # decode: keep data-sharded weights
+                                 # resident (partial matmul + tiny psum)
+                                 # instead of per-step all-gathers
+
+    @property
+    def dp_axes(self):
+        return ("pod", "data") if self.pods > 1 else ("data",)
 
 
 def make_param(local_shape, dtype, pspec, mesh: MeshInfo, init=None) -> Param:
@@ -80,23 +93,64 @@ def _numel(shape) -> int:
 
 
 class LinearOp(Op):
-    """Local matmul over the last dim.  Sharding is encoded in shapes."""
+    """Local matmul over the last dim.  Sharding is encoded in shapes.
+
+    With ``owns_weight=False`` the weight arrives as a second *input*
+    tensor (produced by a ``WeightGatherOp`` under FSDP) instead of a
+    parameter — which is exactly what makes the weight gather schedulable.
+    """
 
     resource = "compute"
 
     def __init__(self, d_in, d_out, name, mesh: MeshInfo,
-                 pspec=((), ("model",)), dtype=torch.bfloat16):
+                 pspec=((), ("model",)), dtype=torch.bfloat16,
+                 owns_weight=True):
         super().__init__()
         self._shape = (d_in, d_out)
-        self.w = make_param((d_in, d_out), dtype, pspec, mesh)
+        if owns_weight:
+            self.w = make_param((d_in, d_out), dtype, pspec, mesh)
         self.named(name)
 
-    def kernel(self, p, x):
-        return torch.matmul(x, p["w"])
+    def kernel(self, p, x, *maybe_w):
+        return torch.matmul(x, maybe_w[0] if maybe_w else p["w"])
 
     def flops_estimate(self, in_shapes):
         b = _numel(in_shapes[0].shape[:-1])
         return 2.0 * b * _numel(self._shape)
+
+
+class WeightGatherOp(Op):
+    """FSDP: all-gather a data-axis-sharded weight before use (network).
+
+    This is the paper's §2.1 'prefetch the next layer's weight shards in
+    parallel with computation' made a first-class schedulable op.  The
+    gather dim adapts to divisibility (row-parallel weights whose input
+    dim is not a dp multiple shard the output dim instead).
+    """
+
+    resource = "network"
+    out_batch_dim = None
+
+    def __init__(self, local_shape, name, mesh: MeshInfo,
+                 pspec=((), ("model",)), dtype=torch.bfloat16):
+        super().__init__()
+        self.mesh = mesh
+        self._full = tuple(local_shape)
+        gdim = next(i for i in range(len(local_shape))
+                    if local_shape[i] % mesh.dp == 0)
+        self.gdim = gdim
+        shape = list(local_shape)
+        shape[gdim] //= mesh.dp
+        spec = [tuple(e) for e in pspec]
+        spec[gdim] = tuple(spec[gdim]) + ("data",)
+        self.w = make_param(tuple(shape), dtype, tuple(spec), mesh)
+        self.named(name)
+
+    def kernel(self, p):
+        return col.all_gather(p["w"], "data", dim=self.gdim)
+
+    def infer_out(self, in_shapes):
+        return TensorSpec(self._full, self.w.dtype)
 
 
 class RMSNormOp(Op):
@@ -216,20 +270,71 @@ class AllGatherOp(Op):
         return TensorSpec(tuple(s), in_shapes[0].dtype)
 
 
+class DataShardedLinearOp(Op):
+    """Decode-path ZeRO alternative: the weight's input dim stays sharded
+    over 'data' (resident, never gathered); each rank multiplies its x
+    slice and a psum over 'data' completes the contraction.  Trades
+    d_in·d_out weight-gather bytes for d_out activation bytes — a huge
+    win whenever tokens << d_in (single-token decode)."""
+
+    resource = "compute"
+
+    def __init__(self, d_in, d_out, name, mesh: MeshInfo,
+                 pspec=((), ("model",)), dtype=torch.bfloat16):
+        super().__init__()
+        assert d_in % mesh.dp == 0, (name, d_in, mesh.dp)
+        self.d_loc = d_in // mesh.dp
+        self._shape = (d_in, d_out)
+        self.w = make_param((self.d_loc, d_out), dtype,
+                            (tuple(pspec[0]) + ("data",), pspec[1]), mesh)
+        self.named(name)
+
+    def kernel(self, p, x):
+        xs = x.narrow(x.ndim - 1, col.axis_index("data") * self.d_loc,
+                      self.d_loc)
+        return col.psum(torch.matmul(xs, p["w"]), "data")
+
+    def infer_out(self, in_shapes):
+        s = list(in_shapes[0].shape)
+        s[-1] = self._shape[1]
+        return TensorSpec(tuple(s), self.w.dtype)
+
+    def flops_estimate(self, in_shapes):
+        b = _numel(in_shapes[0].shape[:-1])
+        return 2.0 * b * self.d_loc * self._shape[1]
+
+
 class ShardedLinear(Module):
-    """Linear over the local shard.  The FSDP variants (schedulable weight
-    gathers, data-sharded resident weights) arrive with the training
-    slice."""
+    """Linear with optional FSDP: when ``mesh.fsdp`` the weight is stored
+    data-sharded and re-assembled by a schedulable WeightGather (network)
+    op — the ZeRO-3 prefetch-overlap target.  ``mesh.fsdp_resident``
+    (decode) keeps the shard resident and psums the partial output
+    instead (see DataShardedLinearOp).  ``mode`` names the one built:
+    ``"plain"``, ``"gather"`` or ``"resident"``."""
 
     def __init__(self, d_in, d_out, name, mesh: MeshInfo,
                  pspec=((), ("model",)), dtype=torch.bfloat16, fsdp=None):
         super().__init__()
-        if (mesh.fsdp if fsdp is None else fsdp):
-            raise NotImplementedError("FSDP linears are not ported yet")
-        self.lin = LinearOp(d_in, d_out, name, mesh, pspec=pspec, dtype=dtype)
+        fsdp = mesh.fsdp if fsdp is None else fsdp
+        if fsdp and mesh.fsdp_resident and d_in % mesh.dp == 0:
+            self.mode = "resident"
+            self.lin = DataShardedLinearOp(d_in, d_out, name, mesh,
+                                           pspec=pspec, dtype=dtype)
+        elif fsdp:
+            self.mode = "gather"
+            self.gather = WeightGatherOp((d_in, d_out), f"{name}_wgather",
+                                         mesh, pspec=pspec, dtype=dtype)
+            self.lin = LinearOp(d_in, d_out, name, mesh, pspec=pspec,
+                                dtype=dtype, owns_weight=False)
+        else:
+            self.mode = "plain"
+            self.lin = LinearOp(d_in, d_out, name, mesh, pspec=pspec,
+                                dtype=dtype)
         self.named(name)
 
     def forward(self, x):
+        if self.mode == "gather":
+            return self.lin(x, self.gather())
         return self.lin(x)
 
 
@@ -721,8 +826,12 @@ class HeadLoss(torch.autograd.Function):
         cuda = x.device.type == "cuda"
         dx = torch.empty_like(x)
         dw = torch.zeros(wm.shape, dtype=torch.float32, device=x.device)
+        # the forward's lse and target logit are psums over 'model', whose
+        # transpose (the JAX package's, under ``check_vma=False``) is a
+        # psum of the cotangent: identity on one rank
         scale = torch.zeros((B, S), dtype=torch.float32, device=x.device) \
-            if g_ls is None else g_ls.float()[:, None].expand(B, S)
+            if g_ls is None else col.psum(g_ls.float(), "model")[
+                :, None].expand(B, S)
         for c0 in range(0, S, chunk):
             c = min(chunk, S - c0)
             xi = x[:, c0:c0 + c].reshape(B * c, d)

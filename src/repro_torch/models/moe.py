@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layers (deepseek-moe-16b), resident expert layout.
+"""Mixture-of-Experts layers (deepseek-moe-16b, grok-1-314b).
 
 Expert parallelism over the 'model' mesh axis with explicit, *schedulable*
 all-to-all dispatch/combine ops — the DBO / shared-expert-overlap targets
@@ -19,9 +19,11 @@ its whole dispatch→combine chain per-micro-batch (what DBO wants).
 The expert GEMM goes through ``kernels.ops.grouped_ffn`` — the Hopper
 kernel on a CUDA tensor, its plain version on the CPU — and trains through
 its autograd Function (``kernels/grouped_matmul.py`` ``GroupedFFN``: the
-gate's backward a kernel too).  The weight-gather (zero3) and ff-sharded
-expert modes under ``mesh.fsdp`` belong to FSDP training and the launch
-layer and are not ported yet (ROADMAP queue 1, items 4.4 and 9).
+gate's backward a kernel too).  Under ``mesh.fsdp`` the experts take
+the JAX package's two other storage modes: zero3 weight gathers
+(``ParamGatherOp``, token-sharded train and prefill) and ff-sharded
+resident weights (``FFShardedExpertGEMM``, the replicated decode layout,
+completed by a psum over 'data'); both run the grouped-FFN kernel.
 """
 from __future__ import annotations
 
@@ -164,27 +166,61 @@ class MoEAllToAllOp(Op):
         return TensorSpec(tuple(s), in_shapes[0].dtype)
 
 
+class ParamGatherOp(Op):
+    """FSDP/ZeRO-3: all-gather a data-axis-sharded param along ``gdim``
+    before use — a schedulable *network* op (the paper's §2.1 weight-shard
+    prefetch made first-class; the SBO scheduler overlaps it)."""
+
+    resource = "network"
+    out_batch_dim = None
+
+    def __init__(self, local_shape, gdim: int, name, mesh: MeshInfo,
+                 pspec, dtype=torch.bfloat16):
+        super().__init__()
+        self.gdim = gdim
+        self.mesh = mesh
+        shape = list(local_shape)
+        assert shape[gdim] % mesh.dp == 0, (name, local_shape, gdim, mesh.dp)
+        shape[gdim] //= mesh.dp
+        spec = list(tuple(pspec) + ((),) * (len(shape) - len(pspec)))
+        spec[gdim] = tuple(spec[gdim]) + ("data",)
+        self.w = make_param(tuple(shape), dtype, tuple(spec), mesh)
+        self._full = tuple(local_shape)
+        self.named(name)
+
+    def kernel(self, p):
+        return col.all_gather(p["w"], "data", dim=self.gdim)
+
+    def infer_out(self, in_shapes):
+        return TensorSpec(self._full, self.w.dtype)
+
+
 class ExpertGEMMOp(Op):
     """Grouped expert FFN: (e_loc, n, d) -> (e_loc, n, d), through the
     grouped-FFN kernel (Comet's ``replace_func`` calls the same kernel on
-    chunks of the buffer)."""
+    chunks of the buffer).  With ``owns_weight=False`` the three weights
+    arrive as inputs (produced by ``ParamGatherOp``s under FSDP), so their
+    gradient flows back through the gathers."""
 
     resource = "compute"
     out_batch_dim = VBATCH
 
     def __init__(self, d, m: MoEConfig, mesh: MeshInfo, name="expert_ffn",
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, owns_weight=True):
         super().__init__()
         V, e_loc, es, ffs = moe_dims(m, mesh.tp)
         self._dims = (e_loc, d, ffs)
-        self.w1 = make_param((e_loc, d, ffs), dtype, (("model",), (), ()), mesh)
-        self.w3 = make_param((e_loc, d, ffs), dtype, (("model",), (), ()), mesh)
-        self.w2 = make_param((e_loc, ffs, d), dtype, (("model",), (), ()), mesh)
+        if owns_weight:
+            spec = (("model",), (), ())
+            self.w1 = make_param((e_loc, d, ffs), dtype, spec, mesh)
+            self.w3 = make_param((e_loc, d, ffs), dtype, spec, mesh)
+            self.w2 = make_param((e_loc, ffs, d), dtype, spec, mesh)
         self.named(name)
 
-    def kernel(self, p, buf):
+    def kernel(self, p, buf, *ws):
         from ..kernels import ops as kops
-        return kops.grouped_ffn(buf, p["w1"], p["w3"], p["w2"])
+        w1, w3, w2 = ws if ws else (p["w1"], p["w3"], p["w2"])
+        return kops.grouped_ffn(buf, w1, w3, w2)
 
     def flops_estimate(self, in_shapes):
         e, n, d = in_shapes[0].shape
@@ -195,26 +231,82 @@ class ExpertGEMMOp(Op):
         return in_shapes[0]
 
 
-class ExpertFFN(Module):
-    """Expert GEMM with resident weights (sharded over 'model' only), in
-    every phase, training included.
+class FFShardedExpertGEMM(Op):
+    """Expert FFN with the hidden (ff) dim sharded over 'data': weights
+    stay RESIDENT (no per-step ZeRO gather); each rank computes its ff
+    slice's partial output through the grouped-FFN kernel, completed by
+    the tiny activation psum after the combine.  SwiGLU is elementwise in
+    ff, so the decomposition is exact.  This is the decode-path
+    alternative to gather-based ZeRO: it trades 2·3·d·ff/layer of weight
+    gather for B·d of activation psum."""
 
-    The JAX package's two other storage modes — zero3 weight gathers
-    (FSDP training) and the ff-sharded decode layout — apply under
-    ``mesh.fsdp`` and are not ported yet (ROADMAP queue 1, items 4.4 and
-    9)."""
+    resource = "compute"
+    out_batch_dim = VBATCH
 
-    def __init__(self, d, m: MoEConfig, mesh: MeshInfo, dtype=torch.bfloat16):
+    def __init__(self, d, m: MoEConfig, mesh: MeshInfo,
+                 name="expert_ffn_ffshard", dtype=torch.bfloat16):
         super().__init__()
-        if mesh.fsdp:
-            raise NotImplementedError(
-                "zero3 and ff-sharded expert weights (mesh.fsdp) are not "
-                "ported yet: ROADMAP queue 1, items 4.4 (FSDP training) "
-                "and 9 (launch)")
-        self.gemm = ExpertGEMMOp(d, m, mesh, dtype=dtype)
+        V, e_loc, es, ffs = moe_dims(m, mesh.tp)
+        assert ffs % mesh.dp == 0, (ffs, mesh.dp)
+        ff_loc = ffs // mesh.dp
+        self._dims = (e_loc, d, ff_loc)
+        self.w1 = make_param((e_loc, d, ff_loc), dtype,
+                             (("model",), (), ("data",)), mesh)
+        self.w3 = make_param((e_loc, d, ff_loc), dtype,
+                             (("model",), (), ("data",)), mesh)
+        self.w2 = make_param((e_loc, ff_loc, d), dtype,
+                             (("model",), ("data",), ()), mesh)
+        self.named(name)
+
+    def kernel(self, p, buf):
+        from ..kernels import ops as kops
+        return kops.grouped_ffn(buf, p["w1"], p["w3"], p["w2"])
+
+    def flops_estimate(self, in_shapes):
+        e, n, d = in_shapes[0].shape
+        _, _, ff_loc = self._dims
+        return 6.0 * e * n * d * ff_loc
+
+    def infer_out(self, in_shapes):
+        return in_shapes[0]
+
+
+class ExpertFFN(Module):
+    """Expert GEMM, three storage modes (``mode``):
+      resident        — weights sharded over 'model' only
+      zero3 (gather)  — data-sharded + per-use all-gather (train/prefill
+                        under FSDP; the gathers are schedulable network
+                        ops)
+      ff-sharded      — hidden dim sharded over 'data', partial outputs
+                        (replicated/decode path; no gather at all)
+    """
+
+    def __init__(self, d, m: MoEConfig, mesh: MeshInfo, dtype=torch.bfloat16,
+                 ff_shard: bool = False):
+        super().__init__()
+        V, e_loc, es, ffs = moe_dims(m, mesh.tp)
+        if mesh.fsdp and ff_shard:
+            self.mode = "ff_sharded"
+            self.gemm = FFShardedExpertGEMM(d, m, mesh, dtype=dtype)
+        elif mesh.fsdp:
+            self.mode = "zero3"
+            spec_df = (("model",), (), ())
+            self.g1 = ParamGatherOp((e_loc, d, ffs), 2, "w1_gather", mesh,
+                                    spec_df, dtype)
+            self.g3 = ParamGatherOp((e_loc, d, ffs), 2, "w3_gather", mesh,
+                                    spec_df, dtype)
+            self.g2 = ParamGatherOp((e_loc, ffs, d), 1, "w2_gather", mesh,
+                                    spec_df, dtype)
+            self.gemm = ExpertGEMMOp(d, m, mesh, dtype=dtype,
+                                     owns_weight=False)
+        else:
+            self.mode = "resident"
+            self.gemm = ExpertGEMMOp(d, m, mesh, dtype=dtype)
         self.named("expert_ffn")
 
     def forward(self, buf):
+        if self.mode == "zero3":
+            return self.gemm(buf, self.g1(), self.g3(), self.g2())
         return self.gemm(buf)
 
 
@@ -332,7 +424,11 @@ class MoEBlock(Module):
             self.slice_local = ExpertSliceOp(m, mesh)
             self.combine = CombinePartialOp(m, mesh)
             self.ar = PsumOp(name="ar_moe")
-        self.experts = ExpertFFN(d, m, mesh)
+            if mesh.fsdp:
+                # resident ff-sharded experts: the partial-ff outputs
+                # complete in the (tiny) activation psum below
+                self.ar_dp = PsumOp(axis="data", name="ar_moe_dp")
+        self.experts = ExpertFFN(d, m, mesh, ff_shard=not token_sharded)
         self.has_shared = m.n_shared > 0
         if self.has_shared:
             # replicated weights, local tokens: no collective, overlappable
@@ -360,6 +456,8 @@ class MoEBlock(Module):
             with mark("moe_combine"):
                 y = self.combine(eout, ve, slot, w)
                 y = self.ar(y)
+                if hasattr(self, "ar_dp"):
+                    y = self.ar_dp(y)
         if self.has_shared:
             with mark("moe_shared"):
                 ys = self.shared(x)

@@ -62,10 +62,6 @@ class TrainStepConfig:
     lowered: bool = True             # slot-based lowered plan replay
 
 
-def _dp_axes(mesh_info) -> tuple:
-    return ("pod", "data") if mesh_info.pods > 1 else ("data",)
-
-
 def _flat_axes(pspec) -> set:
     out = set()
     for entry in pspec:
@@ -100,7 +96,7 @@ def reduce_grads(grads, pspecs, mesh_info, sp_train: bool,
     for g, spec, err in zip(flat_g, flat_s, flat_e):
         axes = _flat_axes(spec)
         red, new_err = g, err
-        for ax in _dp_axes(mesh_info):
+        for ax in mesh_info.dp_axes:
             if ax in axes:
                 continue  # FSDP leaf: already reduce-scattered on this axis
             if compress and ax == "data":
@@ -273,7 +269,7 @@ def _build_train_step(model, scheduler, B_loc: int, S: int,
     pspecs = model.param_pspecs(segs)
     sp_train = bool(getattr(model.cfg, "seq_parallel", False))
     mesh_info = model.mesh
-    dp_axes = _dp_axes(mesh_info)
+    dp_axes = mesh_info.dp_axes
 
     def one_batch_grads(params, batch):
         """(grads of the batch's mean loss, (loss_sum, token_count))."""

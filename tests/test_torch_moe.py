@@ -183,9 +183,21 @@ def test_all_to_all_and_axis_index_are_identities_at_tp1():
 
 
 def test_fsdp_expert_modes_are_refused():
+    """No longer refused: under ``mesh.fsdp`` the experts take the
+    reference's zero3 (gathered) and ff-sharded modes, with the same
+    param trees; the modes across ranks are held to the reference in
+    tests/test_torch_fsdp.py."""
     cfg = moe_cfg()[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.ExpertFFN(32, cfg, TMeshInfo(fsdp=True))
+    jcfg = moe_cfg()[0]
+    for ff_shard, mode, keys in ((False, "zero3", ["g1", "g2", "g3"]),
+                                 (True, "ff_sharded", ["gemm"])):
+        op = tmoe.ExpertFFN(32, cfg, TMeshInfo(fsdp=True), ff_shard=ff_shard)
+        ref = jmoe.ExpertFFN(32, jcfg, JMeshInfo(fsdp=True),
+                             ff_shard=ff_shard)
+        assert op.mode == mode
+        assert sorted(op.param_pspecs()) == sorted(ref.param_pspecs()) \
+            == keys
+    assert tmoe.ExpertFFN(32, cfg, TMeshInfo()).mode == "resident"
 
 
 # ---------------------------------------------------------------------------
