@@ -114,8 +114,8 @@ Phases, each printing one JSON line:
             lowered after warm-up); spec tokens against plain greedy's
             up to the first position whose plain top-2 logit margin is
             below ``NEAR_TIE``; an oracle proposer drafting plain greedy's
-            own tokens (acceptance, tokens/s against plain, k=4 and 8, in
-            turns); the tier-4 verify graph at k=2, 4, 8 against the plain
+            own tokens (acceptance, tokens/s against plain, k=4 and 8, one
+            pass in that order); the tier-4 verify graph at k=2, 4, 8 against the plain
             tier-4 graph, replayed alone in turns; a profiled verify step
             (plain W > 1 attention, GEMMs, the rest); ``k="auto"``'s picks
             under the oracle; then a ``moe_spec`` line: deepseek-moe-16b
@@ -256,7 +256,18 @@ Phases, each printing one JSON line:
             in-memory store): ``compile("chatglm3-6b", mesh=mesh)``'s
             ``prefill(2, 2048)`` logits and ``decode_tiers(4, 4096)``
             outputs bit-equal to the no-mesh program's, each timed in
-            turns; then grok-1-314b at full width cut to 2 of its 64
+            turns; a ``dryrun`` line: ``launch/dryrun.py`` counts the same
+            two steps on the ``meta`` device (mesh {data: 1, model: 1})
+            and each graph's replay must take at least the count's
+            roofline ``t_bound`` (the share at the unmasked FLOPs printed
+            beside it), the prefill's counted arguments must equal the
+            bytes of its params and batch, an eager prefill's growth of
+            allocated memory, over the plans' streams and over one, must
+            lie within 20% of each program's counted output and
+            temporaries, and grok-1-314b x decode_32k x pod16x16 is
+            counted at full
+            depth (its memory, terms and bottleneck printed); then
+            grok-1-314b at full width cut to 2 of its 64
             layers (every earlier model freed; ~23 GB of bf16 weights) on
             that mesh with FSDP as ``fsdp_serve`` asks: prefill built with
             ``MeshInfo(fsdp=True)`` (weight gathers and zero3 experts on
@@ -528,11 +539,13 @@ def pass_ms(fn, parts, iters=20, windows=5):
     return out
 
 
-def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
-    """``bound_ms`` and ``bound_by`` of ``flops`` operations (at ``peak``
-    a second) on ``nbytes``."""
-    t_ops = flops / peak * 1e3
-    t_mem = nbytes / PEAK_BYTES * 1e3
+def bound(c):
+    """``bound_ms`` and ``bound_by`` of a kernel's work, a
+    ``kernels/cost.py`` ``Cost``: its operations at the peak of their
+    units, its bytes at the HBM rate (the dry run charges the same
+    functions, ``roofline/count.py``)."""
+    t_ops = c.flops / (PEAK_F32_FLOPS if c.f32 else PEAK_BF16_FLOPS) * 1e3
+    t_mem = c.nbytes / PEAK_BYTES * 1e3
     return (dict(bound_ms=t_ops, bound_by="operations") if t_ops >= t_mem
             else dict(bound_ms=t_mem, bound_by="bytes"))
 
@@ -597,6 +610,7 @@ def phase_kernels(dev, build_log=None):
     from repro_torch.kernels import LAUNCHES as LAUNCHES_
     from repro_torch.kernels import _build, reset_launch_counts, sm_count
     from repro_torch.kernels import adamw as kadamw
+    from repro_torch.kernels import cost
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
@@ -636,9 +650,8 @@ def phase_kernels(dev, build_log=None):
                                                   kv_head=kvh)),
             plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
                 q, k, v, causal=causal, kv_head=kvh), iters=5),
-            # causal: half the tiles; q, o, k and v once
-            **bound(4.0 * B * Sq * S * H * hd * (0.5 if causal else 1.0),
-                    2 * (2 * q.numel() + k.numel() + v.numel())),
+            **bound(cost.flash_attention(B, Sq, S, H, Hk, hd,
+                                         causal=causal)),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True)),
             **device_times(
@@ -672,11 +685,11 @@ def phase_kernels(dev, build_log=None):
         def kernel():
             return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                           kv_head=kvh)
-        nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
+        need = cost.flash_attention_bwd(B, S, S, H, Hk, hd, causal=causal)
         # a product of 2 S^2 hd FLOP a (batch, head), causal: half the
         # tiles; the function needs 5, the kernel's two passes do 7 (S and
         # dP in both), the dK/dV pass 4 of them and the dQ pass 3
-        product = 2.0 * B * S * S * H * hd * (0.5 if causal else 1.0)
+        product = need.flops / 5
         times = device_times([kernel], [sdpa_bwd])
         geo = fa.flash_bwd_geometry(B, H, Hk, S, S, hd,
                                     torch.cuda.get_device_properties(
@@ -697,7 +710,7 @@ def phase_kernels(dev, build_log=None):
             plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
                 q, k, v, o, do, lse, causal=causal, kv_head=kvh), iters=3),
             # 2.5 times the forward's products, causal: half the tiles
-            **bound(5 * product, nbytes),
+            **bound(need),
             library_ms=cuda_ms(sdpa_bwd, iters=10),
             **times,
             pass_device_ms=parts,
@@ -738,8 +751,7 @@ def phase_kernels(dev, build_log=None):
             ms=cuda_ms(lambda: rn.rmsnorm_bwd(x, gw, dh), iters=50),
             plain_ms=cuda_ms(lambda: rn.rmsnorm_bwd_plain(x, gw, dh),
                              iters=20),
-            # x and dh read, dx written; g read and dg written
-            **bound(8.0 * n * d, (3 * n * d + 2 * d) * 2),
+            **bound(cost.rmsnorm_bwd(n, d)),
             library_ms=cuda_ms(library, iters=50),
             **device_times([lambda: rn.rmsnorm_bwd(x, gw, dh)], [library])),
             lambda: rn.rmsnorm_bwd(x, gw, dh), n, d, False)
@@ -766,8 +778,7 @@ def phase_kernels(dev, build_log=None):
                        iters=50),
             plain_ms=cuda_ms(lambda: rn.fused_add_rmsnorm_bwd_plain(
                 s, gw, dh, dso), iters=20),
-            # s, dh and ds_out read, ds written; g read and dg written
-            **bound(10.0 * n * d, (4 * n * d + 2 * d) * 2),
+            **bound(cost.fused_add_rmsnorm_bwd(n, d)),
             # no single PyTorch call computes it: the backward of
             # torch.add then F.rms_norm is timed beside it as a yardstick
             library_ms=None,
@@ -802,8 +813,7 @@ def phase_kernels(dev, build_log=None):
                                                     kv_head=kvh), iters=50),
             plain_ms=cuda_ms(lambda: dec.decode_attention_plain(
                 q, kc, vc, clen, kv_head=kvh), iters=10),
-            **bound(4.0 * sum(lens) * H * hd,
-                    2 * sum(lens) * Hk * hd * 2 + 2 * q.numel() * 2 + 4 * B),
+            **bound(cost.decode_attention(lens, H, Hk, hd)),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=50),
             caches_rotated=len(sets),
@@ -823,7 +833,7 @@ def phase_kernels(dev, build_log=None):
             **compare("rmsnorm", [(out, ref)]),
             ms=cuda_ms(lambda: rn.rmsnorm(x, gw), iters=50),
             plain_ms=cuda_ms(lambda: rn.rmsnorm_plain(x, gw), iters=20),
-            **bound(4.0 * n * d, (2 * n * d + d) * 2),
+            **bound(cost.rmsnorm(n, d)),
             library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), gw, 1e-5),
                                iters=50),
             **device_times([lambda: rn.rmsnorm(x, gw)],
@@ -846,7 +856,7 @@ def phase_kernels(dev, build_log=None):
                 x, y, gw, block_rows=block_rows), iters=50),
             plain_ms=cuda_ms(lambda: rn.fused_add_rmsnorm_plain(x, y, gw),
                              iters=20),
-            **bound(6.0 * n * d, (4 * n * d + d) * 2),
+            **bound(cost.fused_add_rmsnorm(n, d)),
             # no single PyTorch call computes it: torch.add then
             # F.rms_norm is timed beside it as a yardstick
             library_ms=None,
@@ -881,8 +891,7 @@ def phase_kernels(dev, build_log=None):
             ms=cuda_ms(lambda: gm.grouped_ffn(x, w1, w3, w2)),
             plain_ms=cuda_ms(lambda: gm.grouped_ffn_plain(x, w1, w3, w2),
                              iters=5),
-            **bound(6.0 * E * N * D * Fd,
-                    2 * (2 * E * N * D + 3 * E * D * Fd)),
+            **bound(cost.grouped_ffn(E, N, D, Fd)),
             # no single PyTorch call computes the gated FFN: the cuBLAS
             # composition bmm x3 + silu*mul is timed beside it as a yardstick
             library_ms=None,
@@ -946,9 +955,7 @@ def phase_kernels(dev, build_log=None):
                     y, ins, dy, retain_graph=True), iters=5)),
             ms=cuda_ms(kernel),
             plain_ms=cuda_ms(plain, iters=5),
-            # 3 bf16 values read and 3 written an element; ~13 f32
-            # operations (an exp among them)
-            **bound(13.0 * n, 12.0 * n, peak=PEAK_F32_FLOPS),
+            **bound(cost.grouped_ffn_gate_bwd(n)),
             # no single PyTorch call computes the gate's backward: the
             # plain composition of torch ops is the yardstick
             library_ms=None,
@@ -961,18 +968,12 @@ def phase_kernels(dev, build_log=None):
         out, ref = ssd.ssd_scan(*args), ssd.ssd_scan_plain(*args)
         torch.cuda.synchronize()
         Q = ssd.chunk_len(L, 128)
-        # what the function needs: C_i . B_j once per group and only for
-        # j <= i (Q(Q+1)/2 dot products of N per chunk), M x over the same
-        # triangle per head, and C S and the state update (N P each) per
-        # row and head; x and y, B and C, dt once
-        flops = b * L * ((G * N + H * P) * (Q + 1) + 4 * H * N * P)
-        nbytes = 2 * 2 * b * L * H * P + 2 * 2 * b * L * G * N + 4 * b * L * H
         return dict(
             shape=f"{what}: b={b} L={L} H={H} P={P} G={G} N={N} Q={Q} bf16",
             **compare("ssd_scan", [(out, ref)]),
             ms=cuda_ms(lambda: ssd.ssd_scan(*args), iters=10),
             plain_ms=cuda_ms(lambda: ssd.ssd_scan_plain(*args), iters=3),
-            **bound(flops, nbytes),
+            **bound(cost.ssd_scan(b, L, H, P, G, N, Q)),
             # no single PyTorch call computes an SSD scan
             library_ms=None,
             **device_times([lambda: ssd.ssd_scan(*args)]))
@@ -1006,17 +1007,6 @@ def phase_kernels(dev, build_log=None):
             return ssd.ssd_scan_bwd(*args, dy)
 
         Q = ssd.chunk_len(L, 128)
-        tri = Q * (Q + 1) // 2
-        # what the chunked VJP needs, per head and chunk: the recomputed
-        # state update and sum_i exp(cum_i) C_i^T dy_i, dx's, dC's and
-        # dB's inter-chunk terms (2 Q N P each), dy_i . x_j and dx's M
-        # term over the triangle (2 T P each), dC's and dB's intra terms
-        # (2 T N each); C_i . B_j over the triangle once per group;
-        # x, dy, dx, B, C, dB, dC, dt, ddt, A, D, dA and dD once
-        flops = b * (L // Q) * (H * (10 * Q * N * P + 4 * tri * (P + N))
-                                + G * 2 * tri * N)
-        nbytes = (3 * 2 * b * L * H * P + 4 * 2 * b * L * G * N
-                  + 2 * 4 * b * L * H + 4 * 4 * H)
         geo = ssd.ssd_bwd_geometry(b, L, H, G, N, Q, sm_count(0))
         out = dict(
             shape=f"{what}: b={b} L={L} H={H} P={P} G={G} N={N} Q={Q}, "
@@ -1028,7 +1018,7 @@ def phase_kernels(dev, build_log=None):
             ms=cuda_ms(kernel, iters=10),
             plain_ms=cuda_ms(lambda: ssd.ssd_scan_bwd_plain(*args, dy),
                              iters=3),
-            **bound(flops, nbytes),
+            **bound(cost.ssd_scan_bwd(b, L, H, P, G, N, Q)),
             # no single PyTorch call computes the scan's gradient: the
             # yardstick is autograd of the plain composition
             library_ms=None,
@@ -1102,8 +1092,8 @@ def phase_kernels(dev, build_log=None):
         sc = adamw_scalars(1000, 1)
         err, same = adamw_bits(*st, sc)
         n = sum(p.numel() for p in st[0])
-        nbytes = sum(p.numel() * (2 * p.element_size() + g.element_size()
-                                  + 16) for p, g in zip(st[0], st[1]))
+        need = cost.adamw([(p.numel(), p.element_size(), g.element_size())
+                           for p, g in zip(st[0], st[1])])
         before = LAUNCHES_["adamw"]
         kadamw.adamw(*st, **sc, **consts)
         launches = LAUNCHES_["adamw"] - before
@@ -1119,9 +1109,8 @@ def phase_kernels(dev, build_log=None):
             ms=cuda_ms(lambda: kadamw.adamw(*st, **sc, **consts), iters=20),
             plain_ms=cuda_ms(lambda: kadamw.adamw_plain(*st, **sc, **consts),
                              iters=3),
-            # ~17 f32 operations an element outside the tensor cores
-            **bound(17.0 * n, nbytes, PEAK_F32_FLOPS),
-            bytes_per_param=nbytes / n,
+            **bound(need),
+            bytes_per_param=need.nbytes / n,
             # torch.optim.AdamW's arithmetic differs (optim/adamw.py), so
             # no single PyTorch call computes this function
             library_ms=None,
@@ -2981,22 +2970,18 @@ def phase_spec(dev, params, gpu, totals, arch="chatglm3-6b"):
             for p, t in zip(prompts, plain64["tokens"])]
     del plain64
     oracle = {}
-    for order in (("plain", 4, 8), (8, 4, "plain")):
-        for k in order:
-            spec = None if k == "plain" else spec_config(
-                oracle_proposer(seqs), k)
-            r = spec_run(prog, params, spec)
-            st = r["counters"]
-            row = oracle.setdefault(str(k), {"tokens_per_s": [],
-                                             "wall_s": []})
-            row["tokens_per_s"].append(r["tokens_per_s"])
-            row["wall_s"].append(r["wall_s"])
-            row["counters"] = st
-            if k != "plain":
-                row["acceptance"] = st["spec_accepted"] / max(
-                    1, st["spec_drafted"])
-                row["tokens_equal_plain"] = r["tokens"] == plain["tokens"]
-            del r
+    for k in ("plain", 4, 8):
+        spec = None if k == "plain" else spec_config(
+            oracle_proposer(seqs), k)
+        r = spec_run(prog, params, spec)
+        st = r["counters"]
+        row = oracle[str(k)] = {"tokens_per_s": [r["tokens_per_s"]],
+                                "wall_s": [r["wall_s"]], "counters": st}
+        if k != "plain":
+            row["acceptance"] = st["spec_accepted"] / max(
+                1, st["spec_drafted"])
+            row["tokens_equal_plain"] = r["tokens"] == plain["tokens"]
+        del r
     # the verify step's cost at k = 2, 4, 8 against the plain tier-4 step,
     # and its profile, on an oracle engine in its steady decode
     engine = serve_engine(prog, params, 64,
@@ -5311,9 +5296,136 @@ def phase_mesh_one_rank(dev, gpu, totals, mesh):
          "decode_tier4_graph_ms_in_turns": dec_ms,
          "launches": launches, "mesh_launched_dense_kernels": mesh_launched,
          "ok": ok})
-    del params, tiers, steps
+    del tiers
     gc.collect()
     torch.cuda.empty_cache()
+    ok = phase_dryrun(gpu, lambda: steps["mesh"](params, batch),
+                      {"prefill": min(pre_ms["mesh"]),
+                       "decode": min(dec_ms["mesh"])},
+                      (params, batch)) and ok
+    del params, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+DRYRUN_PEAK_TOL = 0.2        # the eager prefill's growth against the count
+
+
+def phase_dryrun(dev_gpu, prefill_eager, graph_ms, args_on_card):
+    """``launch/dryrun.py`` held to the card: the one-rank mesh's
+    chatglm3-6b prefill (2, 2048) graph and tier-4 decode step counted on
+    ``meta`` at mesh {data: 1, model: 1}; each replay's measured time at
+    or above the dry run's ``t_bound`` (a count over the card's peak is a
+    wrong count; ``t_bound`` charges the full products, the masked half
+    of causal attention included, so the share at the unmasked FLOPs is
+    printed beside it); the prefill's ``argument_bytes`` equal to the
+    bytes of the params and batch on the card (``args_on_card``); an
+    eager prefill's growth of allocated memory (its peak less what was
+    allocated before it) within ``DRYRUN_PEAK_TOL`` of the count's output
+    and temporaries (``peak_per_device - argument_bytes``), over the
+    plans' own streams and over one stream, each against its own count;
+    then
+    grok-1-314b x decode_32k x pod16x16 at full depth on ``meta``, whose
+    size is a finding (it fails only if not ok or a term is not finite and
+    positive)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import streams
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.count import storages
+    cfg = get_config("chatglm3-6b")
+    one = dryrun.ShapeMesh((1, 1), ("data", "model"))
+    shapes = {"prefill": ShapeConfig(f"prefill_{MESH_PREFILL[0]}x"
+                                     f"{MESH_PREFILL[1]}", MESH_PREFILL[1],
+                                     MESH_PREFILL[0], "prefill"),
+              "decode": ShapeConfig(f"decode_{MESH_DECODE[0]}x"
+                                    f"{MESH_DECODE[1]}", MESH_DECODE[1],
+                                    MESH_DECODE[0], "decode")}
+    steps, ok = {}, True
+    for kind, shape in shapes.items():
+        run = dryrun.count_step(cfg, shape, one)
+        rec = dryrun.record(cfg, shape, one, run, mesh_name="1x1")
+        rl = rec["roofline"]
+        bound_ms = rl["t_bound"] * 1e3
+        unmasked = rec["cost"]["flops"] - run["masked_flops"]
+        bound_unmasked_ms = max(unmasked / PEAK_BF16_FLOPS,
+                                rl["t_memory"], rl["t_collective"]) * 1e3
+        step_ok = rec["status"] == "ok" and graph_ms[kind] >= bound_ms
+        ok = ok and step_ok
+        steps[kind] = {
+            "shape": shape.name, "t_bound_ms": bound_ms,
+            "graph_replay_ms": graph_ms[kind],
+            "roofline_share": bound_ms / graph_ms[kind],
+            "bottleneck": rl["bottleneck"],
+            "t_compute_ms": rl["t_compute"] * 1e3,
+            "t_memory_ms": rl["t_memory"] * 1e3,
+            "t_collective_ms": rl["t_collective"] * 1e3,
+            "flops": rec["cost"]["flops"],
+            "flops_unmasked": unmasked,
+            "t_bound_unmasked_ms": bound_unmasked_ms,
+            "roofline_share_unmasked": bound_unmasked_ms / graph_ms[kind],
+            "bytes": rec["cost"]["bytes accessed"],
+            "memory": rec["memory"], "build_s": rec["build_s"],
+            "counted_s": rec["lower_s"], "ok": step_ok}
+    # what the prefill is given, and what one eager run (lowered, no
+    # graph) allocates on top of it, over the plans' own streams (which
+    # hold what the side streams touch until the join) and over one
+    mem = steps["prefill"]["memory"]
+    on_card = sum(storages(args_on_card).values())
+    args_ok = on_card == mem["argument_bytes"]
+    with streams.one_stream():
+        mem_one = dryrun.count_step(cfg, shapes["prefill"], one)["memory"]
+    growth = {}
+    for name, m, ctx in (("streams", mem, contextlib.nullcontext),
+                         ("one_stream", mem_one, streams.one_stream)):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx():
+            out = prefill_eager()
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - before
+        del out
+        want = m["peak_per_device"] - m["argument_bytes"]
+        growth[name] = {"allocated_before": before,
+                        "peak_less_before": grew,
+                        "dry_run_output_plus_temp": want,
+                        "ratio": grew / want,
+                        "ok": abs(grew / want - 1.0) <= DRYRUN_PEAK_TOL}
+    peak_ok = all(g["ok"] for g in growth.values())
+    # a cell that exists only at scale
+    grok = dryrun.run_cell("grok-1-314b", "decode_32k", verbose=False)
+    terms = {k: grok.get("roofline", {}).get(k) for k in
+             ("t_compute", "t_memory", "t_collective", "t_bound")}
+    grok_ok = grok["status"] == "ok" and all(
+        v is not None and math.isfinite(v) and v > 0 for v in terms.values())
+    ok = ok and args_ok and peak_ok and grok_ok
+    log({"phase": "dryrun", "gpu": dev_gpu,
+         "figures": "hw.py: 989e12 FLOP/s bf16, 3.35e12 B/s HBM, 18 x 25e9 "
+                    "B/s NVLink",
+         "one_rank_mesh": steps,
+         "prefill_arguments": {
+             "params_and_batch_on_card": on_card,
+             "dry_run_argument_bytes": mem["argument_bytes"],
+             "ok": args_ok},
+         "eager_prefill_growth": {**growth, "tolerance": DRYRUN_PEAK_TOL,
+                                  "ok": peak_ok},
+         "grok_decode_32k_pod16x16": {
+             "status": grok["status"], "memory": grok.get("memory"),
+             "cost": grok.get("cost"),
+             "collective_payload_bytes": grok.get(
+                 "collective_payload_bytes"),
+             "terms_s": terms, "bottleneck": grok.get(
+                 "roofline", {}).get("bottleneck"),
+             "build_s": grok.get("build_s"), "counted_s": grok.get("lower_s"),
+             "ok": grok_ok},
+         "ok": ok})
     return ok
 
 

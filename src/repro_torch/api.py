@@ -129,7 +129,10 @@ def compile(model, policy=None, smoke: bool = False, device=None,
                  ``DeviceMesh`` from ``launch.mesh.make_mesh``: the
                  program's steps are then rank-local over its groups
                  (``launch/steps.py``), ``init_params`` gives this rank's
-                 shard, and ``serve`` / ``save`` refuse.
+                 shard, and ``serve`` / ``save`` refuse; or a
+                 ``launch.dryrun.ShapeMesh``, a mesh's shape alone (the
+                 dry run's: steps of rank 0's local shapes, built with
+                 no process group, run on ``meta``).
     ``mesh_info`` — the ``MeshInfo`` to build the model with under a
                  ``DeviceMesh`` when ``launch.mesh.make_mesh_info``'s
                  default (no FSDP) is not wanted, e.g. ``fsdp=True``.

@@ -32,7 +32,11 @@ stream, memory and network on side streams forked from it at entry),
 waiting on the events of the producers it reads from other streams, and
 every side stream joined back before the call returns; what a side
 stream touches is held until that join (under autograd, marked with
-``record_stream``), so no storage is reused under a pending read.  The stream program is derived with the instructions by
+``record_stream``), so no storage is reused under a pending read.  On
+``meta`` tensors (the dry run, ``launch/dryrun.py``) the loop runs in
+order as on the CPU and holds, without autograd, what the stream program
+holds on the card, so the live memory it shows is the card's.  The
+stream program is derived with the instructions by
 ``lower``, ``specialize`` and ``plan_serde.rehydrate``
 (``LoweredPlan.streams``, never persisted); ``Instr`` stays the JAX
 package's.  Any assignment of instructions to streams gives the bits of
@@ -125,22 +129,34 @@ class LoweredPlan:
         from .backend import _resolve_path
         pvals = [_resolve_path(params, p) for p in self.param_paths]
         env: list = [None] * self.n_slots
-        dev = None
+        dev = meta = None
         for name, slot in self.input_slots:
             if name not in inputs:
                 raise KeyError(f"missing graph input {name!r}")
             v = env[slot] = inputs[name]
             if dev is None and getattr(v, "is_cuda", False):
                 dev = v.device
+            meta = meta or getattr(v, "is_meta", False)
         if dev is not None:
             from .streams import program_of, run
             return run(self, program_of(self), pvals, env, dev)
-        for ins in self.instrs:
-            self._land(ins, env, self._exec(ins, pvals,
-                                            self._args(ins, env)))
+        keep = None
+        if meta:
+            from .streams import program_of, records_grad
+            if not records_grad(self, pvals, env):
+                keep = program_of(self).held
+        held = []
+        for i, ins in enumerate(self.instrs):
+            args = self._args(ins, env)
+            outs = self._exec(ins, pvals, args)
+            bufs = self._land(ins, env, outs)
+            if keep is not None and keep[i]:
+                held.append((args, outs, bufs))
             for s in ins.frees:
                 env[s] = None
-        return {name: env[slot] for name, slot in self.output_slots}
+        out = {name: env[slot] for name, slot in self.output_slots}
+        del held
+        return out
 
     @staticmethod
     def _args(ins: Instr, env: list) -> list:

@@ -266,6 +266,14 @@ def _records(x) -> bool:
     return False
 
 
+def records_grad(lowered, pvals: list, env: list) -> bool:
+    """True iff autograd records this call of ``lowered``: then what a
+    side stream touches is marked with ``record_stream``, not held."""
+    return torch.is_grad_enabled() and (
+        _records(pvals) or _records([env[s] for _n, s in
+                                     lowered.input_slots]))
+
+
 def _record_stream(xs, stream):
     for x in xs:
         if isinstance(x, torch.Tensor):
@@ -284,9 +292,7 @@ def run(lowered, prog: StreamProgram, pvals: list, env: list,
         for s in sides.values():
             s.wait_event(fork)
     events = [torch.cuda.Event() for _ in range(prog.n_events)]
-    grad = torch.is_grad_enabled() and (
-        _records(pvals) or _records([env[s] for _n, s in
-                                     lowered.input_slots]))
+    grad = records_grad(lowered, pvals, env)
     held = []
     active = cur
     try:
@@ -323,5 +329,5 @@ def run(lowered, prog: StreamProgram, pvals: list, env: list,
 
 
 __all__ = ["RESOURCE_STREAM", "StreamProgram", "assigned", "dependencies",
-           "derive", "one_stream", "program_of", "run", "schedule",
-           "side_stream", "step_resource"]
+           "derive", "one_stream", "program_of", "records_grad", "run",
+           "schedule", "side_stream", "step_resource"]

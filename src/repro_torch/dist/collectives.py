@@ -11,6 +11,12 @@ source runnable on one card and on a mesh without edits (the paper's
 transparency requirement).  Bound, every collective the model
 differentiates through is an autograd Function (see below), and
 ``ppermute`` is point-to-point send/recv.
+
+A dry run (``launch/dryrun.py``) binds an axis to a :class:`Recorder`
+instead of a process group: each collective over it returns a result of
+the right shape, computes nothing, and records its result's bytes on
+this rank under its kind for the counter that counts
+(``roofline/count.py``), forwards and backwards alike.
 """
 from __future__ import annotations
 
@@ -20,21 +26,62 @@ _AXES: dict = {}     # axis name -> torch.distributed process group
 _SIZES: dict = {}    # axis name -> its group's size, read once at binding
 
 
+class Recorder:
+    """The stand-in for an axis's process group in a dry run: the axis
+    has ``size`` ranks and this rank sits at ``index``.  Each collective
+    over it returns an empty tensor of its result's shape and records the
+    result's bytes, the JAX package's rule for an HLO collective
+    (``roofline/hlo.py``): ``psum``, ``pmax`` and ``compressed_psum``
+    under ``all-reduce``, ``all_gather`` under ``all-gather``,
+    ``reduce_scatter`` under ``reduce-scatter``, ``all_to_all`` under
+    ``all-to-all``, ``ppermute`` under ``collective-permute``.  Over one
+    rank the result is ``x`` itself, as an unbound axis's identity is on
+    the card, so it holds no memory of its own."""
+
+    def __init__(self, size: int, index: int = 0):
+        self.size, self.index = int(size), int(index)
+
+    def result(self, kind: str, x, shape):
+        from ..roofline.count import Counter
+        out = x if self.size == 1 else x.new_empty(shape)
+        if Counter.current is not None:
+            Counter.current.collective(kind, out.numel() * out.element_size())
+        return out
+
+    @staticmethod
+    def resized(x, dim: int, mul: int = 1, div: int = 1) -> list:
+        """``x``'s shape with dim ``dim`` times ``mul`` over ``div``."""
+        shape = list(x.shape)
+        shape[dim % x.ndim] = shape[dim % x.ndim] * mul // div
+        return shape
+
+
 def bind_axis(axis: str, group) -> None:
-    """Route collectives over ``axis`` through ``group`` (``None``
-    unbinds it)."""
+    """Route collectives over ``axis`` through ``group``, a process group
+    or a :class:`Recorder` (``None`` unbinds it)."""
     if group is None:
         _AXES.pop(axis, None)
         _SIZES.pop(axis, None)
         return
-    import torch.distributed as dist
     _AXES[axis] = group
+    if isinstance(group, Recorder):
+        _SIZES[axis] = group.size
+        return
+    import torch.distributed as dist
     _SIZES[axis] = dist.get_world_size(group)
 
 
+def group_of(axis: str):
+    """What ``axis`` is bound to: a process group, a ``Recorder``, or
+    ``None``."""
+    return _AXES.get(axis)
+
+
 def _bound(axis: str) -> bool:
-    """True iff ``axis`` has a process group with more than one rank."""
-    return _SIZES.get(axis, 1) > 1
+    """True iff ``axis`` has a process group with more than one rank, or
+    a ``Recorder`` of any size: a dry run records a collective over one
+    rank as the JAX package's SPMD module keeps it."""
+    return _SIZES.get(axis, 1) > 1 or isinstance(_AXES.get(axis), Recorder)
 
 
 def _dist():
@@ -49,10 +96,21 @@ def axis_size(axis: str) -> int:
 def axis_index(axis: str) -> int:
     if not _bound(axis):
         return 0
-    return _dist().get_rank(_AXES[axis])
+    group = _AXES[axis]
+    if isinstance(group, Recorder):
+        return group.index
+    return _dist().get_rank(group)
+
+
+def _recorder(axis: str):
+    group = _AXES[axis]
+    return group if isinstance(group, Recorder) else None
 
 
 def _all_reduce(x, axis: str, op=None):
+    rec = _recorder(axis)
+    if rec is not None:
+        return rec.result("all-reduce", x, x.shape)
     dist = _dist()
     out = x.clone()
     if op is None:
@@ -64,14 +122,20 @@ def _all_reduce(x, axis: str, op=None):
 
 def _all_gather(x, axis: str, dim: int):
     n = axis_size(axis)
+    rec = _recorder(axis)
+    if rec is not None:
+        return rec.result("all-gather", x, rec.resized(x, dim, mul=n))
     parts = [torch.empty_like(x) for _ in range(n)]
     _dist().all_gather(parts, x.contiguous(), group=_AXES[axis])
     return torch.cat(parts, dim=dim)
 
 
 def _reduce_scatter(x, axis: str, dim: int):
-    dist, group = _dist(), _AXES[axis]
     n = axis_size(axis)
+    rec = _recorder(axis)
+    if rec is not None:
+        return rec.result("reduce-scatter", x, rec.resized(x, dim, div=n))
+    dist, group = _dist(), _AXES[axis]
     if dist.get_backend(group) == "gloo":
         # gloo has no reduce-scatter: all-reduce, keep this rank's chunk
         return _all_reduce(x, axis).chunk(n, dim=dim)[
@@ -84,6 +148,11 @@ def _reduce_scatter(x, axis: str, dim: int):
 
 def _all_to_all(x, axis: str, split_dim: int, concat_dim: int):
     n = axis_size(axis)
+    rec = _recorder(axis)
+    if rec is not None:
+        shape = rec.resized(x, split_dim, div=n)
+        shape[concat_dim % x.ndim] *= n
+        return rec.result("all-to-all", x, shape)
     ins = [p.contiguous() for p in x.chunk(n, dim=split_dim)]
     outs = [torch.empty_like(p) for p in ins]
     _dist().all_to_all(outs, ins, group=_AXES[axis])
@@ -94,6 +163,9 @@ def _ppermute(x, axis: str, perm):
     """Point-to-point: this rank sends ``x`` to every ``dst`` of a pair
     ``(me, dst)`` and receives from the ``src`` of ``(src, me)``; a rank
     nobody sends to gets zeros (``lax.ppermute``'s rule)."""
+    rec = _recorder(axis)
+    if rec is not None:
+        return rec.result("collective-permute", x, x.shape)
     dist, group = _dist(), _AXES[axis]
     me = axis_index(axis)
     x = x.contiguous()

@@ -2,7 +2,8 @@
 
 The values are the card's datasheet figures, which the roofline overlap
 model (``roofline/overlap.py``) and the autotuner (``core/autotune.py``)
-rank candidate plans with.  They are what the card can do at most, not
+rank candidate plans with, and the dry run's roofline
+(``roofline/model.py``) prices its counts at.  They are what the card can do at most, not
 what the port measured: the card this port is measured on reports itself
 as "NVIDIA H100 80GB HBM3, 700.00 W" (``nvidia-smi --query-gpu=name,
 power.limit``), and a card set to a lower power limit runs slower under

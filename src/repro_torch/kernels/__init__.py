@@ -12,13 +12,18 @@ plain PyTorch version (the port of the JAX package's ``kernels/ref.py``):
   adamw.py             multi-tensor AdamW update            (CUDA C++)
   tokenweave.py        reduce-scatter + fused add/norm + all-gather
   ops.py               the dispatch the model code calls
+  cost.py              each kernel's operations and bytes, from its shapes
 
 A wrapper given a CUDA tensor launches its kernel or raises; a tensor on
-the CPU or the ``meta`` device takes the plain version.  Every CUDA
-wrapper passes its tensor operands through ``kernel_ready``.  Every launch
-adds one to ``LAUNCHES[name]``, so a run can show which kernels its main
-path went through; a CUDA Graph's replay adds the launches its capture
-recorded (``core/capture.py``).
+the CPU takes the plain version.  A tensor on the ``meta`` device takes
+the meta route (``meta_route``): results of the plain version's shapes
+and dtypes, nothing computed, and the kernel's ``cost.py`` count charged
+to the dry run's counter (``roofline/count.py``) while one counts.  Every
+CUDA wrapper passes its tensor operands through ``kernel_ready``.  Every
+launch adds one to ``LAUNCHES[name]``, so a run can show which kernels
+its main path went through; a CUDA Graph's replay adds the launches its
+capture recorded (``core/capture.py``).  A meta route launches nothing
+and counts nothing there.
 """
 import collections
 import functools
@@ -26,6 +31,19 @@ import functools
 import torch
 
 LAUNCHES = collections.Counter()
+
+
+def meta_route(name: str, cost, make):
+    """Kernel ``name`` on ``meta`` tensors: ``make()``'s results (empty
+    tensors of the plain version's shapes and dtypes), with ``cost`` (a
+    ``cost.Cost``) charged to the dry run's counter while one counts
+    (``roofline/count.py``'s ``Counter.current``), in place of its count
+    of the ops ``make`` dispatches."""
+    from ..roofline.count import Counter
+    if Counter.current is None:
+        return make()
+    with Counter.current.kernel(name, cost):
+        return make()
 
 
 def kernel_ready(t: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, sm_count
+from . import LAUNCHES, cost, meta_route, sm_count
 
 _FLAGS = {torch.bfloat16: 0, torch.float32: 1}
 _TABLES: dict = {}      # (device, leaf key) -> (device table, tiles)
@@ -141,6 +141,11 @@ def adamw(ps, gs, ms, vs, lr, scale: Optional[torch.Tensor], c1, c2, *,
     ``adamw_plain`` on the CPU.  ``scale`` None means no clipping."""
     consts = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     if not ps:
+        return
+    if ps[0].device.type == "meta":
+        meta_route("adamw", cost.adamw([
+            (p.numel(), p.element_size(), g.element_size())
+            for p, g in zip(ps, gs)]), lambda: None)
         return
     if ps[0].device.type != "cuda":
         adamw_plain(ps, gs, ms, vs, lr, scale, c1, c2, **consts)

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, _not_capturing, kernel_ready
+from . import LAUNCHES, _not_capturing, cost, kernel_ready, meta_route
 from .flash_attention import LOG2E
 
 TILE_KEYS = 256        # keys a block stages in shared memory at once
@@ -102,6 +102,15 @@ def _identity_heads(dev, H: int) -> torch.Tensor:
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,
                      kv_head: Optional[torch.Tensor] = None):
+    if q.device.type == "meta":
+        # a meta cache_len holds no lengths: every row reads its whole cache
+        B, Sq, H, hd = q.shape
+        return meta_route(
+            "decode_attention",
+            cost.decode_attention([k_cache.shape[1]] * B, H,
+                                  k_cache.shape[2], hd,
+                                  esize=q.element_size()),
+            lambda: q.new_empty((B, Sq, H, v_cache.shape[-1])))
     if q.device.type != "cuda":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       kv_head=kv_head)

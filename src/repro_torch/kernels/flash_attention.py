@@ -16,7 +16,9 @@ mode on and an operand that requires one) it runs ``FlashAttention``, an
 autograd Function whose forward also keeps each row's log-sum-exp
 (B,H,Sq) f32 and whose backward launches the backward kernel (on the
 CPU: the plain forward and ``flash_attention_bwd_plain``).  Otherwise —
-the serve path — the forward alone runs and writes no log-sum-exp.
+the serve path — the forward alone runs and writes no log-sum-exp.  On
+``meta`` tensors both directions take the meta route
+(``kernels.meta_route``, ``cost.py`` rows 1 and 7).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, kernel_ready, sm_count
+from . import LAUNCHES, cost, kernel_ready, meta_route, sm_count
 
 LOG2E = 1.4426950408889634
 
@@ -100,6 +102,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, kv_head)
+    if q.device.type == "meta":
+        return _flash_meta(q, k, v, causal)[0]
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, kv_head=kv_head)
     return _flash_fwd(q, k, v, causal, kv_head)[0]
@@ -114,6 +118,8 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, kv_head):
         if q.device.type == "cuda":
             o, lse = _flash_fwd(q, k, v, causal, kv_head, lse=True)
+        elif q.device.type == "meta":
+            o, lse = _flash_meta(q, k, v, causal, lse=True)
         else:
             o = flash_attention_plain(q, k, v, causal=causal, kv_head=kv_head)
             lse = flash_attention_lse_plain(q, k, causal, kv_head)
@@ -127,6 +133,19 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse,
                                          causal=ctx.causal, kv_head=kv_head)
         return dq, dk, dv, None, None
+
+
+def _flash_meta(q, k, v, causal, lse: bool = False):
+    """The forward's meta route: (o, lse or None)."""
+    B, Sq, H, hd = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    return meta_route(
+        "flash_attention",
+        cost.flash_attention(B, Sq, Sk, H, Hk, hd, causal=causal, lse=lse,
+                             esize=q.element_size()),
+        lambda: (q.new_empty((B, Sq, H, v.shape[-1])),
+                 q.new_empty((B, H, Sq), dtype=torch.float32)
+                 if lse else None))
 
 
 def _checked(q, k, v, kv_head):
@@ -231,6 +250,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         kv_head: Optional[torch.Tensor] = None):
     """(dq, dk, dv) by the backward kernel (``csrc/flash_attention_bwd.cu``)
     on CUDA tensors; ``flash_attention_bwd_plain`` on the CPU."""
+    if q.device.type == "meta":
+        B, Sq, H, hd = q.shape
+        return meta_route(
+            "flash_attention_bwd",
+            cost.flash_attention_bwd(B, Sq, k.shape[1], H, k.shape[2], hd,
+                                     causal=causal, esize=q.element_size()),
+            lambda: (q.new_empty(q.shape), k.new_empty(k.shape),
+                     v.new_empty(v.shape)))
     if q.device.type != "cuda":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          kv_head=kv_head)

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, kernel_ready
+from . import LAUNCHES, cost, kernel_ready, meta_route
 
 
 def grouped_ffn_plain(x, w1, w3, w2):
@@ -35,9 +35,19 @@ def grouped_ffn(x, w1, w3, w2):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, w3, w2)):
         return GroupedFFN.apply(x, w1, w3, w2)
+    if x.device.type == "meta":
+        return _grouped_ffn_meta(x, w1, w2)
     if x.device.type != "cuda":
         return grouped_ffn_plain(x, w1, w3, w2)
     return _grouped_ffn_fwd(x, w1, w3, w2)
+
+
+def _grouped_ffn_meta(x, w1, w2):
+    E, N, D = x.shape
+    return meta_route(
+        "grouped_ffn",
+        cost.grouped_ffn(E, N, D, w1.shape[-1], esize=x.element_size()),
+        lambda: x.new_empty((E, N, w2.shape[-1])))
 
 
 class GroupedFFN(torch.autograd.Function):
@@ -47,8 +57,12 @@ class GroupedFFN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, w3, w2):
-        y = (_grouped_ffn_fwd(x, w1, w3, w2) if x.device.type == "cuda"
-             else grouped_ffn_plain(x, w1, w3, w2))
+        if x.device.type == "cuda":
+            y = _grouped_ffn_fwd(x, w1, w3, w2)
+        elif x.device.type == "meta":
+            y = _grouped_ffn_meta(x, w1, w2)
+        else:
+            y = grouped_ffn_plain(x, w1, w3, w2)
         ctx.save_for_backward(x, w1, w3, w2)
         return y
 
@@ -88,6 +102,11 @@ def grouped_ffn_gate_bwd_plain(h1, h3, dh):
 def grouped_ffn_gate_bwd(h1, h3, dh):
     """(dh1, dh3, h) of ``grouped_ffn_gate_bwd_plain`` by the CUDA kernel
     (``csrc/grouped_ffn_bwd.cu``) on CUDA tensors: bf16, one shape."""
+    if h1.device.type == "meta":
+        return meta_route(
+            "grouped_ffn_gate_bwd",
+            cost.grouped_ffn_gate_bwd(h1.numel(), esize=h1.element_size()),
+            lambda: tuple(h1.new_empty(h1.shape) for _ in range(3)))
     if h1.device.type != "cuda":
         return grouped_ffn_gate_bwd_plain(h1, h3, dh)
     from ._build import check, library

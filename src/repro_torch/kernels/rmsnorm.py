@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, kernel_ready, sm_count
+from . import LAUNCHES, cost, kernel_ready, meta_route, sm_count
 
 EPS = 1e-5
 
@@ -195,6 +195,14 @@ def rmsnorm(x, g, *, eps: float = EPS):
 
 
 def _rmsnorm_fwd(x, g, eps):
+    if x.device.type == "meta":
+        out = torch.promote_types(x.dtype, g.dtype)
+        return meta_route(
+            "rmsnorm",
+            cost.rmsnorm(x.shape[0], x.shape[-1], x_esize=x.element_size(),
+                         g_esize=g.element_size(),
+                         out_esize=out.itemsize),
+            lambda: x.new_empty(x.shape, dtype=out))
     if x.device.type != "cuda":
         return rmsnorm_plain(x, g, eps=eps)
     from ._build import check, library
@@ -224,6 +232,15 @@ def fused_add_rmsnorm(x, y, g, *, eps: float = EPS, block_rows: int = 256):
 
 
 def _fused_fwd(x, y, g, eps, block_rows):
+    if x.device.type == "meta":
+        h = torch.promote_types(x.dtype, g.dtype)
+        return meta_route(
+            "fused_add_rmsnorm",
+            cost.fused_add_rmsnorm(x.shape[0], x.shape[-1],
+                                   esize=x.element_size(),
+                                   g_esize=g.element_size(),
+                                   h_esize=h.itemsize),
+            lambda: (x.new_empty(x.shape), x.new_empty(x.shape, dtype=h)))
     if x.device.type != "cuda":
         return fused_add_rmsnorm_plain(x, y, g, eps=eps)
     from ._build import check, library
@@ -310,6 +327,12 @@ def rmsnorm_bwd(x, g, dh, *, eps: float = EPS):
     """(dx, dg) of ``rmsnorm`` at cotangent ``dh``: the kernel of
     ``csrc/rmsnorm_bwd.cu`` on CUDA tensors, the plain version on the
     CPU."""
+    if x.device.type == "meta":
+        return meta_route(
+            "rmsnorm_bwd",
+            cost.rmsnorm_bwd(x.shape[0], x.shape[-1],
+                             esize=x.element_size()),
+            lambda: (x.new_empty(x.shape), g.new_empty(g.shape)))
     if x.device.type != "cuda":
         return rmsnorm_bwd_plain(x, g, dh, eps=eps)
     from ._build import check, library
@@ -336,6 +359,14 @@ def fused_add_rmsnorm_bwd(s, g, dh, ds_out, *, eps: float = EPS):
     """(ds, ds, dg) of ``fused_add_rmsnorm`` from its residual ``s``: the
     kernel of ``csrc/rmsnorm_bwd.cu`` on CUDA tensors (one ds, handed out
     twice), the plain version on the CPU."""
+    if s.device.type == "meta":
+        def make():
+            ds = s.new_empty(s.shape)
+            return ds, ds, g.new_empty(g.shape)
+        return meta_route(
+            "fused_add_rmsnorm_bwd",
+            cost.fused_add_rmsnorm_bwd(s.shape[0], s.shape[-1],
+                                       esize=s.element_size()), make)
     if s.device.type != "cuda":
         return fused_add_rmsnorm_bwd_plain(s, g, dh, ds_out, eps=eps)
     from ._build import check, library

@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, _not_capturing, kernel_ready, sm_count
+from . import (LAUNCHES, _not_capturing, cost, kernel_ready, meta_route,
+               sm_count)
 
 _WORK: dict = {}       # per (device, stream, geometry): states + flags
 
@@ -196,6 +197,8 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, B, C, D)):
         return SSDScan.apply(x, dt, A, B, C, D, chunk)
+    if x.device.type == "meta":
+        return _ssd_meta(x, B, chunk)
     if x.device.type != "cuda":
         return ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
     return _ssd_fwd(x, dt, A, B, C, D, chunk)
@@ -210,6 +213,8 @@ class SSDScan(torch.autograd.Function):
     def forward(ctx, x, dt, A, B, C, D, chunk):
         if x.device.type == "cuda":
             y = _ssd_fwd(x, dt, A, B, C, D, chunk)
+        elif x.device.type == "meta":
+            y = _ssd_meta(x, B, chunk)
         else:
             y = ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
         ctx.save_for_backward(x, dt, A, B, C, D)
@@ -220,6 +225,15 @@ class SSDScan(torch.autograd.Function):
     def backward(ctx, dy):
         return (*ssd_scan_bwd(*ctx.saved_tensors, dy, chunk=ctx.chunk),
                 None)
+
+
+def _ssd_meta(x, B, chunk):
+    b, L, H, P = x.shape
+    return meta_route(
+        "ssd_scan",
+        cost.ssd_scan(b, L, H, P, B.shape[2], B.shape[3],
+                      chunk_len(L, chunk)),
+        lambda: x.new_empty(x.shape))
 
 
 def _checked(x, dt, A, B, C, D, chunk, what):
@@ -315,8 +329,17 @@ def ssd_bwd_heads(H: int, G: int, sets: int) -> dict:
 def ssd_scan_bwd(x, dt, A, B, C, D, dy, *, chunk: int = 128):
     """(dx, ddt, dA, dB, dC, dD) by the backward kernels
     (``csrc/ssd_scan_bwd.cu``) on CUDA tensors; ``ssd_scan_bwd_plain`` on
-    the CPU or ``meta``.  Per-call buffers come from ``torch.empty`` (the
-    graph's pool under capture); the kernels write every word they read."""
+    the CPU; the meta route on ``meta``.  Per-call buffers come from
+    ``torch.empty`` (the graph's pool under capture); the kernels write
+    every word they read."""
+    if x.device.type == "meta":
+        b, L, H, P = x.shape
+        return meta_route(
+            "ssd_scan_bwd",
+            cost.ssd_scan_bwd(b, L, H, P, B.shape[2], B.shape[3],
+                              chunk_len(L, chunk)),
+            lambda: tuple(t.new_empty(t.shape)
+                          for t in (x, dt, A, B, C, D)))
     if x.device.type != "cuda":
         return ssd_scan_bwd_plain(x, dt, A, B, C, D, dy, chunk=chunk)
     from ._build import check, library, strides_arg

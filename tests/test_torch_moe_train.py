@@ -22,14 +22,20 @@ absorbs (the attention probabilities, dh * g): the losses agree within
 1e-3 and the grad norms within 5e-3.
 
 One leaf is held to its own limit: the embedding table's update within
-1e-1.  Its gradient sums dx at the bottom of the model over every
-occurrence of a token, and in the MoE model those sums cancel more: its
-update differs from the reference's by 4.5e-2 after one step and
-6.7e-2 after two under every policy, and by the same 4.5e-2 (5.0e-2
-after two) with the port's expert FFN replaced by the reference's
-rounding (h1, h3 and h in bf16) — so the grouped FFN is not its cause;
-the dense chatglm3-6b smoke model's is 1.7e-2.  Every other leaf stays
-within 1.4e-2.
+1e-1.  Its update differs from the reference's by 4.5e-2 after one step
+and 6.7e-2 after two under every policy.  The cause is one route: the
+two packages' routers pick a different second expert for one token of
+the first batch, whose second and third probabilities the reference has
+at 0.10408 and 0.10306, a near tie inside the bf16 rounding (~0.8% of
+the router's input) the two forwards differ by from the first layer on.
+Every op's cotangent agrees within 4.3e-2 up to the expert buffer,
+where the flipped token moves every later token of its two experts to
+another slot; the embedding's gradient sums dx over every occurrence of
+a token, so the flipped token's dx reaches its row.  With the
+reference's routes given to the port, every leaf's update, the
+embedding's included, agrees within 1.9e-2 (the dense chatglm3-6b smoke
+model's embedding: 1.7e-2): ``test_embedding_gap_is_a_near_tie_route_flip``
+pins it.  Every other leaf stays within 1.4e-2.
 
 The gradient checks hold ``GroupedFFN``'s backward (recompute, the
 seven grouped products, the gate's backward) to torch.autograd of
@@ -39,6 +45,8 @@ dh3 and h to bf16 where autograd of the f32 plain version keeps f32), and
 ``grouped_ffn_gate_bwd_plain`` to autograd of the gate in f64 (one bf16
 rounding of each output, or f32 round-off).
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -61,7 +69,10 @@ from repro_torch.models.registry import build_model as tbuild_model
 from repro_torch.train import TrainStepConfig
 
 import test_torch_train as tt
+from repro.models import moe as jmoe
+from repro_torch.models import moe as tmoe
 from test_torch_core import _jdtype, graph_summary, plan_summary
+from test_torch_moe import BF16
 
 ARCH = "deepseek-moe-16b"
 B, S = 4, 16
@@ -139,6 +150,93 @@ def test_moe_train_step_matches_reference(policy, monkeypatch):
         # per micro-batch (VBATCH), under autograd
         assert step.strategies["layers"] == "dbo"
         assert step.fn.forward.realizers["layers"].plan.split_sizes == (2, 2)
+
+
+class _RouteLog:
+    """Every router call's probabilities and chosen (virtual) experts,
+    off the router op's kernel patched on its class; the reference's
+    arrive through an ordered ``jax.debug.callback``, the port's meta
+    tracing calls are skipped.  ``force``: expert ids the port's router
+    takes instead of its own, each weighted by the port's probability of
+    it, renormalized over the k, as its kernel weights its own picks."""
+
+    def __init__(self, monkeypatch, module, force=None):
+        self.calls = []
+        orig = module.RouterOp.kernel
+
+        def record(x, wr, ve):
+            logits = np.asarray(x, np.float64) @ np.asarray(wr, np.float64)
+            e = np.exp(logits - logits.max(-1, keepdims=True))
+            self.calls.append((e / e.sum(-1, keepdims=True), np.asarray(ve)))
+
+        def kernel(op, p, x):
+            w, ve = orig(op, p, x)
+            if module is jmoe:
+                jax.debug.callback(record, x.astype(jnp.float32), p["wr"], ve,
+                                   ordered=True)
+                return w, ve
+            if x.device.type == "meta":
+                return w, ve
+            if force is not None:
+                ve = torch.from_numpy(np.array(force)).to(ve.dtype)
+                probs = torch.softmax(torch.matmul(x.float(), p["wr"]), -1)
+                w = probs.gather(-1, ve.long())
+                w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            record(x.detach().float().numpy(), p["wr"].detach().numpy(),
+                   ve.numpy())
+            return w, ve
+        monkeypatch.setattr(module.RouterOp, "kernel", kernel)
+
+
+def _embed_and_worst(jp0, jp, tp):
+    """(the embedding's update's relative L2 against the reference's, the
+    largest of every leaf's)."""
+    j0 = dict(jax.tree_util.tree_leaves_with_path(jp0))
+    out = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
+        keys = tuple(k.key for k in path)
+        t = tp
+        for k in keys:
+            t = t[k]
+        old = tt.np32(j0[path])
+        out[keys] = tt.rel(tt.np32(t) - old, tt.np32(leaf) - old)
+    return out[EMBED], max(out.values())
+
+
+def test_embedding_gap_is_a_near_tie_route_flip(monkeypatch):
+    """One step under ``sequential``: the two packages' routes differ only
+    where the reference's k-th and (k+1)-th probabilities sit within the
+    bf16 rounding of each other (``test_torch_moe.py``'s near-tie rule),
+    and at least one does; with the reference's routes given to the port,
+    every leaf, the embedding's included, is within the 5e-2 every other
+    leaf is held to, and the embedding's gap is less than half of what it
+    is with the port's own routes."""
+    monkeypatch.setattr(tt, "_policy", _policy)
+    jr, tr = _RouteLog(monkeypatch, jmoe), _RouteLog(monkeypatch, tmoe)
+    jms, tms, jp0, jp, tp, _ = tt._run_both(ARCH, "sequential", B=B, S=S,
+                                            steps=1)
+    tt._check_step(jms, tms, jp0, jp, tp, limits={EMBED: EMBED_LIMIT})
+    assert len(jr.calls) == len(tr.calls) == 1
+    (jprob, jve), (_, tve) = jr.calls[0], tr.calls[0]
+    k = tget_smoke(ARCH).moe.top_k
+    flips = np.argwhere((np.sort(jve, -1) != np.sort(tve, -1)).any(-1))
+    assert len(flips) > 0
+    for b, s in flips:
+        p = np.sort(jprob[b, s])[::-1]
+        assert p[k - 1] - p[k] < 2 * (BF16["atol"] + BF16["rtol"] * p[k - 1])
+    own, _ = _embed_and_worst(jp0, jp, tp)
+
+    monkeypatch.undo()
+    monkeypatch.setattr(tt, "_policy", _policy)
+    forced = _RouteLog(monkeypatch, tmoe, force=jve)
+    jms, tms, jp0, jp, tp, _ = tt._run_both(ARCH, "sequential", B=B, S=S,
+                                            steps=1)
+    assert len(forced.calls) == 1
+    np.testing.assert_array_equal(forced.calls[0][1], jve)
+    tt._check_step(jms, tms, jp0, jp, tp)        # 5e-2 for every leaf
+    embed, worst = _embed_and_worst(jp0, jp, tp)
+    assert embed < 5e-2 and worst < 5e-2
+    assert embed < own / 2
 
 
 def test_comet_trains_like_sequential():
