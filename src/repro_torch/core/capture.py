@@ -57,7 +57,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .. import spans
 from ..kernels import LAUNCHES
+
 
 class Staged:
     """A fixed device buffer of ``n`` values fed from two pinned host
@@ -80,7 +82,8 @@ class Staged:
         host, ev = self._host[self._i], self._ev[self._i]
         self._i ^= 1
         if ev is not None:
-            ev.synchronize()
+            with spans.span("stage.wait"):
+                ev.synchronize()
         fill(host.numpy()[:n])
         self.dev[:n].copy_(host[:n], non_blocking=ev is not None)
         if ev is not None:
@@ -90,8 +93,13 @@ class Staged:
 class GraphStep:
     """``fn()`` captured as one CUDA Graph on ``stream`` into ``pool``
     (None: a pool of its own), after ``warm()`` ran there once.
-    ``capture_s`` is the time of warm-up and capture; ``nbytes`` the
-    device memory the capture took (the growth of the allocator's
+    ``capture_s`` is the whole wall time of the construction: the
+    warm-up run, with any plan it builds on its way, waiting for its
+    device work, collecting and emptying the allocator's cache, and the
+    capture proper.  The spans ``graph.warm``, ``graph.settle`` and
+    ``graph.record`` time those three parts, less the spans inside them:
+    a plan built in the warm-up counts under ``plan.build``.  ``nbytes`` is
+    the device memory the capture took (the growth of the allocator's
     reserved bytes across it: 0 where the pool already held enough)."""
 
     def __init__(self, fn: Callable[[], Any], warm: Callable[[], Any], *,
@@ -102,25 +110,27 @@ class GraphStep:
         caller = torch.cuda.current_stream(dev)
         stream.wait_stream(caller)
         before = Counter(LAUNCHES)
-        with torch.cuda.stream(stream):
+        with spans.span("graph.warm"), torch.cuda.stream(stream):
             warm()
         warmed = Counter(LAUNCHES)
         # what entering ``torch.cuda.graph`` does (synchronize, collect,
         # empty the cache), done first so that it does not count below
-        torch.cuda.synchronize(dev)
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_stats(dev).get(
-            "reserved_bytes.all.current", 0)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            self.output = fn()
-        self.launches = Counter(LAUNCHES) - warmed
-        LAUNCHES.clear()              # the capture ran nothing: replays do
-        LAUNCHES.update(warmed if warm_runs_step else before)
-        self.nbytes = max(0, torch.cuda.memory_stats(dev).get(
-            "reserved_bytes.all.current", 0) - reserved)
-        caller.wait_stream(stream)
+        with spans.span("graph.settle"):
+            torch.cuda.synchronize(dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+        with spans.span("graph.record"):
+            reserved = torch.cuda.memory_stats(dev).get(
+                "reserved_bytes.all.current", 0)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.output = fn()
+            self.launches = Counter(LAUNCHES) - warmed
+            LAUNCHES.clear()          # the capture ran nothing: replays do
+            LAUNCHES.update(warmed if warm_runs_step else before)
+            self.nbytes = max(0, torch.cuda.memory_stats(dev).get(
+                "reserved_bytes.all.current", 0) - reserved)
+            caller.wait_stream(stream)
         self.capture_s = time.perf_counter() - t0
 
     def replay(self):

@@ -50,8 +50,9 @@ here and measures them with XLA; the port keeps what its builders
 return, and the serve engine's builders return ``core.capture.GraphStep``
 — one CUDA Graph of a whole decode or prefill step.  A graph's bytes
 (``nbytes``) are what its capture took from the graph memory pool, its
-``capture_s`` (warm-up and capture) counts as ``compile_s``, and
-evicting it drops the graph, so its next use captures anew.
+``capture_s`` (warm-up, any plan built inside it, and capture) counts
+as ``compile_s``, and evicting it drops the graph, so its next use
+captures anew.
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ import time
 from collections import OrderedDict
 from typing import Callable, Optional
 
+from .. import spans
 from .lowering import LoweredPlan, LoweringError, lower, specialize
 from .plan import FINGERPRINT_VERSION, dtype_name, structural_key
 from .plan_serde import (RestoreError, encode_analysis,
@@ -219,8 +221,9 @@ class PlanStore:
         if canonical is not None:
             t0 = time.perf_counter()
             try:
-                lowered = specialize(canonical, graph, plan, capture=capture,
-                                     struct_key=skey)
+                with spans.span("plan.build"):
+                    lowered = specialize(canonical, graph, plan,
+                                         capture=capture, struct_key=skey)
             except LoweringError:
                 # structure drifted (e.g. a batch tier whose scheduler
                 # changed the micro-batch count): full lower below,
@@ -245,7 +248,8 @@ class PlanStore:
                 return lowered
         self.stats["misses"] += 1
         t0 = time.perf_counter()
-        lowered = lower(graph, plan, analysis, capture=capture)
+        with spans.span("plan.build"):
+            lowered = lower(graph, plan, analysis, capture=capture)
         self.stats["lower_s"] += time.perf_counter() - t0
         self._insert(outer, key, lowered)
         return lowered
@@ -486,14 +490,15 @@ class PlanStore:
         plan) and admit the result as a live entry — zero ``lower`` and
         zero ``specialize`` cost."""
         t0 = time.perf_counter()
-        try:
-            lowered = rehydrate(rec, restored["analysis"], graph, plan,
-                                struct_key=skey)
-        except RestoreError:
-            self.stats["restore_rejected"] += 1
-            return None
-        if not self._verify_restored_plan(lowered):
-            return None
+        with spans.span("plan.restore"):
+            try:
+                lowered = rehydrate(rec, restored["analysis"], graph, plan,
+                                    struct_key=skey)
+            except RestoreError:
+                self.stats["restore_rejected"] += 1
+                return None
+            if not self._verify_restored_plan(lowered):
+                return None
         self.stats["restore_s"] += time.perf_counter() - t0
         self.stats["restore_hits"] += 1
         self._insert(outer, key, lowered)
@@ -570,9 +575,13 @@ class PlanStore:
 
         A built object with ``capture_s`` and ``nbytes`` (a
         ``GraphStep``) is accounted as a capture: ``compile_s`` gains
-        its capture time and its bytes are what the capture took from
-        the graph pool; anything else is timed under ``trace_s`` at the
-        floor byte estimate."""
+        its capture time, which includes the warm-up run and any plan
+        built inside it (also in ``lower_s`` or ``specialize_s``), and
+        its bytes are what the capture took from the graph pool;
+        anything else is timed under ``trace_s`` at the floor byte
+        estimate.  The spans ``plan.build``, ``plan.restore`` and
+        ``graph.*`` (``repro_torch.spans``) split the same time without
+        overlap."""
         hit = self._execs.get(key)
         if hit is not None:
             self.stats["exec_hits"] += 1

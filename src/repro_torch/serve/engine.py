@@ -136,6 +136,23 @@ deadlines, preempt-and-requeue, fault isolation, drain).
     (``spec_fallbacks``).  ``k="auto"`` asks the policy's
     ``spec_draft_k`` (``core/autotune.py``), which the engine feeds
     with each step's acceptance and time.
+  * **Spans** (``repro_torch.spans``).  The host work is timed by self
+    time in spans: ``serve.step`` (an iteration), ``serve.admit``,
+    ``serve.prefill`` (a prefill group), ``serve.chunk`` (a chunk
+    group), ``serve.decode`` (a decode or speculative dispatch),
+    ``serve.sync`` (the harvest's wait for the device) and
+    ``serve.harvest`` (the bookkeeping after it); the two waits for the
+    device are ``serve.sync`` and ``stage.wait`` (a pinned staging
+    buffer still read by a queued copy); set-up by ``plan.build``,
+    ``plan.restore`` and ``graph.warm`` / ``graph.settle`` /
+    ``graph.record``.  Every graph replay is a device
+    span, ``prefill/<bp>/<bucket>``, ``chunk/<bc>/<chunk>``,
+    ``decode/<tier>``, ``draft/<tier>/<k>`` or ``verify/<tier>/<k>``,
+    resolved after the harvest's wait.  ``stats["spans"]`` and
+    ``stats["device_spans"]`` are copies of the process-wide tables;
+    ``prefill_slots`` counts the ``bp × bucket`` (``bc × chunk``)
+    positions of every prefill (chunk) group and ``prefill_tokens`` the
+    prompt's among them.
 """
 from __future__ import annotations
 
@@ -148,6 +165,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..core.capture import GraphStep, Staged
 from ..core.plan_store import PlanStore, resolve_plan_store
 from ..core.scheduler import ScheduleContext
@@ -474,6 +492,7 @@ class ServeEngine:
         # reuse each other's traced and scheduled steps
         self._steps: dict = {} if step_cache is None else step_cache
         self._stats = {"prefill_steps": 0, "prefill_reqs": 0,
+                       "prefill_slots": 0, "prefill_tokens": 0,
                        "chunk_steps": 0, "decode_steps": 0,
                        "decode_tokens": 0, "host_syncs": 0, "row_moves": 0,
                        "submitted": 0, "admitted": 0, "finished": 0,
@@ -541,6 +560,7 @@ class ServeEngine:
         self.waiting.append(req)
         return None
 
+    @spans.spanned("serve.step")
     def step(self) -> bool:
         """One engine iteration: admit, dispatch, harvest.  Returns True
         while work remains."""
@@ -685,6 +705,7 @@ class ServeEngine:
         out["spec_builds"] = dict(self._stats["spec_builds"])
         out["plan_store"] = self.store.snapshot()
         out["kv"] = self.cache.kv_stats()
+        out.update(spans.snapshot())
         if self.faults is not None:
             out["faults"] = self.faults.counts
         return out
@@ -869,6 +890,7 @@ class ServeEngine:
                 keep.append(req)
         self.waiting = keep
 
+    @spans.spanned("serve.admit")
     def _admit(self):
         """Fair admission under lifecycle control: shed expired work,
         preempt if pressure or priority demands it, then admit waiting
@@ -906,7 +928,8 @@ class ServeEngine:
                 self._dispatch_prefill(group)
             if denied or not group:
                 break
-        self._step_chunked()
+        if self._chunking:
+            self._step_chunked()
 
     # -- preemption -------------------------------------------------------
     def _maybe_preempt(self):
@@ -977,6 +1000,7 @@ class ServeEngine:
             self._launch_prefill(group)
             return
 
+    @spans.spanned("serve.prefill")
     def _launch_prefill(self, group: list):
         bp = self._tier_for(len(group), self.prefill_tiers)
         prompts = [np.asarray(r.effective_prompt, np.int32) for r in group]
@@ -1009,7 +1033,9 @@ class ServeEngine:
                     last[j] = prompts[j][-1]
         self._prefill_stage.put(fill, self._group_len(bp, bucket))
         if self._graphed:
-            tok = self._group_graph("prefill", bp, bucket).replay()
+            graph = self._group_graph("prefill", bp, bucket)
+            with spans.device_span(f"prefill/{bp}/{bucket}"):
+                tok = graph.replay()
             self._stats["prefill_graph_replays"] += 1
         else:
             tok = self._prefill_run(bp, bucket, self._prefill_stage.dev,
@@ -1033,6 +1059,8 @@ class ServeEngine:
                 req.output.append(-100)
         self._stats["prefill_steps"] += 1
         self._stats["prefill_reqs"] += len(group)
+        self._stats["prefill_slots"] += bp * bucket
+        self._stats["prefill_tokens"] += sum(len(p) for p in prompts)
         self.dispatch_log.append(("prefill", tuple(r.rid for r in group)))
         if slots:
             self._pending_prefill.append((_Fetch(tok), slots))
@@ -1170,17 +1198,17 @@ class ServeEngine:
                                "padded": padded, "chunks": chunks,
                                "next": 0})
 
+    @spans.spanned("serve.chunk")
     def _step_chunked(self):
         """Dispatch the pending chunk of the round-robin head, packed
         with every other in-progress chunked prefill whose next chunk has
         the same length (one call over a real batch, padded to a
         power-of-two group tier; padded slots duplicate slot 0, so their
-        writes are identical).  When a request's final chunk is in flight
-        it joins ``active`` and its first token comes from the sentinel
-        decode step.  No host sync.  An injected dispatch fault fails
-        exactly the packed requests."""
-        if not self._chunking:
-            return
+        writes are identical); called while a chunked prefill is in
+        progress.  When a request's final chunk is in flight it joins
+        ``active`` and its first token comes from the sentinel decode
+        step.  No host sync.  An injected dispatch fault fails exactly
+        the packed requests."""
         head = self._chunking.pop(0)
         c = head["chunks"][head["next"]][1]
         batch, keep = [head], []
@@ -1220,12 +1248,17 @@ class ServeEngine:
                     pages[j] = self.cache.page_table[st["req"].row]
         self._chunk_stage.put(fill, self._group_len(bc, c))
         if self._graphed:
-            self._group_graph("chunk", bc, c).replay()
+            graph = self._group_graph("chunk", bc, c)
+            with spans.device_span(f"chunk/{bc}/{c}"):
+                graph.replay()
             self._stats["chunk_graph_replays"] += 1
         else:
             self._chunk_run(bc, c, self._chunk_stage.dev, self._last_ids,
                             self.cache.caches)
         self._stats["chunk_steps"] += 1
+        self._stats["prefill_slots"] += bc * c
+        self._stats["prefill_tokens"] += sum(
+            min(c, len(st["prompt"]) - o) for st, o in zip(batch, offs))
         self.dispatch_log.append(
             ("chunk", tuple(st["req"].rid for st in batch)))
         for j, st in enumerate(batch):
@@ -1296,17 +1329,18 @@ class ServeEngine:
         if fwd is None:
             graph_phase = "decode" if phase == "chunk" else phase
             q_len = 1 if phase == "decode" else seq
-            segs, _ = self.model.build_segments(graph_phase, batch, q_len,
-                                                s_max=self.cfg.s_max)
             info = ScheduleContext(
                 local_batch=batch,
                 seq_len=self.cfg.s_max if phase == "chunk" else seq,
                 phase=graph_phase, arch=self.model.cfg.name)
             before = dict(self.store.stats)
-            fwd = self._steps[key] = build_forward(
-                segs, self.scheduler, info, lowered=self.cfg.lowered,
-                plan_cache=self.store if self.cfg.lowered else None,
-                op_config=self._op_config, capture=self._graphed)
+            with spans.span("plan.build"):
+                segs, _ = self.model.build_segments(
+                    graph_phase, batch, q_len, s_max=self.cfg.s_max)
+                fwd = self._steps[key] = build_forward(
+                    segs, self.scheduler, info, lowered=self.cfg.lowered,
+                    plan_cache=self.store if self.cfg.lowered else None,
+                    op_config=self._op_config, capture=self._graphed)
             if phase == "decode":
                 st = self.store.stats
                 self._stats["tier_builds"][batch] = {
@@ -1435,6 +1469,7 @@ class ServeEngine:
                 a[B * (6 + self._bpr):] = drafts.reshape(-1)
         self._step_stage.put(fill, self._step_stage.dev.numel())
 
+    @spans.spanned("serve.decode")
     def _dispatch_decode(self):
         """Dispatch one decode step at the smallest tier covering every
         allocated row (chunking rows ride in the prefix, inactive).
@@ -1487,7 +1522,8 @@ class ServeEngine:
             graph = self._graph(tier) if self._graphed else None
             self._stage_step_in(flags, tier)
             if graph is not None:
-                out = graph.replay()
+                with spans.device_span(f"decode/{tier}"):
+                    out = graph.replay()
                 self._stats["graph_replays"] += 1
             else:
                 out = self._decode_run(tier, self._last_ids, self._step_in,
@@ -1548,18 +1584,22 @@ class ServeEngine:
                         " and no preemptible victim"))
             return
 
+    @spans.spanned("serve.harvest")
     def _harvest(self, pending):
         """The loop's single host sync: wait for the pending decode step's
-        token/done vector and any prefill first-token vectors, then run
-        the host bookkeeping, each request inside its own error boundary
-        (an injected harvest fault fails that request alone)."""
+        token/done vector and any prefill first-token vectors, resolve
+        the device spans that ended, then run the host bookkeeping, each
+        request inside its own error boundary (an injected harvest fault
+        fails that request alone)."""
         prefills, self._pending_prefill = self._pending_prefill, []
         if pending is None and not prefills:
             return
         spec = pending is not None and isinstance(pending[0], str)
-        got = [f.wait() for f, _ in prefills]
-        vals = (pending[1] if spec else pending[0]).wait() \
-            if pending is not None else None
+        with spans.span("serve.sync"):
+            got = [f.wait() for f, _ in prefills]
+            vals = (pending[1] if spec else pending[0]).wait() \
+                if pending is not None else None
+        spans.resolve()
         self._stats["host_syncs"] += 1
         now = time.perf_counter()
         for (_, slots), toks in zip(prefills, got):
@@ -1749,14 +1789,16 @@ class ServeEngine:
         self._stage_step_in(flags, tier, drafts)
         if device:
             if self._graphed:
-                draft.replay()
+                with spans.device_span(f"draft/{tier}/{k}"):
+                    draft.replay()
                 self._stats["draft_graph_replays"] += 1
             else:
                 self._draft_run(tier, k, self._last_ids, self._step_in,
                                 self._drafts, self.cache.caches,
                                 self._step_pages)
         if self._graphed:
-            out = verify.replay()
+            with spans.device_span(f"verify/{tier}/{k}"):
+                out = verify.replay()
             self._stats["verify_graph_replays"] += 1
         else:
             out = self._verify_run(tier, k, self._last_ids, self._step_in,
